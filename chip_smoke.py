@@ -5,16 +5,23 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-  1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-     nvcc (sm_90a; ptxas register/shared-memory report printed) and print
-     the card's name and power limit.
-  2. Hold each kernel against its plain PyTorch version on the card: at
-     edge shapes (bs not dividing n, empty block rows and cols, nnzb == 0,
-     k in {3, 16}, r in {1, 4}) and at the sweep's shape with k = 8, to a
-     relative Frobenius error <= 1e-5 and max |diff| <= 1e-4 * max |ref|
-     (XTB's atomics and the plain version's sums add in different
-     orders).  Times kernel, plain version and, for bcsr_spmm, the
-     ``torch.sparse_bsr_tensor @ B`` yardstick with CUDA events.
+  1. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+     with nvcc (sm_90a; ptxas register/shared-memory report printed) and
+     print the card's name and power limit.
+  2. Hold each kernel against its plain PyTorch version on the card.  The
+     BCSR kernels: at edge shapes (bs not dividing n, empty block rows and
+     cols, nnzb == 0, k in {3, 16}, r in {1, 4}) and at the sweep's shape
+     with k = 8, to a relative Frobenius error <= 1e-5 and max |diff| <=
+     1e-4 * max |ref| (XTB's atomics and the plain version's sums add in
+     different orders).  Times kernel, plain version and, for bcsr_spmm,
+     the ``torch.sparse_bsr_tensor @ B`` yardstick with CUDA events.
+     score_topk: n in {1, 5, 1000, 3000}, b in {1, 32, 128}, k in {3, 32},
+     topk in {1, 10, 100, 1024}, held as a top-k (``topk_check``), and
+     exact-tie cases (integer factors, rows of A repeated; n = 500, and
+     n = 40000, where chunks hold several tiles) whose indices must equal
+     the plain version's.  Timed at the serving-scale shape
+     b = 128, n = 4194304, k = 32, topk = 32 beside the plain version and
+     the ``torch.topk(V @ A.T, topk)`` yardstick.
   3. Run the RESCALk sweep through the CLI's own entry point
      (``repro_torch.launch.rescalk_run.main``) at full size on a seeded
      planted COO file: n = 131072 entities, m = 8 relations, bs = 128, the
@@ -28,6 +35,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   4. The same sweep with --fused-impl ref (plain PyTorch products on the
      card, the same TorchDraws numbers): the same k_opt, and per-k
      s_min/s_mean/rel_err within 1e-4.
+  5. Serve the bundle phase 3 wrote through the serve CLI's entry point
+     (``repro_torch.launch.serve.main``): 4096 zipf queries (skew 1.1,
+     mixed directions) in 16 requests, batch 32, topk 10.  The
+     score_topk counter, zeroed just before, must equal the engine's
+     device batches and be above 0.  The first request's latency (the
+     engine's one-time set-up) is printed apart from the other 15.
+     Again with --impl ref: identical stats(), and every answer of both
+     runs passes ``topk_check``.  Then
+     score_topk is timed at the serve path's own shape (b = 32, the
+     bundle's A) beside its plain version and the yardstick, and the
+     stream is served once more under ``torch.profiler`` (the device's
+     idle share and its time by kernel).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -54,9 +73,17 @@ PEAK_FP32_FLOP_PER_S = 67e12
 REL_TOL = 1e-5        # relative Frobenius error, kernel vs plain version
 ABS_TOL = 1e-4        # max |diff| / max |ref|
 SWEEP_TOL = 1e-4      # per-k s_min / s_mean / rel_err, kernel vs ref sweep
+# score_topk: scores against the plain version's and against float64
+# recomputation, relative to the row's largest |score| (fp32 sums of k
+# terms in another order differ by a few ulps)
+TOPK_TOL = 1e-5
 
 FULL = dict(n=131072, m=8, bs=128, off_density=0.005, fill=0.02,
             k_min=2, k_max=5, r=4, iters=300, seed=0)
+# the serve phase's stream, and score_topk's serving-scale timing shape
+SERVE = dict(queries="random:4096:1.1", batch=32, topk=10, requests=16,
+             mode="mixed", seed=0)
+TOPK_SCALE = dict(b=128, n=4194304, k=32, topk=32)
 
 
 def log(msg: str) -> None:
@@ -316,6 +343,132 @@ def phase_kernels(dev) -> list[dict]:
     return rows_out
 
 
+def topk_check(name: str, V64, A64, s, i, ref_s) -> float:
+    """Hold a score_topk result (s, i) to the plain version's scores ref_s
+    and to float64 scores recomputed from V64 (b, k) and A64 (n, k).  Near
+    ties may swap between two correct answers, so this checks a top-k, not
+    index by index: the scores match the plain version's; each returned
+    index's float64 score matches its reported score; no index left out
+    scores above the last reported score; scores descend; the indices are
+    distinct; slots past n are (-inf, -1).  Tolerance TOPK_TOL times the
+    row's largest |score|.  Returns max |s - ref_s| over the real slots."""
+    import torch
+    b, topk = s.shape
+    n = A64.shape[0]
+    require(s.dtype == torch.float32 and i.dtype == torch.int32
+            and tuple(i.shape) == (b, topk) == tuple(ref_s.shape),
+            f"{name}: got {s.dtype} {tuple(s.shape)}, {i.dtype} "
+            f"{tuple(i.shape)}; plain {tuple(ref_s.shape)}")
+    t = min(topk, n)
+    require(bool((i[:, t:] == -1).all()) and bool(torch.isneginf(
+        s[:, t:]).all()), f"{name}: slots past n are not (-inf, -1)")
+    S, I = s[:, :t].double(), i[:, :t].long()
+    require(bool(((I >= 0) & (I < n)).all()), f"{name}: index out of range")
+    require(bool((S[:, :-1] >= S[:, 1:]).all()), f"{name}: not descending")
+    srt = torch.sort(I, dim=1).values
+    require(bool((srt[:, 1:] > srt[:, :-1]).all()),
+            f"{name}: repeated index")
+    worst = 0.0
+    for r0 in range(0, b, 16):                 # (16, n) float64 at a time
+        rows = slice(r0, min(b, r0 + 16))
+        full = V64[rows] @ A64.T
+        tol = TOPK_TOL * full.abs().amax(dim=1)
+        diff = (S[rows] - ref_s[rows, :t].double()).abs()
+        worst = max(worst, float(diff.max()))
+        require(bool((diff <= tol[:, None]).all()),
+                f"{name}: scores differ from the plain version's by "
+                f"{float(diff.max()):.3e}")
+        exact = full.gather(1, I[rows])
+        require(bool(((exact - S[rows]).abs() <= tol[:, None]).all()),
+                f"{name}: a reported score differs from its float64 value")
+        left = full.scatter(1, I[rows], -torch.inf).amax(dim=1)
+        require(bool((left <= S[rows, -1] + tol).all()),
+                f"{name}: an index left out scores above the last "
+                f"reported score")
+    return worst
+
+
+def time_topk(V, A, topk: int, reps: int, plain_reps: int) -> dict:
+    """score_topk kernel, plain version and yardstick times on (V, A), with
+    the bound from this call's bytes and operations."""
+    import torch
+    from repro_torch.kernels import ref, score_topk
+    b, k = V.shape
+    n = A.shape[0]
+    ms = cuda_ms(lambda: score_topk.score_topk(V, A, topk=topk), reps=reps)
+    plain = cuda_ms(lambda: ref.ref_score_topk_stream(V, A, topk),
+                    reps=plain_reps, warmup=1)
+    lib = cuda_ms(lambda: torch.topk(V @ A.T, topk, dim=1), reps=reps)
+    nbytes = 4 * (n * k + b * k) + 8 * b * topk
+    bound_ms, by = bound(nbytes, 2 * b * n * k)
+    log(f"[score_topk] b={b} n={n} k={k} topk={topk}: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, torch.topk(V @ A.T) {lib:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                bound_by=by)
+
+
+def phase_topk(dev) -> dict:
+    """score_topk against its plain version at edge shapes and an
+    exact-tie case, and timed at the serving-scale shape."""
+    import torch
+    from repro_torch.kernels import ref, score_topk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    cases = [(n, topk) for n, topk in ((1, 1), (1, 10), (5, 10), (1000, 1),
+                                       (1000, 10), (1000, 100))]
+    for b in (1, 32, 128):
+        for k in (3, 32):
+            for n, topk in cases + ([(3000, 1024)] if b == 32 else []):
+                V = torch.rand((b, k), generator=gen, device=dev)
+                A = torch.rand((n, k), generator=gen, device=dev)
+                s, i = score_topk.score_topk(V, A, topk=topk)
+                torch.cuda.synchronize()
+                rs, _ = ref.ref_score_topk_stream(V, A, topk)
+                topk_check(f"score_topk [b={b} n={n} k={k} topk={topk}]",
+                           V.double(), A.double(), s, i, rs)
+            log(f"[score_topk] edge cases b={b} k={k}: ok")
+    # exact ties: small integers sum exactly in any order, and the rows of
+    # A repeat every 250 rows.  At n = 500 each chunk is one tile; at
+    # n = 40000 chunks hold several, so ties are also broken between a
+    # full running list and a later tile's candidates
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    base = torch.randint(0, 3, (250, 8), generator=gen, device=dev)
+    for b, n in ((32, 500), (32, 40000), (128, 40000)):
+        A = base[torch.arange(n, device=dev) % 250].float().contiguous()
+        V = torch.randint(0, 3, (b, 8), generator=gen, device=dev).float()
+        p = score_topk.plan(b, n, 8, 100, sms)
+        require(n == 500 or p.chunk_rows > 256,
+                f"score_topk: the tie case b={b} n={n} has one-tile chunks")
+        for topk in (1, 10, 100):
+            s, i = score_topk.score_topk(V, A, topk=topk)
+            rs, ri = ref.ref_score_topk_stream(V, A, topk)
+            require(torch.equal(s, rs) and torch.equal(i, ri),
+                    f"score_topk: exact-tie case b={b} n={n} topk={topk} "
+                    f"differs from the plain version")
+        log(f"[score_topk] exact-tie case b={b} n={n} ({p.n_chunks} chunks "
+            f"of {p.chunk_rows} rows): scores and indices equal the plain "
+            f"version's")
+
+    cfg = TOPK_SCALE
+    V = torch.rand((cfg["b"], cfg["k"]), generator=gen, device=dev)
+    A = torch.rand((cfg["n"], cfg["k"]), generator=gen, device=dev)
+    s, i = score_topk.score_topk(V, A, topk=cfg["topk"])
+    torch.cuda.synchronize()
+    rs, _ = ref.ref_score_topk_stream(V, A, cfg["topk"])
+    err = topk_check("score_topk [serving scale]", V.double(), A.double(),
+                     s, i, rs)
+    log(f"[score_topk] serving scale: max |diff| {err:.3e}")
+    time_topk(V, A, cfg["topk"], reps=10, plain_reps=2)
+    del V, A, s, i, rs
+    torch.cuda.empty_cache()
+    return dict(name="score_topk", route="cuda",
+                source="src/repro_torch/kernels/csrc/score_topk.cu",
+                replaces="src/repro/kernels/score_topk.py:112",
+                launches=0, max_abs_err=None, ms=None, plain_ms=None,
+                bound_ms=None, bound_by=None, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the sweep through the CLI
 # ---------------------------------------------------------------------------
@@ -385,31 +538,36 @@ def check_sweep(res, report: Path, cfg: dict) -> None:
                 f"member errors, k={k}")
 
 
-def phase_sweeps(kernel_rows: list[dict]) -> None:
+def phase_sweeps(kernel_rows: list[dict], tmp: Path) -> Path:
+    """Phases 3 and 4; returns the bundle the kernel sweep wrote."""
     import numpy as np
     from repro_torch.kernels import ops
     cfg = FULL
-    with tempfile.TemporaryDirectory() as tmp:
-        npz = Path(tmp) / "planted.npz"
-        t0 = time.perf_counter()
-        nnz = write_planted_npz(npz, cfg)
-        log(f"[sweep] wrote {nnz} triples in {time.perf_counter() - t0:.1f}s")
+    sweep_kernels = ("bcsr_xa_xta", "bcsr_spmm")
+    npz = tmp / "planted.npz"
+    t0 = time.perf_counter()
+    nnz = write_planted_npz(npz, cfg)
+    log(f"[sweep] wrote {nnz} triples in {time.perf_counter() - t0:.1f}s")
 
-        ops.reset_launch_counts()
-        res, rep = run_sweep(npz, Path(tmp) / "cuda.json", "auto", cfg)
-        launches = ops.launch_counts()
-        log(f"[sweep] kernel launches in the main path: {launches}")
-        for name, count in launches.items():
-            require(count > 0, f"{name} was not launched in the main path")
-        check_sweep(res, Path(tmp) / "cuda.json", cfg)
-        for row in kernel_rows:
+    ops.reset_launch_counts()
+    res, rep = run_sweep(npz, tmp / "cuda.json", "auto", cfg)
+    launches = ops.launch_counts()
+    log(f"[sweep] kernel launches in the main path: {launches}")
+    for name in sweep_kernels:
+        require(launches[name] > 0, f"{name} was not launched in the sweep")
+    check_sweep(res, tmp / "cuda.json", cfg)
+    for row in kernel_rows:
+        if row["name"] in sweep_kernels:
             row["launches"] = launches[row["name"]]
+    bundle = tmp / "cuda.bundle"
+    require(json.loads((tmp / "cuda.json").read_text())["meta"].get(
+        "bundle") == str(bundle), "the report does not point at its bundle")
 
-        ops.reset_launch_counts()
-        ref, _ = run_sweep(npz, Path(tmp) / "ref.json", "ref", cfg)
-        require(ops.launch_counts() == {"bcsr_xa_xta": 0, "bcsr_spmm": 0},
-                "the ref sweep launched a kernel")
-        check_sweep(ref, Path(tmp) / "ref.json", cfg)
+    ops.reset_launch_counts()
+    ref, _ = run_sweep(npz, tmp / "ref.json", "ref", cfg)
+    require(not any(ops.launch_counts().values()),
+            "the ref sweep launched a kernel")
+    check_sweep(ref, tmp / "ref.json", cfg)
 
     require(res.k_opt == ref.k_opt,
             f"k_opt differs: kernels {res.k_opt}, ref {ref.k_opt}")
@@ -420,6 +578,137 @@ def phase_sweeps(kernel_rows: list[dict]) -> None:
             f"{np.round(b, 6).tolist()} max |diff| {worst:.2e}")
         require(worst <= SWEEP_TOL, f"{name} differs by {worst:.2e}")
     log(f"[sweep] k_opt = {res.k_opt} on both paths")
+    return bundle
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: serve the sweep's bundle through the CLI
+# ---------------------------------------------------------------------------
+
+def run_serve(bundle: Path, impl: str):
+    import numpy as np
+    from repro_torch.launch import serve
+    cfg = SERVE
+    argv = ["--factors", str(bundle), "--queries", cfg["queries"],
+            "--batch", str(cfg["batch"]), "--topk", str(cfg["topk"]),
+            "--requests", str(cfg["requests"]), "--mode", cfg["mode"],
+            "--seed", str(cfg["seed"]), "--impl", impl]
+    log(f"[serve] serve {' '.join(argv)}")
+    out = serve.main(argv)
+    lat = out.latencies
+    log(f"[serve] impl={impl}: {len(out.results)} queries, p50 "
+        f"{float(np.percentile(lat, 50)) * 1e3:.3f} ms, p99 "
+        f"{float(np.percentile(lat, 99)) * 1e3:.3f} ms, "
+        f"{len(out.results) / out.seconds:.1f} q/s, stats {out.stats}")
+    # the first request pays the engine's one-time set-up; apart from it,
+    # the p99 of 16 requests is their maximum
+    log(f"[serve] impl={impl}: first request (cold) {lat[0] * 1e3:.3f} ms; "
+        f"requests 2-{len(lat)}: p50 "
+        f"{float(np.percentile(lat[1:], 50)) * 1e3:.3f} ms, max "
+        f"{float(lat[1:].max()) * 1e3:.3f} ms")
+    return out
+
+
+def query_vectors(A, R, queries):
+    """V (b, k) of queries, as the engine forms them: A[anchor] @ R[rel]
+    for (s, r, ?), A[anchor] @ R[rel]^T for (?, r, o), in A's dtype."""
+    import torch
+    dev = A.device
+    Rq = R[torch.tensor([q.rel for q in queries], device=dev)]
+    sro = torch.tensor([q.mode == "sro" for q in queries], device=dev)
+    Rq = torch.where(sro[:, None, None], Rq, Rq.transpose(1, 2))
+    anchors = torch.tensor([q.anchor for q in queries], device=dev)
+    return torch.einsum("bi,bij->bj", A[anchors], Rq).contiguous()
+
+
+def phase_serve(bundle: Path, row: dict, dev) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref, score_topk
+    from repro_torch.serve import FactorBundle, random_queries
+    ops.reset_launch_counts()
+    got = run_serve(bundle, "auto")
+    launches = ops.launch_counts()["score_topk"]
+    log(f"[serve] score_topk launches in the serve path: {launches}")
+    require(launches == got.stats["batches"] > 0,
+            f"score_topk launched {launches} times for "
+            f"{got.stats['batches']} device batches")
+    row["launches"] = launches
+    ops.reset_launch_counts()
+    plain = run_serve(bundle, "ref")
+    require(not any(ops.launch_counts().values()),
+            "the ref serve run launched a kernel")
+    require(got.stats == plain.stats,
+            f"stats differ: {got.stats} vs {plain.stats}")
+
+    # every answer of both runs, against float64 scores
+    fb = FactorBundle.load(str(bundle))
+    cfg = SERVE
+    count, skew = (float(x) for x in cfg["queries"].split(":")[1:])
+    queries = random_queries(fb.n, fb.m, int(count), skew=skew,
+                             seed=cfg["seed"], mode=cfg["mode"])
+    A64 = torch.from_numpy(fb.A).double().to(dev)
+    V64 = query_vectors(A64, torch.from_numpy(fb.R).double().to(dev),
+                        queries)
+
+    def stack(out, attr):
+        return torch.from_numpy(np.stack([getattr(r, attr)
+                                          for r in out.results])).to(dev)
+
+    for out, name in ((got, "kernel"), (plain, "plain")):
+        require(not any(r.shed for r in out.results), f"{name}: shed")
+        topk_check(f"serve answers [{name}]", V64, A64, stack(out, "scores"),
+                   stack(out, "indices"), stack(plain, "scores"))
+    log(f"[serve] {len(queries)} answers of both runs pass the top-k check")
+
+    # the kernel at the serve path's own shape: the bundle's A, and V of
+    # the stream's first batch of distinct queries
+    A = torch.from_numpy(fb.A).to(dev)
+    V = query_vectors(A, torch.from_numpy(fb.R).to(dev),
+                      list(dict.fromkeys(queries))[:cfg["batch"]])
+    s, i = score_topk.score_topk(V, A, topk=cfg["topk"])
+    torch.cuda.synchronize()
+    rs, _ = ref.ref_score_topk_stream(V, A, cfg["topk"])
+    row["max_abs_err"] = topk_check("score_topk [serve shape]", V.double(),
+                                    A.double(), s, i, rs)
+    row.update(time_topk(V, A, cfg["topk"], reps=50, plain_reps=5))
+    profile_serve(fb, queries)
+
+
+def profile_serve(fb, queries) -> None:
+    """The serve stream once more, on a fresh engine, under
+    torch.profiler: wall time, the device's busy time and idle share, and
+    device time by kernel, per device batch."""
+    import torch
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg = SERVE
+    engine = ServeEngine(fb, ServeConfig(topk=cfg["topk"],
+                                         batch=cfg["batch"]))
+    per = -(-len(queries) // cfg["requests"])
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for c0 in range(0, len(queries), per):
+            engine.query(queries[c0:c0 + per])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    batches = engine.stats()["batches"]
+    cuda_type = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and (getattr(e, "device_type", None) == cuda_type
+                   or e.cpu_time_total == 0)]
+    busy = sum(e.device_time_total for e in events) / 1e6
+    log(f"[serve] profiled stream: {batches} device batches, wall "
+        f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
+        f"({100 * (1 - busy / wall):.1f}% idle); per batch "
+        f"{wall / batches * 1e3:.4f} ms wall, "
+        f"{busy / batches * 1e3:.4f} ms device")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
+        log(f"[serve]   {e.device_time_total / 1e3 / batches:8.4f} ms/batch "
+            f"{100 * e.device_time_total / 1e6 / busy:5.1f}%  "
+            f"x{e.count:<4d} {e.key[:70]}")
 
 
 def main() -> int:
@@ -441,8 +730,10 @@ def main() -> int:
     log(f"[card] {smi} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda})")
     phase_build()
-    rows = phase_kernels(dev)
-    phase_sweeps(rows)
+    rows = phase_kernels(dev) + [phase_topk(dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = phase_sweeps(rows, Path(tmp))
+        phase_serve(bundle, rows[-1], dev)
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if row[key] is not None:

@@ -3,9 +3,9 @@
 The parity tests compute with both packages on the same operand and the
 same factors; these helpers take what ``repro`` holds — a BCSR's
 ``data``/``block_rows``/``block_cols``/``n``, a ``RescalState``'s
-``A``/``R``, a ``KResult`` — as numpy arrays or anything ``np.asarray``
-accepts (a JAX array included), and build the port's counterpart on a
-torch device.  Nothing here imports ``repro`` or ``jax``.
+``A``/``R``, a ``KResult``, a ``FactorBundle`` — as numpy arrays or
+anything ``np.asarray`` accepts (a JAX array included), and build the
+port's counterpart on a torch device (a bundle stays numpy).  Nothing here imports ``repro`` or ``jax``.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch import device as _device
 from repro_torch.core.rescal import RescalState
 from repro_torch.core.sparse import BCSR
 from repro_torch.selection.types import KResult
+from repro_torch.serve.bundle import FactorBundle
 
 
 def tensor(x, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -45,6 +46,16 @@ def k_result(res) -> KResult:
                    A_median=np.asarray(res.A_median),
                    R_regress=np.asarray(res.R_regress),
                    member_errors=np.asarray(res.member_errors))
+
+
+def factor_bundle(bundle) -> FactorBundle:
+    """The port's FactorBundle from ``repro``'s (numpy arrays, the same
+    vocab, manifest and meta)."""
+    perm = bundle.permutation
+    return FactorBundle(A=np.asarray(bundle.A), R=np.asarray(bundle.R),
+                        entities=bundle.entities, relations=bundle.relations,
+                        permutation=None if perm is None else np.asarray(perm),
+                        manifest=bundle.manifest, meta=dict(bundle.meta))
 
 
 def to_numpy(x) -> np.ndarray:

@@ -1,5 +1,10 @@
-"""Data ingest of the port: NPZ COO triples to a BCSR tensor."""
+"""Data ingest of the port: TSV or NPZ triples to a BCSR tensor, and the
+operand's manifest."""
+from .manifest import DatasetManifest, manifest_of
 from .partition import coo_to_bcsr
-from .triples import COOTensor, ingest_npz, read_coo_npz
+from .triples import (COOTensor, Vocab, ingest_npz, ingest_tsv, read_coo_npz,
+                      read_triples_tsv)
 
-__all__ = ["COOTensor", "coo_to_bcsr", "ingest_npz", "read_coo_npz"]
+__all__ = ["COOTensor", "DatasetManifest", "Vocab", "coo_to_bcsr",
+           "ingest_npz", "ingest_tsv", "manifest_of", "read_coo_npz",
+           "read_triples_tsv"]

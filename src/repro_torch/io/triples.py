@@ -1,15 +1,18 @@
-"""NPZ triple ingest to a deduplicated COO tensor (port of
-``repro/io/triples.py:127,216``, NPZ only; TSV ingest comes later).
+"""Triple ingest to a deduplicated COO tensor (port of
+``repro/io/triples.py:59,98,127,202,216``).
 
-``read_coo_npz`` yields bounded chunks of a pre-numbered COO file (arrays
-``row``/``rel``/``col`` and optional ``val``); ``ingest_npz`` accumulates
-them and merges duplicate coordinates by summation, as ``repro``'s
-``COOBuilder`` does.  Host numpy, O(nnz) memory.
+``read_triples_tsv`` yields bounded chunks of a TSV triple list
+(``head \t relation \t tail [\t weight]``), which ``Vocab`` numbers in
+order of first appearance; ``read_coo_npz`` yields bounded chunks of a
+pre-numbered COO file (arrays ``row``/``rel``/``col`` and optional
+``val``).  ``ingest_tsv``/``ingest_npz`` accumulate the chunks and merge
+duplicate coordinates by summation, as ``repro``'s ``COOBuilder`` does, so
+the COO and the vocab equal ``repro``'s.  Host numpy, O(nnz) memory.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -29,6 +32,80 @@ class COOTensor:
     @property
     def nnz(self) -> int:
         return int(self.rels.shape[0])
+
+
+class Vocab:
+    """Entity/relation id assignment in first-appearance order."""
+
+    def __init__(self):
+        self.entities: dict[str, int] = {}
+        self.relations: dict[str, int] = {}
+
+    @property
+    def n(self) -> int:
+        return len(self.entities)
+
+    @property
+    def m(self) -> int:
+        return len(self.relations)
+
+    def entity_id(self, name: str) -> int:
+        eid = self.entities.get(name)
+        if eid is None:
+            eid = self.entities[name] = len(self.entities)
+        return eid
+
+    def relation_id(self, name: str) -> int:
+        rid = self.relations.get(name)
+        if rid is None:
+            rid = self.relations[name] = len(self.relations)
+        return rid
+
+    def encode(self, heads: Sequence[str], rels: Sequence[str],
+               tails: Sequence[str]) -> tuple[np.ndarray, np.ndarray,
+                                              np.ndarray]:
+        """Ids of one chunk.  A chunk's heads are numbered before its
+        tails, as in ``repro``: the ids depend on that order."""
+        h = np.fromiter((self.entity_id(x) for x in heads), np.int64,
+                        len(heads))
+        r = np.fromiter((self.relation_id(x) for x in rels), np.int64,
+                        len(rels))
+        t = np.fromiter((self.entity_id(x) for x in tails), np.int64,
+                        len(tails))
+        return h, r, t
+
+    def names(self) -> tuple[list[str], list[str]]:
+        """(entities, relations) as lists in id order."""
+        return list(self.entities), list(self.relations)
+
+
+def read_triples_tsv(path: str, *, chunk: int = DEFAULT_CHUNK
+                     ) -> Iterator[tuple[list[str], list[str], list[str],
+                                         np.ndarray]]:
+    """Yield (heads, rels, tails, vals) string chunks from a TSV triple
+    list.  Blank lines and ``#`` comments are skipped; a missing 4th column
+    means weight 1.0."""
+    heads: list[str] = []
+    rels: list[str] = []
+    tails: list[str] = []
+    vals: list[float] = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split("\t")
+            if len(parts) < 3:
+                raise ValueError(f"malformed triple line: {line!r}")
+            heads.append(parts[0])
+            rels.append(parts[1])
+            tails.append(parts[2])
+            vals.append(float(parts[3]) if len(parts) > 3 else 1.0)
+            if len(heads) >= chunk:
+                yield heads, rels, tails, np.asarray(vals, np.float32)
+                heads, rels, tails, vals = [], [], [], []
+    if heads:
+        yield heads, rels, tails, np.asarray(vals, np.float32)
 
 
 def read_coo_npz(path: str, *, chunk: int = DEFAULT_CHUNK
@@ -74,6 +151,21 @@ def coo_from_chunks(chunks) -> COOTensor:
     vals = np.add.reduceat(vals, starts).astype(np.float32)
     return COOTensor(rels=rels[starts], rows=rows[starts],
                      cols=cols[starts], vals=vals, n=n, m=m)
+
+
+def ingest_tsv(path: str, *, chunk: int = DEFAULT_CHUNK
+               ) -> tuple[COOTensor, Vocab]:
+    """One-pass TSV ingest: number the names while accumulating the COO
+    chunks.  Every name appears in some triple, so n and m are the vocab's
+    sizes."""
+    vocab = Vocab()
+
+    def chunks():
+        for heads, rels, tails, vals in read_triples_tsv(path, chunk=chunk):
+            h, r, t = vocab.encode(heads, rels, tails)
+            yield h, r, t, vals
+
+    return coo_from_chunks(chunks()), vocab
 
 
 def ingest_npz(path: str, *, chunk: int = DEFAULT_CHUNK) -> COOTensor:

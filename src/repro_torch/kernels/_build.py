@@ -37,6 +37,9 @@ SIGNATURES = {
                         _P],
     "repro_bcsr_xa_xta": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _L, _L, _P],
+    "repro_score_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
+    "repro_score_topk_plan": [_I, _I, _I, _I, _I, _P],
 }
 
 
@@ -115,7 +118,8 @@ def library() -> ctypes.CDLL:
 
 
 def check(rc: int, kernel: str) -> None:
-    """Raise when a launcher reported a CUDA error (a refused launch never
-    runs, and a later synchronize would not report it)."""
+    """Raise when a launcher (or a plan) reported a CUDA error (a refused
+    launch never runs, and a later synchronize would not report it)."""
     if rc != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
+        raise RuntimeError(f"{kernel}: refused or failed with CUDA error "
+                           f"{rc}")

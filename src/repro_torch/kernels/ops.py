@@ -1,5 +1,5 @@
-"""Dispatch of the BCSR products by ``impl`` and device (port of
-``repro/kernels/ops.py:151,161``).
+"""Dispatch of the kernels by ``impl`` and device (port of
+``repro/kernels/ops.py:151,161,181``).
 
 impl:
   "auto" — the kernel wrapper: the CUDA kernel for CUDA tensors, its plain
@@ -8,7 +8,8 @@ impl:
   "ref"  — the plain PyTorch version, on any device
 
 There is no budget fallback and no ``try`` that falls back to the plain
-version: a CUDA tensor either runs its kernel or raises.  ``repro``'s
+version: a CUDA tensor either runs its kernel or raises.  (``repro``'s
+VMEM window gates are TPU artifacts.)  ``repro``'s
 ``kernel_fallbacks()`` has no counterpart (it would always be 0); the
 launch counters below take its place.
 """
@@ -19,10 +20,11 @@ from repro_torch.core.sparse import BCSR
 from . import bcsr_fused
 from . import bcsr_spmm as _spmm_mod
 from . import ref as _ref
+from . import score_topk as _topk_mod
 from .policy import IMPLS
 
 __all__ = ["bcsr_spmm", "bcsr_xa_xta", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "score_topk"]
 
 
 def _require(impl: str, kernel: str, *tensors) -> str:
@@ -49,12 +51,26 @@ def bcsr_xa_xta(sp: BCSR, B1, B2, *, impl: str = "auto"):
     return bcsr_fused.bcsr_xa_xta(sp, B1, B2)
 
 
+def score_topk(V, A, *, topk: int, impl: str = "auto",
+               pn: int | None = None):
+    """Top-k of V @ A^T without the (b, n) scores (kernels/score_topk.py):
+    (scores (b, topk) f32, indices (b, topk) int32).  ``pn`` is the plain
+    version's panel length (``ref.DEFAULT_PN`` when None)."""
+    if _require(impl, "score_topk", V, A) == "ref":
+        return _ref.ref_score_topk_stream(
+            V, A, topk, _ref.DEFAULT_PN if pn is None else pn)
+    return _topk_mod.score_topk(V, A, topk=topk, pn=pn)
+
+
+_KERNELS = {"bcsr_xa_xta": bcsr_fused, "bcsr_spmm": _spmm_mod,
+            "score_topk": _topk_mod}
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {"bcsr_xa_xta": bcsr_fused.launch_count(),
-            "bcsr_spmm": _spmm_mod.launch_count()}
+    return {name: mod.launch_count() for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    bcsr_fused.reset_launch_count()
-    _spmm_mod.reset_launch_count()
+    for mod in _KERNELS.values():
+        mod.reset_launch_count()

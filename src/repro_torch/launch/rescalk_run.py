@@ -1,5 +1,6 @@
 """RESCALk model-selection CLI of the port (port of
-``repro/launch/rescalk_run.py``): a BCSR sweep on an NPZ COO file.
+``repro/launch/rescalk_run.py``): a BCSR sweep on a TSV triple list or an
+NPZ COO file, which persists the selected factors as a FactorBundle.
 
 Runs on the H100 by default; ``--device cpu`` runs the plain PyTorch path
 on the CPU.  ``--use-fused-kernel`` routes every BCSR product through the
@@ -7,7 +8,8 @@ hand-written CUDA kernels (``--fused-impl ref`` keeps the plain PyTorch
 products on the card instead).
 
     PYTHONPATH=src python -m repro_torch.launch.rescalk_run \\
-        --data X.npz --bs 128 --k-min 2 --k-max 5 --r 4 --use-fused-kernel
+        --data X.npz --bs 128 --k-min 2 --k-max 5 --r 4 --use-fused-kernel \\
+        --report /tmp/r.json          # the bundle goes to /tmp/r.bundle
 
 Flags of ``repro``'s CLI that are not ported yet are not defined here
 (ROADMAP.md lists them).
@@ -15,19 +17,22 @@ Flags of ``repro``'s CLI that are not ported yet are not defined here
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 from repro_torch import device as _device
-from repro_torch.io import coo_to_bcsr, ingest_npz
+from repro_torch.io import coo_to_bcsr, ingest_npz, ingest_tsv, manifest_of
 from repro_torch.kernels.policy import IMPLS, KernelPolicy
 from repro_torch.selection import CRITERIA, RescalkConfig, SweepScheduler
+from repro_torch.serve import FactorBundle
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--data", required=True,
-                    help="an .npz COO triple file (arrays row/rel/col and "
-                         "optional val)")
+                    help="a .tsv triple list (head, relation, tail, "
+                         "optional weight) or an .npz COO file (arrays "
+                         "row/rel/col and optional val)")
     ap.add_argument("--bs", type=int, default=128,
                     help="BCSR block size")
     ap.add_argument("--k-min", type=int, default=2)
@@ -39,6 +44,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="k-selection rule (selection/criteria.py)")
     ap.add_argument("--report", default=None,
                     help="write the SelectionReport JSON here")
+    ap.add_argument("--bundle", default=None, metavar="DIR",
+                    help="persist the selected-k factors as a FactorBundle "
+                         "here; default: <report>.bundle next to --report. "
+                         "The report's meta gains a 'bundle' pointer")
     ap.add_argument("--use-fused-kernel", action="store_true",
                     help="route the BCSR products through the CUDA "
                          "kernels (kernels/ops.py)")
@@ -53,12 +62,17 @@ def build_parser() -> argparse.ArgumentParser:
 def run(args):
     """Ingest, sweep and print; returns (RescalkResult, SelectionReport)."""
     dev = _device.resolve(args.device)
-    if not args.data.endswith(".npz"):
-        raise SystemExit(f"--data must be an .npz COO file, got "
-                         f"{args.data!r}")
     t0 = time.perf_counter()
-    coo = ingest_npz(args.data)
-    print(f"[io] {args.data}: n={coo.n} m={coo.m} nnz={coo.nnz}")
+    vocab = None
+    if args.data.endswith(".tsv"):
+        coo, vocab = ingest_tsv(args.data)
+        print(f"[io] {args.data}: {vocab.n} entities, {vocab.m} relations, "
+              f"{coo.nnz} triples")
+    elif args.data.endswith(".npz"):
+        coo = ingest_npz(args.data)
+        print(f"[io] {args.data}: n={coo.n} m={coo.m} nnz={coo.nnz}")
+    else:
+        raise SystemExit(f"--data must be .tsv or .npz, got {args.data!r}")
     sp = coo_to_bcsr(coo, bs=args.bs, device=dev)
     del coo
     resident = sp.data.numel() * sp.data.element_size()
@@ -80,7 +94,36 @@ def run(args):
     print(f"[sweep] {len(rep.units)} units, {rep.n_reused} reused, "
           f"{rep.total_seconds:.2f}s compute, kernel launches "
           f"{rep.meta['kernel_launches']}")
+    _persist_bundle(args, sp, res, vocab, rep)
     return res, rep
+
+
+def _bundle_dir(args) -> str | None:
+    if args.bundle is not None:
+        return args.bundle
+    if args.report is not None:
+        return os.path.splitext(args.report)[0] + ".bundle"
+    return None
+
+
+def _persist_bundle(args, sp, res, vocab, report) -> None:
+    """Persist the selected-k factors (member-median A, regressed R) as a
+    FactorBundle, with the vocab of a TSV ingest and the operand's
+    manifest, and point the report's meta at it."""
+    bundle_dir = _bundle_dir(args)
+    if bundle_dir is None:
+        return
+    ents, rels = vocab.names() if vocab is not None else (None, None)
+    bundle = FactorBundle.from_sweep(
+        res, entities=ents, relations=rels,
+        manifest=manifest_of(sp).fingerprint(),
+        meta={"criterion": args.criterion})
+    bundle.save(bundle_dir)
+    print(f"[bundle] {bundle_dir}: n={bundle.n} m={bundle.m} "
+          f"k={bundle.k} digest={bundle.digest()[:12]}")
+    if args.report:
+        report.meta["bundle"] = bundle_dir
+        report.save(args.report)
 
 
 def main(argv=None):

@@ -10,10 +10,9 @@ their defaults; ``kernel_launches`` is the port's own addition to
 from __future__ import annotations
 
 import dataclasses
-import json
-import os
-import tempfile
 from typing import Any
+
+from repro_torch.ckpt import atomic_json_dump
 
 
 @dataclasses.dataclass
@@ -65,14 +64,4 @@ class SelectionReport:
 
     def save(self, path: str) -> str:
         """Write the report atomically (temp file + rename)."""
-        folder = os.path.dirname(os.path.abspath(path))
-        os.makedirs(folder, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=folder, suffix=".tmp")
-        try:
-            with os.fdopen(fd, "w") as f:
-                json.dump(self.to_dict(), f, indent=1, default=str)
-            os.replace(tmp, path)
-        except BaseException:
-            os.unlink(tmp)
-            raise
-        return path
+        return atomic_json_dump(path, self.to_dict(), indent=1, default=str)

@@ -120,7 +120,8 @@ def test_cpu_dispatch_uses_plain_version_and_counts_nothing():
     xa, xt = bcsr_fused.bcsr_xa_xta(t, B, B)      # the wrappers themselves
     close(xt, tsp.spmm_t(t, B))
     close(bcsr_spmm.bcsr_spmm(t, B), tsp.spmm(t, B))
-    assert ops.launch_counts() == {"bcsr_xa_xta": 0, "bcsr_spmm": 0}
+    assert ops.launch_counts() == {"bcsr_xa_xta": 0, "bcsr_spmm": 0,
+                                   "score_topk": 0}
 
 
 @pytest.mark.parametrize("kernel", ["bcsr_xa_xta", "bcsr_spmm"])
@@ -139,21 +140,25 @@ def test_policy_rejects_unknown_impl():
 
 
 def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
-    """Both kernels' sources are compiled, and an edit to any source —
-    the shared header included — gives a new build directory
+    """All three kernels' sources are compiled, and an edit to any source
+    — the shared header included — gives a new build directory
     (test_torch_cli checks that importing builds nothing)."""
     names = {p.name for p in _build.sources()}
-    assert names == {"bcsr_spmm.cu", "bcsr_fused.cu"}
+    assert names == {"bcsr_spmm.cu", "bcsr_fused.cu", "score_topk.cu"}
     assert set(_build.SIGNATURES) == {"repro_bcsr_spmm",
-                                      "repro_bcsr_xa_xta"}
+                                      "repro_bcsr_xa_xta",
+                                      "repro_score_topk",
+                                      "repro_score_topk_plan"}
     for src in _build.CSRC.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = _build._digest()
     assert before == _build._digest()
-    with open(tmp_path / "bcsr_tile.cuh", "a") as f:
-        f.write("\n")
-    assert _build._digest() != before
+    for name in ("bcsr_tile.cuh", "score_topk.cu"):
+        with open(tmp_path / name, "a") as f:
+            f.write("\n")
+        assert _build._digest() != before
+        before = _build._digest()
 
 
 def _launch_args(*, k=4, bs=32, dtype=torch.float32, operand_members=None,
@@ -194,3 +199,118 @@ def test_wrapper_rejects_mismatched_member_counts():
     t2 = t.with_data(torch.stack([t.data, t.data]))
     with pytest.raises(ValueError, match="2 members, operands 3"):
         Launch("bcsr_spmm", t2, B)
+
+
+# ---------------------------------------------------------------------------
+# score_topk: the plain versions against repro's, dispatch and checks
+# ---------------------------------------------------------------------------
+
+def _va(seed, b=5, n=1000, k=7):
+    rng = np.random.default_rng(seed)
+    return (rng.random((b, k), dtype=np.float32),
+            rng.random((n, k), dtype=np.float32))
+
+
+def same_topk(got, want, want_next):
+    """Scores at rtol 1e-5; indices equal wherever the reference's scores
+    are separated from their neighbours (want_next: the reference's
+    score of rank topk + 1) by more than that."""
+    (gs, gi), (ws, wi) = ([convert.to_numpy(x) for x in got],
+                          [np.asarray(x) for x in want])
+    assert gs.dtype == np.float32 and gi.dtype == np.int32
+    assert gs.shape == gi.shape == ws.shape
+    finite = np.isfinite(ws)
+    assert (np.isfinite(gs) == finite).all()
+    np.testing.assert_allclose(gs[finite], ws[finite], rtol=RTOL)
+    pad = np.concatenate([np.full((ws.shape[0], 1), np.inf), ws,
+                          np.asarray(want_next)[:, None]], axis=1)
+    tol = RTOL * np.abs(ws[finite]).max()
+    gap = np.minimum(pad[:, 1:-1] - pad[:, 2:], pad[:, :-2] - pad[:, 1:-1])
+    sep = ~finite | (gap > tol)
+    np.testing.assert_array_equal(gi[sep], wi[sep])
+    assert sep.mean() > 0.5
+
+
+@pytest.mark.parametrize("pn", [128, 2048])
+def test_ref_score_topk_stream_matches_repro(pn):
+    from repro.kernels import ops as jops
+    V, A = _va(0)
+    want = jops.score_topk(jnp.asarray(V), jnp.asarray(A), topk=10,
+                           impl="stream", pn=pn)
+    nxt = np.asarray(jref.ref_score_topk(jnp.asarray(V), jnp.asarray(A),
+                                         11)[0])[:, 10]
+    got = tref.ref_score_topk_stream(torch.from_numpy(V),
+                                     torch.from_numpy(A), 10, pn)
+    same_topk(got, want, nxt)
+    same_topk(tref.ref_score_topk(torch.from_numpy(V), torch.from_numpy(A),
+                                  10),
+              jref.ref_score_topk(jnp.asarray(V), jnp.asarray(A), 10), nxt)
+
+
+@pytest.mark.parametrize("plain", ["stream", "materializing"])
+def test_score_topk_past_n_pads_like_repro(plain):
+    V, A = _va(1, n=6)
+    fn = (tref.ref_score_topk if plain == "materializing"
+          else lambda v, a, t: tref.ref_score_topk_stream(v, a, t, 128))
+    s, i = fn(torch.from_numpy(V), torch.from_numpy(A), 10)
+    ws, wi = jref.ref_score_topk(jnp.asarray(V), jnp.asarray(A), 10)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(s.numpy(), np.asarray(ws), rtol=RTOL)
+    assert (i.numpy()[:, 6:] == -1).all() and np.isneginf(s.numpy()[:, 6:]
+                                                         ).all()
+
+
+@pytest.mark.parametrize("topk", [1, 10, 100])
+def test_score_topk_exact_ties_match_repro(topk):
+    """Integer factors with repeated rows of A: every order of summation
+    gives bit-equal scores, and ties go to the lowest index."""
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(2)
+    A = rng.integers(0, 3, (400, 6)).astype(np.float32)
+    A[200:] = A[:200]
+    V = rng.integers(0, 3, (5, 6)).astype(np.float32)
+    ws, wi = jops.score_topk(jnp.asarray(V), jnp.asarray(A), topk=topk,
+                             impl="stream", pn=128)
+    rs, ri = jref.ref_score_topk(jnp.asarray(V), jnp.asarray(A), topk)
+    for s, i in (tref.ref_score_topk_stream(torch.from_numpy(V),
+                                            torch.from_numpy(A), topk, 128),
+                 tref.ref_score_topk(torch.from_numpy(V),
+                                     torch.from_numpy(A), topk)):
+        np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(ws))
+
+
+def test_score_topk_cpu_dispatch_uses_plain_version_and_counts_nothing():
+    V, A = (torch.from_numpy(x) for x in _va(3, n=300))
+    want = tref.ref_score_topk_stream(V, A, 7, 128)
+    ops.reset_launch_counts()
+    for impl in ("auto", "ref"):
+        s, i = ops.score_topk(V, A, topk=7, impl=impl, pn=128)
+        assert torch.equal(s, want[0]) and torch.equal(i, want[1])
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        ops.score_topk(V, A, topk=7, impl="cuda")
+    assert ops.launch_counts()["score_topk"] == 0
+
+
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(k=65), ValueError, "rank k=65"),
+    (dict(topk=1025), ValueError, "topk=1025"),
+    (dict(topk=0), ValueError, "topk=0"),
+    (dict(dtype=torch.float64), TypeError, "float32"),
+    (dict(transpose=True), ValueError, "contiguous"),
+    (dict(), ValueError, "one CUDA device"),
+])
+def test_score_topk_checks_reject_what_the_kernel_cannot_take(kwargs, error,
+                                                              match):
+    """The checks a CUDA launch passes first: k <= 64 (register rows),
+    1 <= topk <= 1024 (shared-memory lists), float32, contiguity, and
+    both tensors on one CUDA device."""
+    from repro_torch.kernels import score_topk
+    k = kwargs.get("k", 8)
+    A = torch.rand(50, k, dtype=kwargs.get("dtype", torch.float32))
+    if kwargs.get("transpose"):
+        A = A.T.contiguous().T
+    V = torch.rand(4, k, dtype=A.dtype)
+    with pytest.raises(error, match=match):
+        score_topk.check(V, A, kwargs.get("topk", 10))

@@ -170,7 +170,7 @@ def test_plan_and_report_read_by_repro(tmp_path):
     back = JReport.load(str(tmp_path / "rep.json"))
     assert back.k_opt == res.k_opt and len(back.units) == 2
     assert back.meta["kernel_launches"] == {"bcsr_xa_xta": 0,
-                                            "bcsr_spmm": 0}
+                                            "bcsr_spmm": 0, "score_topk": 0}
     kr = convert.k_result(dataclasses.replace(res.per_k[2]))
     np.testing.assert_array_equal(kr.A_median, res.per_k[2].A_median)
     assert kr.s_min == res.per_k[2].s_min
