@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-  1. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+  1. Build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
      with nvcc (sm_90a; ptxas register/shared-memory report printed) and
      print the card's name and power limit.
   2. Hold each kernel against its plain PyTorch version on the card.  The
@@ -22,6 +22,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the plain version's.  Timed at the serving-scale shape
      b = 128, n = 4194304, k = 32, topk = 32 beside the plain version and
      the ``torch.topk(V @ A.T, topk)`` yardstick.
+     fused_xa_xtb: n1 != n2 with n in {1, 37, 1000} (no tile multiple),
+     m = 1 (the sliced schedule's call, a slice view of X), k in {1, 3, 5,
+     16, 64}, r in {1, 4}, B2 broadcast over m (stride 0), n2 odd and
+     n2 % 4 == 0 (the scalar and the float4 path), to the BCSR kernels'
+     tolerances; then held and timed beside its plain version (two
+     batched products) on the grid sweep's operands (r = 4, m = 8,
+     n = 16384, X 34.4 GB, B1 = A, B2 = A broadcast over m) at k = 4 and
+     k = 5, the largest rank of each KMAX build (4 and 8) the sweep runs;
+     the kernels line reports k = 5.
   3. Run the RESCALk sweep through the CLI's own entry point
      (``repro_torch.launch.rescalk_run.main``) at full size on a seeded
      planted COO file: n = 131072 entities, m = 8 relations, bs = 128, the
@@ -47,6 +56,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bundle's A) beside its plain version and the yardstick, and the
      stream is served once more under ``torch.profiler`` (the device's
      idle share and its time by kernel).
+  6. The dense grid sweep on a 1 x 1 ``torch.distributed`` grid over a
+     one-rank NCCL group (``launch.mesh.make_grid``): ``rescalk(X, cfg,
+     grid=grid)`` on X from the port's ``synthetic_rescal`` built on the
+     card (n = 16384 entities, m = 8 relations, planted k = 4, noise
+     0.01, seed 0; 8.6 GB, and 34.4 GB more for the 4 perturbed members),
+     k = 2..5, r = 4, 300 MU iterations, 100 regression iterations, the
+     batched schedule, use_fused.  n = 16384 is the largest power of two
+     whose ensemble one H100 holds; the one cut is the MU iterations (300,
+     the CLI's default; the paper runs 1000).  The counters, zeroed just
+     before: fused_xa_xtb must launch once per MU iteration (1200) and the
+     grid's collective count be above 0.  The same sweep with
+     impl="ref": the same k_opt, per-k s_min/s_mean/rel_err within 1e-4.
+     Then ``dist_rescal`` with the sliced schedule at the same n for 20
+     iterations (m launches per iteration), kernel and ref, A and R within
+     1e-4 of the largest |value|.  The group is destroyed at the end.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -84,6 +108,13 @@ FULL = dict(n=131072, m=8, bs=128, off_density=0.005, fill=0.02,
 SERVE = dict(queries="random:4096:1.1", batch=32, topk=10, requests=16,
              mode="mixed", seed=0)
 TOPK_SCALE = dict(b=128, n=4194304, k=32, topk=32)
+# the dense grid sweep (phase 6), and fused_xa_xtb's timing shape
+GRID = dict(n=16384, m=8, k_true=4, noise=0.01, seed=0, k_min=2, k_max=5,
+            r=4, iters=300, regress_iters=100, sliced_iters=20, sliced_k=4)
+# fused_xa_xtb on the grid sweep's operands: ranks 2..4 run the kernel's
+# KMAX = 4 build and rank 5 its KMAX = 8 build, so both are held at their
+# largest rank in the sweep; the kernels line reports k = 5
+FUSED_SCALE = dict(r=4, m=8, n=16384, ks=(4, 5), sliced_k=4)
 
 
 def log(msg: str) -> None:
@@ -341,6 +372,108 @@ def phase_kernels(dev) -> list[dict]:
             f"({row['bound_by']}), library {row['library_ms']}, "
             f"max |diff| {row['max_abs_err']:.3e}")
     return rows_out
+
+
+def check_fused_edges(dev) -> None:
+    """fused_xa_xtb against its plain version at the edge shapes."""
+    import torch
+    from repro_torch.kernels import fused_bilinear, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    cases = [  # (m, n1, n2, k, r, B2 shared over m)
+        (3, 37, 1000, 3, None, False), (3, 1000, 37, 5, 4, True),
+        (2, 1, 37, 1, None, True), (2, 37, 1, 16, 4, False),
+        (1, 1000, 1000, 64, None, False), (4, 1000, 1000, 5, 4, True),
+        (2, 37, 37, 64, 4, True), (2, 1000, 999, 16, 1, False),
+        (2, 300, 1000, 3, 4, True),
+    ]
+    for m, n1, n2, k, r, shared in cases:
+        lead = (r,) if r is not None else ()
+        X = torch.rand(lead + (m, n1, n2), generator=gen, device=dev)
+        B1 = torch.rand(lead + (n2, k), generator=gen, device=dev)
+        if shared:
+            B2 = torch.rand(lead + (1, n1, k), generator=gen,
+                            device=dev).expand(lead + (m, n1, k))
+        else:
+            B2 = torch.rand(lead + (m, n1, k), generator=gen, device=dev)
+        tag = f"m={m} n1={n1} n2={n2} k={k} r={r or 1} shared={shared}"
+        xa, xt = fused_bilinear.fused_xa_xtb(X, B1, B2)
+        torch.cuda.synchronize()
+        ra, rt = ref.ref_fused_xa_xtb(X, B1, B2)
+        compare(f"fused_xa_xtb XA [{tag}]", xa, ra)
+        compare(f"fused_xa_xtb XTB [{tag}]", xt, rt)
+        if m > 1:   # the sliced schedule's call: a slice view, m = 1
+            Xt = X[..., 1:2, :, :]
+            B2t = B2[..., 1:2, :, :]
+            xa, xt = fused_bilinear.fused_xa_xtb(Xt, B1, B2t)
+            torch.cuda.synchronize()
+            ra, rt = ref.ref_fused_xa_xtb(Xt, B1, B2t)
+            compare(f"fused_xa_xtb XA [slice, {tag}]", xa, ra)
+            compare(f"fused_xa_xtb XTB [slice, {tag}]", xt, rt)
+        log(f"[fused] edge case {tag}: ok")
+
+
+def fused_bound(X, B1, B2u, k) -> tuple[float, str]:
+    """fused_xa_xtb's bound: X, B1 and B2's own (unbroadcast) values read
+    once, XA and XTB written once; 4k flop per value of X."""
+    r, m, n1, n2 = X.shape
+    nbytes = 4 * (X.numel() + B1.numel() + B2u.numel()
+                  + r * m * (n1 + n2) * k)
+    return bound(nbytes, 4 * X.numel() * k)
+
+
+def phase_fused(dev) -> dict:
+    """fused_xa_xtb at the edge shapes, then held and timed on the grid
+    sweep's operands: X (r, m, n, n), B1 = A (r, n, k) and B2 = A broadcast
+    over the m slices (stride 0), as ``dist.engine._fused_products`` passes
+    them on a 1 x 1 grid, at each KMAX build the sweep runs."""
+    import torch
+    from repro_torch.kernels import fused_bilinear, ref
+    check_fused_edges(dev)
+    cfg = FUSED_SCALE
+    r, m, n = cfg["r"], cfg["m"], cfg["n"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    X = torch.rand((r, m, n, n), generator=gen, device=dev)
+    log(f"[fused] main-path shape: r={r} m={m} n={n} k in {cfg['ks']} "
+        f"({X.numel() * 4 / 1e9:.2f} GB of X)")
+    by_k = {}
+    for k in cfg["ks"]:
+        A = torch.rand((r, n, k), generator=gen, device=dev)
+        B2 = A.unsqueeze(-3).expand(r, m, n, k)
+        xa, xt = fused_bilinear.fused_xa_xtb(X, A, B2)
+        torch.cuda.synchronize()
+        ra, rt = ref.ref_fused_xa_xtb(X, A, B2)
+        err = max(compare(f"fused_xa_xtb XA [main, k={k}]", xa, ra),
+                  compare(f"fused_xa_xtb XTB [main, k={k}]", xt, rt))
+        del xa, xt, ra, rt
+        ms = cuda_ms(lambda: fused_bilinear.fused_xa_xtb(X, A, B2), reps=10)
+        plain = cuda_ms(lambda: ref.ref_fused_xa_xtb(X, A, B2), reps=3,
+                        warmup=1)
+        b_ms, by = fused_bound(X, A, A, k)
+        by_k[k] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=by)
+        log(f"[fused] fused_xa_xtb at k={k}: kernel {ms:.3f} ms, plain "
+            f"{plain:.3f} ms, bound {b_ms:.3f} ms ({by}), max |diff| "
+            f"{err:.3e}")
+        if k == cfg["sliced_k"]:
+            # the sliced schedule's call at full size: one slice of one member
+            Xt, B2t = X[0, 2:3], B2[0, 2:3]
+            compare(f"fused_xa_xtb XA [main, one slice, k={k}]",
+                    fused_bilinear.fused_xa_xtb(Xt, A[0], B2t)[0],
+                    ref.ref_fused_xa_xtb(Xt, A[0], B2t)[0])
+            slice_ms = cuda_ms(
+                lambda: fused_bilinear.fused_xa_xtb(Xt, A[0], B2t), reps=20)
+            log(f"[fused] one slice (m = 1, n = {n}, k = {k}): "
+                f"{slice_ms:.3f} ms")
+            del Xt, B2t
+        del A, B2
+    del X
+    torch.cuda.empty_cache()
+    return dict(name="fused_xa_xtb", route="cuda",
+                source="src/repro_torch/kernels/csrc/fused_bilinear.cu",
+                replaces="src/repro/kernels/fused_bilinear.py:90",
+                launches=0, library_ms=None, **by_k[max(cfg["ks"])])
 
 
 def topk_check(name: str, V64, A64, s, i, ref_s) -> float:
@@ -711,6 +844,141 @@ def profile_serve(fb, queries) -> None:
             f"x{e.count:<4d} {e.key[:70]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the dense grid sweep on a 1 x 1 NCCL grid
+# ---------------------------------------------------------------------------
+
+def run_grid_sweep(grid, X, impl: str, report: Path):
+    from repro_torch.core.rescalk import rescalk
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.selection import RescalkConfig
+    cfg = GRID
+    rc = RescalkConfig(k_min=cfg["k_min"], k_max=cfg["k_max"],
+                       n_perturbations=cfg["r"], rescal_iters=cfg["iters"],
+                       regress_iters=cfg["regress_iters"], seed=cfg["seed"],
+                       schedule="batched",
+                       kernel=KernelPolicy(use_fused=True, impl=impl))
+    t0 = time.perf_counter()
+    res = rescalk(X, rc, grid=grid, report_path=str(report))
+    wall = time.perf_counter() - t0
+    units = json.loads(report.read_text())["units"]
+    unit_s = sum(u["seconds"] for u in units)
+    log(f"[grid] impl={impl}: sweep {wall:.1f}s wall; ensemble units "
+        + " ".join(f"k={u['k']}:{u['seconds']:.3f}s" for u in units)
+        + f"; per MU iteration {1e3 * unit_s / (len(units) * cfg['iters']):.2f}"
+        f" ms")
+    return res
+
+
+def check_grid_result(res, n) -> None:
+    import numpy as np
+    cfg = GRID
+    require(list(res.ks) == list(range(cfg["k_min"], cfg["k_max"] + 1)),
+            f"unexpected ks {list(res.ks)}")
+    for name in ("s_min", "s_mean", "rel_err"):
+        require(bool(np.isfinite(getattr(res, name)).all()),
+                f"non-finite {name}: {getattr(res, name)}")
+    for k, kr in res.per_k.items():
+        require(kr.A_median.shape == (n, k) and bool(
+            np.isfinite(kr.A_median).all()) and bool(
+            (kr.A_median >= 0).all()), f"A_median, k={k}")
+        require(bool(np.isfinite(kr.R_regress).all())
+                and bool((kr.R_regress >= 0).all()), f"R_regress, k={k}")
+
+
+def phase_grid(row: dict, tmp: Path, dev) -> None:
+    """Phase 6 (see the module docstring); sets row's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed
+    from repro_torch.data.synthetic import synthetic_rescal
+    from repro_torch.dist.engine import DistRescalConfig, dist_rescal
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch.mesh import make_grid
+    cfg = GRID
+    n, m = cfg["n"], cfg["m"]
+    torch.cuda.empty_cache()
+    grid = make_grid(data=1, model=1, device=dev)
+    try:
+        t0 = time.perf_counter()
+        X, _, _ = synthetic_rescal(n, m, cfg["k_true"], seed=cfg["seed"],
+                                   noise=cfg["noise"], device=dev)
+        torch.cuda.synchronize()
+        log(f"[grid] 1 x 1 grid on {torch.distributed.get_backend()}; "
+            f"synthetic X (m={m}, n={n}, planted "
+            f"k={cfg['k_true']}): {X.numel() * 4 / 1e9:.2f} GB in "
+            f"{time.perf_counter() - t0:.2f}s")
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        c0 = grid.collectives
+        res = run_grid_sweep(grid, X, "auto", tmp / "grid_cuda.json")
+        launches = ops.launch_counts()
+        collectives = grid.collectives - c0
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = (cfg["k_max"] - cfg["k_min"] + 1) * cfg["iters"]
+        log(f"[grid] kernel launches in the main path: {launches}; "
+            f"collectives {collectives}; peak device memory "
+            f"{peak / 1e9:.2f} GB")
+        require(launches["fused_xa_xtb"] == want,
+                f"fused_xa_xtb launched {launches['fused_xa_xtb']} times, "
+                f"want {want} (one per MU iteration)")
+        require(collectives > 0, "the grid issued no collective")
+        row["launches"] = launches["fused_xa_xtb"]
+        check_grid_result(res, n)
+
+        ops.reset_launch_counts()
+        ref = run_grid_sweep(grid, X, "ref", tmp / "grid_ref.json")
+        require(not any(ops.launch_counts().values()),
+                "the ref grid sweep launched a kernel")
+        check_grid_result(ref, n)
+        require(res.k_opt == ref.k_opt,
+                f"k_opt differs: kernel {res.k_opt}, ref {ref.k_opt}")
+        for name in ("s_min", "s_mean", "rel_err"):
+            a, b = getattr(res, name), getattr(ref, name)
+            worst = float(np.abs(a - b).max())
+            log(f"[grid] {name}: kernel {np.round(a, 6).tolist()} ref "
+                f"{np.round(b, 6).tolist()} max |diff| {worst:.2e}")
+            require(worst <= SWEEP_TOL, f"{name} differs by {worst:.2e}")
+        log(f"[grid] k_opt = {res.k_opt} on both paths (planted "
+            f"{cfg['k_true']}: {'equal' if res.k_opt == cfg['k_true'] else 'differs'})")
+
+        # the sliced schedule: m launches per iteration
+        out = {}
+        for impl in ("auto", "ref"):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(cfg["seed"])
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, err = dist_rescal(
+                X, cfg["sliced_k"], grid, generator=gen,
+                iters=cfg["sliced_iters"],
+                cfg=DistRescalConfig(schedule="sliced", kernel=KernelPolicy(
+                    use_fused=True, impl=impl)))
+            torch.cuda.synchronize()
+            out[impl] = st
+            log(f"[grid] dist_rescal sliced impl={impl}: "
+                f"{cfg['sliced_iters']} iterations in "
+                f"{time.perf_counter() - t0:.2f}s, rel_err {float(err):.6f}, "
+                f"launches {ops.launch_counts()['fused_xa_xtb']}")
+            if impl == "auto":
+                require(ops.launch_counts()["fused_xa_xtb"]
+                        == m * cfg["sliced_iters"],
+                        "the sliced schedule did not launch m times per "
+                        "iteration")
+        for name in ("A", "R"):
+            a, b = getattr(out["auto"], name), getattr(out["ref"], name)
+            rel = float((a - b).abs().max() / b.abs().max())
+            log(f"[grid] dist_rescal sliced {name}: max |diff| / max |ref| "
+                f"{rel:.2e}")
+            require(bool(torch.isfinite(a).all()) and rel <= SWEEP_TOL,
+                    f"dist_rescal sliced {name} differs by {rel:.2e}")
+        del X
+    finally:
+        grid.destroy()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -730,10 +998,13 @@ def main() -> int:
     log(f"[card] {smi} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda})")
     phase_build()
-    rows = phase_kernels(dev) + [phase_topk(dev)]
+    rows = phase_kernels(dev) + [phase_fused(dev), phase_topk(dev)]
+    by_name = {row["name"]: row for row in rows}
     with tempfile.TemporaryDirectory() as tmp:
         bundle = phase_sweeps(rows, Path(tmp))
-        phase_serve(bundle, rows[-1], dev)
+        phase_serve(bundle, by_name["score_topk"], dev)
+        torch.cuda.empty_cache()
+        phase_grid(by_name["fused_xa_xtb"], Path(tmp), dev)
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if row[key] is not None:

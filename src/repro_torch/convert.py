@@ -1,11 +1,21 @@
 """Build the port's objects from ``repro``'s arrays (as numpy).
 
 The parity tests compute with both packages on the same operand and the
-same factors; these helpers take what ``repro`` holds — a BCSR's
-``data``/``block_rows``/``block_cols``/``n``, a ``RescalState``'s
-``A``/``R``, a ``KResult``, a ``FactorBundle`` — as numpy arrays or
+same factors; these helpers take what ``repro`` holds, as numpy arrays or
 anything ``np.asarray`` accepts (a JAX array included), and build the
-port's counterpart on a torch device (a bundle stays numpy).  Nothing here imports ``repro`` or ``jax``.
+port's counterpart on a torch device (a bundle stays numpy).  What they
+carry across:
+
+  * a BCSR's ``data``/``block_rows``/``block_cols``/``n`` (``bcsr``);
+  * a dense X, ``RescalState`` factors A and R (``tensor``,
+    ``rescal_state``);
+  * one grid cell's share of the global dense X, A and R and of the
+    blocked perturbation noise, as ``repro``'s mesh shards them
+    (``grid_blocks``);
+  * a ``KResult`` (``k_result``) and a ``FactorBundle``
+    (``factor_bundle``).
+
+Nothing here imports ``repro`` or ``jax``.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core.rescal import RescalState
 from repro_torch.core.sparse import BCSR
+from repro_torch.dist.sharding import Grid
 from repro_torch.selection.types import KResult
 from repro_torch.serve.bundle import FactorBundle
 
@@ -37,6 +48,25 @@ def bcsr(sp_like, device=None) -> BCSR:
 def rescal_state(A, R, *, step: int = 0, device=None) -> RescalState:
     """A RescalState from ``repro``'s factors A (n, k) and R (m, k, k)."""
     return RescalState(A=tensor(A, device), R=tensor(R, device), step=step)
+
+
+def grid_blocks(grid: Grid, *, X=None, A=None, R=None, noise=None,
+                device=None) -> dict[str, torch.Tensor]:
+    """This cell's blocks of global arrays, as ``repro``'s mesh holds
+    them: X (m, n, n) -> X^(i,j); A (..., n, k) -> row block A^(i); R
+    replicated; the blocked noise (..., m, n, n) of ``repro``'s
+    ``perturb_blocked`` -> its (i, j) block.  ``grid`` needs no process
+    groups (``Grid.at_rank`` builds one for any rank).  Only the arrays
+    given are returned."""
+    out = {}
+    for name, x in (("X", X), ("noise", noise)):
+        if x is not None:
+            out[name] = grid.x_block(tensor(x, device)).contiguous()
+    if A is not None:
+        out["A"] = grid.row_block(tensor(A, device)).contiguous()
+    if R is not None:
+        out["R"] = tensor(R, device)
+    return out
 
 
 def k_result(res) -> KResult:

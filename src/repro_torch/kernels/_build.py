@@ -37,6 +37,8 @@ SIGNATURES = {
                         _P],
     "repro_bcsr_xa_xta": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _L, _L, _P],
+    "repro_fused_xa_xtb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
+                           _L, _L, _I, _P],
     "repro_score_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "repro_score_topk_plan": [_I, _I, _I, _I, _I, _P],

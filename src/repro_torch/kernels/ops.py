@@ -1,5 +1,5 @@
 """Dispatch of the kernels by ``impl`` and device (port of
-``repro/kernels/ops.py:151,161,181``).
+``repro/kernels/ops.py:87,151,161,181``).
 
 impl:
   "auto" — the kernel wrapper: the CUDA kernel for CUDA tensors, its plain
@@ -19,11 +19,12 @@ from repro_torch.core.sparse import BCSR
 
 from . import bcsr_fused
 from . import bcsr_spmm as _spmm_mod
+from . import fused_bilinear
 from . import ref as _ref
 from . import score_topk as _topk_mod
 from .policy import IMPLS
 
-__all__ = ["bcsr_spmm", "bcsr_xa_xta", "launch_counts",
+__all__ = ["bcsr_spmm", "bcsr_xa_xta", "fused_xa_xtb", "launch_counts",
            "reset_launch_counts", "score_topk"]
 
 
@@ -51,6 +52,14 @@ def bcsr_xa_xta(sp: BCSR, B1, B2, *, impl: str = "auto"):
     return bcsr_fused.bcsr_xa_xta(sp, B1, B2)
 
 
+def fused_xa_xtb(X, B1, B2, *, impl: str = "auto"):
+    """One-pass (X_t @ B1, X_t^T @ B2_t) on a dense X ([r,] m, n1, n2)
+    (kernels/fused_bilinear.py)."""
+    if _require(impl, "fused_xa_xtb", X, B1, B2) == "ref":
+        return _ref.ref_fused_xa_xtb(X, B1, B2)
+    return fused_bilinear.fused_xa_xtb(X, B1, B2)
+
+
 def score_topk(V, A, *, topk: int, impl: str = "auto",
                pn: int | None = None):
     """Top-k of V @ A^T without the (b, n) scores (kernels/score_topk.py):
@@ -63,7 +72,7 @@ def score_topk(V, A, *, topk: int, impl: str = "auto",
 
 
 _KERNELS = {"bcsr_xa_xta": bcsr_fused, "bcsr_spmm": _spmm_mod,
-            "score_topk": _topk_mod}
+            "fused_xa_xtb": fused_bilinear, "score_topk": _topk_mod}
 
 
 def launch_counts() -> dict[str, int]:

@@ -14,7 +14,8 @@ IMPLS = ("auto", "cuda", "ref")
 
 @dataclasses.dataclass(frozen=True)
 class KernelPolicy:
-    """use_fused  route the BCSR products through the kernels
+    """use_fused  route the X-sided MU products through the kernels
+               (bcsr_xa_xta / bcsr_spmm on BCSR, fused_xa_xtb on dense)
     impl       auto — the CUDA kernel for CUDA tensors, the plain PyTorch
                       version for CPU tensors
                cuda — the CUDA kernel; a CPU tensor raises

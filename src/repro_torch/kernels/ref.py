@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (port of
-``repro/kernels/ref.py:22,53,57`` and ``repro/kernels/score_topk.py:138``).
+``repro/kernels/ref.py:15,22,53,57`` and ``repro/kernels/score_topk.py:138``).
 
 Each ``ref_*`` computes the same function as its kernel with tensor ops.
 The CPU tests run them against ``repro``; ``chip_smoke.py`` holds each
@@ -9,8 +9,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.rescal import x_times, xt_times
 from repro_torch.core.sparse import (BCSR, block_tiles, crop_blocks,
                                      segment_sum, spmm, zeros_product)
+
+
+def ref_fused_xa_xtb(X: torch.Tensor, B1: torch.Tensor, B2: torch.Tensor):
+    """(X_t @ B1, X_t^T @ B2_t) as two batched products: X ([r,] m, n1,
+    n2), B1 ([r,] n2, k), B2 ([r,] m, n1, k) -> (([r,] m, n1, k),
+    ([r,] m, n2, k)).  Reads X twice; the kernel reads it once."""
+    return x_times(X, B1), xt_times(X, B2)
 
 
 def ref_bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor):

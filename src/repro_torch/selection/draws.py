@@ -17,6 +17,13 @@ Per member (k, q) a source gives the multiplicative noise for the stored
 blocks (uniform in [1 - delta, 1 + delta], the data's shape) and the
 initial factors A0 (n, k) and R0 (m, k, k) (uniform in [0.05, 1)); per
 rank k it gives the regression's initial R0 (m, k, k).
+
+On the dense grid (``grid_member``, the counterpart of ``repro``'s
+``perturb_shard``, ``core/perturb.py:24``) the noise of a member's local
+block X^(i,j) depends on (seed, k, q, the cell's linear grid index), so
+every cell draws its own; the initial A (n, k) and R are drawn globally
+from (seed, k, q), equal on every cell, and the caller slices A to its
+rows, as ``repro``'s ``make_mesh_ensemble`` does.
 """
 from __future__ import annotations
 
@@ -39,6 +46,11 @@ class DrawSource(Protocol):
 
     def regress_R0(self, k: int, m: int) -> torch.Tensor:
         """Initial R (m, k, k) of rank k's regression."""
+
+    def grid_member(self, k: int, q: int, grid, out: torch.Tensor,
+                    delta: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """Write member q's noise for this cell's block into ``out``
+        (m, n/g, n/g) and return its global (A0 (n, k), R0 (m, k, k))."""
 
 
 class TorchDraws:
@@ -68,6 +80,17 @@ class TorchDraws:
         R0 = torch.empty((m, k, k), dtype=torch.float32, device=self.device)
         return R0.uniform_(0.05, 1.0, generator=g)
 
+    def grid_member(self, k: int, q: int, grid, out: torch.Tensor,
+                    delta: float):
+        out.uniform_(1.0 - delta, 1.0 + delta,
+                     generator=self._generator(self.seed, k, q,
+                                               grid.linear_index))
+        m, nr, _ = out.shape
+        st = init_factors(nr * grid.rows, m, k,
+                          generator=self._generator(self.seed, k, q),
+                          dtype=out.dtype)
+        return st.A, st.R
+
 
 class ArrayDraws:
     """Draws handed in as arrays: ``members[(k, q)] = (noise, A0, R0)`` and
@@ -93,3 +116,18 @@ class ArrayDraws:
 
     def regress_R0(self, k: int, m: int) -> torch.Tensor:
         return self._tensor(self.regress[k])
+
+    def grid_member(self, k: int, q: int, grid, out: torch.Tensor,
+                    delta: float):
+        """``members[(k, q)]`` holds the global blocked noise (m, n, n) —
+        ``repro``'s ``perturb_shard`` draws, block by block — and A0, R0;
+        this cell's block of the noise is copied into ``out``."""
+        if (k, q) not in self.members:
+            raise KeyError(f"no draws for member (k={k}, q={q})")
+        noise, A0, R0 = self.members[(k, q)]
+        block = grid.x_block(torch.as_tensor(np.asarray(noise, np.float32)))
+        if tuple(block.shape) != tuple(out.shape):
+            raise ValueError(f"noise block {tuple(block.shape)} does not "
+                             f"match the local block {tuple(out.shape)}")
+        out.copy_(block)
+        return self._tensor(A0), self._tensor(R0)

@@ -1,12 +1,14 @@
 """Sweep configuration and result types (port of
-``repro/selection/types.py``) — numpy only.
+``repro/selection/types.py``) — numpy only at import.
 
 ``RescalkConfig`` keeps ``repro``'s field names and defaults for what the
-port runs.  ``kernel`` is a ``kernels.KernelPolicy``.  Not ported yet:
-``repro``'s deprecated aliases (``use_fused_kernel``/``fused_impl``),
-``init`` and ``schedule`` (random init and the batched schedule only),
-``sanitize`` and ``trace_metrics`` (the MU step takes both flags; no
-config or CLI sets them yet).
+port runs.  ``kernel`` is a ``kernels.KernelPolicy``; ``schedule`` is the
+dense grid engine's MU schedule, one of ``core.rescal.MU_SCHEDULES`` (the
+BCSR sweep runs only the batched one, as ``repro``'s does, and refuses
+another).  Not ported yet: ``repro``'s deprecated aliases
+(``use_fused_kernel``/``fused_impl``), ``init`` (random init only, as
+``repro``'s mesh path), ``sanitize`` and ``trace_metrics`` (the MU steps
+take both flags; no config or CLI sets them yet).
 """
 from __future__ import annotations
 
@@ -25,9 +27,14 @@ class RescalkConfig:
     perturbation_delta: float = 0.02   # noise half-width (paper: [0.005, .03])
     rescal_iters: int = 1000           # paper §6.2.1 uses 1000
     regress_iters: int = 100
+    schedule: str = "batched"          # "batched" | "sliced" (paper-faithful)
     seed: int = 0
     sil_threshold: float = 0.75        # stability bar for k selection
     kernel: KernelPolicy = KernelPolicy()
+
+    def __post_init__(self):
+        from repro_torch.core.rescal import check_schedule
+        check_schedule(self.schedule)
 
     @property
     def ks(self) -> list[int]:

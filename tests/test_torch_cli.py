@@ -69,7 +69,8 @@ def test_cli_flags_match_repro_meanings():
 
 def test_port_imports_neither_jax_nor_repro(tmp_path):
     """Import every repro_torch module in a fresh interpreter: no jax, no
-    repro (repro_torch itself is not a hit), and no kernel build."""
+    repro (repro_torch itself is not a hit), no kernel build, and no
+    process group."""
     code = r"""
 import importlib, json, pkgutil, sys
 import repro_torch
@@ -81,8 +82,10 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
 from repro_torch.kernels import _build
+import torch.distributed as dist
 print(json.dumps({"modules": len(names), "bad": bad,
-                  "built": _build.library.cache_info().currsize}))
+                  "built": _build.library.cache_info().currsize,
+                  "groups": dist.is_available() and dist.is_initialized()}))
 """
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -93,3 +96,4 @@ print(json.dumps({"modules": len(names), "bad": bad,
     assert got["modules"] >= 25
     assert got["bad"] == []
     assert got["built"] == 0
+    assert got["groups"] is False

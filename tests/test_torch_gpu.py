@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: each against its plain version, a
-small sweep through the kernels against the same sweep on the CPU, and a
-small ServeEngine on the card against the same engine on the CPU.
+small sweep through the kernels against the same sweep on the CPU, a
+small ServeEngine on the card against the same engine on the CPU, and a
+small dense grid sweep on a 1 x 1 NCCL grid, kernel against plain.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -63,7 +64,7 @@ def test_kernels_match_plain_versions_on_card(cuda, n, bs, density, k, r):
     sa = bcsr_spmm.bcsr_spmm(t, B1)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"bcsr_xa_xta": 1, "bcsr_spmm": 1,
-                                   "score_topk": 0}
+                                   "fused_xa_xtb": 0, "score_topk": 0}
     ra, rt = tref.ref_bcsr_xa_xta(t, B1, B2)
     for got, ref in ((xa, ra), (xt, rt), (sa, ra)):
         assert rel_err(got, ref) <= 1e-5
@@ -78,7 +79,7 @@ def test_cuda_impl_launches_and_ref_impl_does_not(cuda):
     ref = ops.bcsr_spmm(t, B, impl="ref")
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"bcsr_xa_xta": 0, "bcsr_spmm": 1,
-                                   "score_topk": 0}
+                                   "fused_xa_xtb": 0, "score_topk": 0}
     assert rel_err(got, ref) <= 1e-5
 
 
@@ -223,3 +224,67 @@ def test_serve_engine_on_card_matches_cpu(cuda):
         topk_close((torch.from_numpy(g.scores)[None].to(cuda),
                     torch.from_numpy(g.indices)[None].to(cuda)),
                    (torch.from_numpy(w.scores)[None].to(cuda), None), V, A)
+
+
+# (m, n1, n2, k, r, B2 shared over m): ragged tails, the scalar path (n2
+# odd) and the float4 path, m = 1, k = 1 and k = 64, members
+FUSED_GPU_CASES = [(3, 37, 1000, 3, None, False), (1, 1000, 37, 64, 4, True),
+                   (4, 300, 256, 8, 4, True), (2, 1, 37, 1, None, False)]
+
+
+@pytest.mark.parametrize("m,n1,n2,k,r,shared", FUSED_GPU_CASES)
+def test_fused_xa_xtb_matches_plain_version_on_card(cuda, m, n1, n2, k, r,
+                                                    shared):
+    """Relative Frobenius error <= 1e-5: XTB's atomics add in no fixed
+    order, the plain version sums in another."""
+    from repro_torch.kernels import fused_bilinear
+    lead = (r,) if r is not None else ()
+    X = torch.rand(lead + (m, n1, n2), device=cuda)
+    B1 = torch.rand(lead + (n2, k), device=cuda)
+    B2 = (torch.rand(lead + (1, n1, k), device=cuda).expand(
+        lead + (m, n1, k)) if shared else
+        torch.rand(lead + (m, n1, k), device=cuda))
+    ops.reset_launch_counts()
+    xa, xt = fused_bilinear.fused_xa_xtb(X, B1, B2)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_xa_xtb"] == 1
+    ra, rt = tref.ref_fused_xa_xtb(X, B1, B2)
+    assert rel_err(xa, ra) <= 1e-5 and rel_err(xt, rt) <= 1e-5
+
+
+def test_fused_xa_xtb_refuses_rank_above_64_on_card(cuda):
+    from repro_torch.kernels import fused_bilinear
+    X = torch.rand(2, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="rank k=65"):
+        fused_bilinear.fused_xa_xtb(X, torch.rand(16, 65, device=cuda),
+                                    torch.rand(2, 16, 65, device=cuda))
+
+
+def test_grid_sweep_1x1_nccl_kernel_matches_ref(cuda):
+    """The dense grid sweep on a one-rank NCCL grid, through the kernel and
+    through the plain version: one launch per MU iteration, the same
+    k_opt, per-k values within 1e-4."""
+    from repro_torch.core.rescalk import rescalk
+    from repro_torch.data.synthetic import synthetic_rescal
+    from repro_torch.launch.mesh import make_grid
+    grid = make_grid(data=1, model=1, device=cuda)
+    try:
+        X, _, _ = synthetic_rescal(256, 3, 3, seed=1, device=cuda)
+        out = {}
+        for impl in ("auto", "ref"):
+            cfg = RescalkConfig(k_min=2, k_max=3, n_perturbations=2,
+                                rescal_iters=30, regress_iters=20,
+                                kernel=KernelPolicy(use_fused=True,
+                                                    impl=impl))
+            ops.reset_launch_counts()
+            out[impl] = rescalk(X, cfg, grid=grid)
+            launches = ops.launch_counts()["fused_xa_xtb"]
+            assert launches == (60 if impl == "auto" else 0)
+        assert grid.collectives > 0
+        assert out["auto"].k_opt == out["ref"].k_opt
+        for name in ("s_min", "s_mean", "rel_err"):
+            np.testing.assert_allclose(getattr(out["auto"], name),
+                                       getattr(out["ref"], name),
+                                       rtol=1e-4, atol=1e-4)
+    finally:
+        grid.destroy()

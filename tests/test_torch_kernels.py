@@ -121,7 +121,7 @@ def test_cpu_dispatch_uses_plain_version_and_counts_nothing():
     close(xt, tsp.spmm_t(t, B))
     close(bcsr_spmm.bcsr_spmm(t, B), tsp.spmm(t, B))
     assert ops.launch_counts() == {"bcsr_xa_xta": 0, "bcsr_spmm": 0,
-                                   "score_topk": 0}
+                                   "fused_xa_xtb": 0, "score_topk": 0}
 
 
 @pytest.mark.parametrize("kernel", ["bcsr_xa_xta", "bcsr_spmm"])
@@ -140,13 +140,15 @@ def test_policy_rejects_unknown_impl():
 
 
 def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
-    """All three kernels' sources are compiled, and an edit to any source
+    """All four kernels' sources are compiled, and an edit to any source
     — the shared header included — gives a new build directory
     (test_torch_cli checks that importing builds nothing)."""
     names = {p.name for p in _build.sources()}
-    assert names == {"bcsr_spmm.cu", "bcsr_fused.cu", "score_topk.cu"}
+    assert names == {"bcsr_spmm.cu", "bcsr_fused.cu", "fused_bilinear.cu",
+                     "score_topk.cu"}
     assert set(_build.SIGNATURES) == {"repro_bcsr_spmm",
                                       "repro_bcsr_xa_xta",
+                                      "repro_fused_xa_xtb",
                                       "repro_score_topk",
                                       "repro_score_topk_plan"}
     for src in _build.CSRC.iterdir():
@@ -154,7 +156,7 @@ def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = _build._digest()
     assert before == _build._digest()
-    for name in ("bcsr_tile.cuh", "score_topk.cu"):
+    for name in ("bcsr_tile.cuh", "score_topk.cu", "fused_bilinear.cu"):
         with open(tmp_path / name, "a") as f:
             f.write("\n")
         assert _build._digest() != before
@@ -314,3 +316,137 @@ def test_score_topk_checks_reject_what_the_kernel_cannot_take(kwargs, error,
     V = torch.rand(4, k, dtype=A.dtype)
     with pytest.raises(error, match=match):
         score_topk.check(V, A, kwargs.get("topk", 10))
+
+
+# ---------------------------------------------------------------------------
+# fused_xa_xtb: the plain version against repro's, dispatch and checks
+# ---------------------------------------------------------------------------
+
+# (m, n1, n2, k, r, B2 shared over m): n1 != n2, neither a multiple of the
+# kernel's tile, n in {1, 37, 1000}; m = 1 (the sliced schedule's call);
+# k in {1, 3, 5, 16, 64}; r in {1, 4}; B2 broadcast over m (stride 0)
+FUSED_CASES = [(3, 37, 1000, 3, None, False), (1, 1000, 37, 5, 4, True),
+               (2, 1, 37, 1, None, True), (3, 37, 1, 16, 4, False),
+               (1, 37, 37, 64, None, False), (4, 40, 24, 5, 4, True)]
+
+
+def fused_inputs(seed, m, n1, n2, k, r, shared):
+    rng = np.random.default_rng(seed)
+    lead = (r,) if r is not None else ()
+    X = rng.random(lead + (m, n1, n2), dtype=np.float32)
+    B1 = rng.random(lead + (n2, k), dtype=np.float32)
+    if shared:
+        B2 = np.broadcast_to(rng.random(lead + (1, n1, k),
+                                        dtype=np.float32),
+                             lead + (m, n1, k))
+    else:
+        B2 = rng.random(lead + (m, n1, k), dtype=np.float32)
+    return X, B1, B2
+
+
+def to_torch_b2(B2, shared):
+    """B2 as the engine passes it: a stride-0 view over m when shared."""
+    if not shared:
+        return torch.from_numpy(np.ascontiguousarray(B2))
+    one = torch.from_numpy(np.ascontiguousarray(B2[..., :1, :, :]))
+    return one.expand(B2.shape)
+
+
+@pytest.mark.parametrize("m,n1,n2,k,r,shared", FUSED_CASES)
+def test_ref_fused_xa_xtb_matches_repro(m, n1, n2, k, r, shared):
+    """Member by member against repro.kernels.ref.ref_fused_xa_xtb (the
+    Pallas interpret path is broken under this JAX; see ROADMAP.md)."""
+    X, B1, B2 = fused_inputs(m + n1, m, n1, n2, k, r, shared)
+    b2 = to_torch_b2(B2, shared)
+    if shared:
+        assert b2.stride(-3) == 0
+    xa, xtb = tref.ref_fused_xa_xtb(torch.from_numpy(X),
+                                    torch.from_numpy(B1), b2)
+    members = range(r) if r is not None else [None]
+    for q in members:
+        pick = (lambda a: a) if q is None else (lambda a: a[q])
+        rxa, rxtb = jref.ref_fused_xa_xtb(jnp.asarray(pick(X)),
+                                          jnp.asarray(pick(B1)),
+                                          jnp.asarray(pick(B2)))
+        close(pick(xa), rxa)
+        close(pick(xtb), rxtb)
+
+
+def test_ref_fused_xa_xtb_shared_x_folds_members():
+    """A shared X (m, n1, n2) with member-stacked B1/B2 (the pod step's
+    call) gives each member's products without copying X r times."""
+    X, B1, B2 = fused_inputs(3, 2, 30, 20, 4, 3, False)
+    xa, xtb = tref.ref_fused_xa_xtb(torch.from_numpy(X[0]),
+                                    torch.from_numpy(B1),
+                                    torch.from_numpy(B2))
+    assert tuple(xa.shape) == (3, 2, 30, 4) and tuple(xtb.shape) == (
+        3, 2, 20, 4)
+    for q in range(3):
+        rxa, rxtb = jref.ref_fused_xa_xtb(jnp.asarray(X[0]),
+                                          jnp.asarray(B1[q]),
+                                          jnp.asarray(B2[q]))
+        close(xa[q], rxa)
+        close(xtb[q], rxtb)
+
+
+def test_fused_cpu_dispatch_uses_plain_version_and_counts_nothing():
+    X, B1, B2 = (torch.from_numpy(np.ascontiguousarray(a))
+                 for a in fused_inputs(5, 2, 33, 17, 3, None, False))
+    want = tref.ref_fused_xa_xtb(X, B1, B2)
+    ops.reset_launch_counts()
+    from repro_torch.kernels import fused_bilinear
+    for got in (ops.fused_xa_xtb(X, B1, B2),
+                ops.fused_xa_xtb(X, B1, B2, impl="ref"),
+                fused_bilinear.fused_xa_xtb(X, B1, B2)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        ops.fused_xa_xtb(X, B1, B2, impl="cuda")
+    assert ops.launch_counts()["fused_xa_xtb"] == 0
+
+
+def _fused_args(*, k=4, dtype=torch.float32, b1_members=None,
+                x_cols=False, b1_cols=False, m=2):
+    X = torch.rand(m, 9, 7, dtype=dtype)
+    if x_cols:
+        X = X.transpose(-1, -2).contiguous().transpose(-1, -2)
+    B1 = torch.rand((7, k) if b1_members is None else (b1_members, 7, k),
+                    dtype=dtype)
+    if b1_cols:
+        B1 = B1.transpose(-1, -2).contiguous().transpose(-1, -2)
+    B2 = torch.rand(2, m, 9, k, dtype=dtype)
+    return X, B1, B2
+
+
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(k=65), ValueError, "rank k=65"),
+    (dict(dtype=torch.float64), TypeError, "float32"),
+    (dict(x_cols=True), ValueError, "X's last two axes"),
+    (dict(b1_cols=True), ValueError, "B1's last two axes"),
+    (dict(b1_members=3), ValueError, "member axes disagree"),
+    (dict(), ValueError, "one CUDA device"),
+])
+def test_fused_checks_reject_what_the_kernel_cannot_take(kwargs, error,
+                                                         match):
+    """The checks a CUDA launch passes first: k <= 64 (register
+    accumulators), float32, row-major last axes, one member count, and
+    every tensor on one CUDA device."""
+    from repro_torch.kernels.fused_bilinear import Call
+    args = _fused_args(**kwargs)
+    with pytest.raises(error, match=match):
+        Call(*args).require_cuda(*args)
+
+
+def test_fused_call_reads_strides_without_copies():
+    """A slice view of X (the sliced schedule) and B2 broadcast over m
+    pass as strides: no copy, the launch shape and the float4 path from
+    the strides."""
+    from repro_torch.kernels.fused_bilinear import Call
+    X = torch.rand(4, 3, 16, 8)
+    Ai = torch.rand(4, 16, 5)
+    Xt = X[:, 1:3]
+    B2 = Ai.unsqueeze(-3).expand(4, 2, 16, 5)
+    c = Call(Xt, torch.rand(4, 8, 5), B2)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        c.require_cuda(Xt, B2)
+    assert c.strides == (3 * 16 * 8, 16 * 8, 8 * 5, 16 * 5, 0)
+    assert (c.T, c.m, c.n1, c.n2, c.k, c.vec) == (8, 2, 16, 8, 5, 1)

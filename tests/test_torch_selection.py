@@ -127,6 +127,28 @@ def test_sweep_matches_repro():
                                    ref.per_k[k].member_errors, rtol=1e-3)
 
 
+def test_schedule_names_are_checked_once_and_bcsr_runs_batched_only():
+    """One list of schedules (core.rescal.MU_SCHEDULES) is what the sweep
+    config, the grid engine and the single-process reference accept; the
+    BCSR sweep refuses the sliced schedule instead of running batched."""
+    from repro_torch.core.rescal import MU_SCHEDULES
+    from repro_torch.dist.engine import DistRescalConfig, get_mu_iter
+    assert tuple(MU_SCHEDULES) == ("batched", "sliced")
+    for schedule in MU_SCHEDULES:
+        RescalkConfig(schedule=schedule)
+        DistRescalConfig(schedule=schedule)
+        assert callable(get_mu_iter(schedule))
+    for make in (lambda: RescalkConfig(schedule="loop"),
+                 lambda: DistRescalConfig(schedule="loop"),
+                 lambda: get_mu_iter("loop")):
+        with pytest.raises(ValueError, match="schedule must be one of"):
+            make()
+    cfg = RescalkConfig(k_min=2, k_max=2, n_perturbations=2,
+                        rescal_iters=2, regress_iters=2, schedule="sliced")
+    with pytest.raises(ValueError, match="batched schedule only"):
+        SweepScheduler(cfg).run(convert.bcsr(planted(), device="cpu"))
+
+
 def test_ensemble_members_match_repro_draw_for_draw():
     """One unit's members on repro's draws: the same factors, member for
     member, at the MU iterations' accumulated fp32 differences."""
@@ -170,7 +192,9 @@ def test_plan_and_report_read_by_repro(tmp_path):
     back = JReport.load(str(tmp_path / "rep.json"))
     assert back.k_opt == res.k_opt and len(back.units) == 2
     assert back.meta["kernel_launches"] == {"bcsr_xa_xta": 0,
-                                            "bcsr_spmm": 0, "score_topk": 0}
+                                            "bcsr_spmm": 0,
+                                            "fused_xa_xtb": 0,
+                                            "score_topk": 0}
     kr = convert.k_result(dataclasses.replace(res.per_k[2]))
     np.testing.assert_array_equal(kr.A_median, res.per_k[2].A_median)
     assert kr.s_min == res.per_k[2].s_min
