@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-  1. Build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+  1. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
      with nvcc (sm_90a; ptxas register/shared-memory report printed) and
      print the card's name and power limit.
   2. Hold each kernel against its plain PyTorch version on the card.  The
@@ -31,6 +31,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      n = 16384, X 34.4 GB, B1 = A, B2 = A broadcast over m) at k = 4 and
      k = 5, the largest rank of each KMAX build (4 and 8) the sweep runs;
      the kernels line reports k = 5.
+     mu_update_a: n in {0, 1, 37, 1000}, k in {1, 3, 5, 16, 64}, r in
+     {1, 4}, S per member or shared (stride 0), padded cells whose masked
+     columns must stay exact zeros, and k = 65 refused; then held and timed
+     beside its plain version at the BCSR sweep's shape (r = 4, n =
+     131072, k = 5) and the dense sweeps' (r = 4, n = 16384, k = 5), with
+     its device time per launch from ``torch.profiler``; the kernels line
+     reports the dense shape.
   3. Run the RESCALk sweep through the CLI's own entry point
      (``repro_torch.launch.rescalk_run.main``) at full size on a seeded
      planted COO file: n = 131072 entities, m = 8 relations, bs = 128, the
@@ -38,7 +45,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      stored block's entries per relation (~16M triples, ~3.3 GB of
      stored blocks), k = 2..5, r = 4 members, --use-fused-kernel.  The
      kernels' launch counters are zeroed just before and read just after:
-     both must have launched.  One cut: 300 MU iterations per member
+     both BCSR kernels must have launched, and mu_update_a once per MU
+     iteration (1200).  One cut: 300 MU iterations per member
      (the CLI's default; the paper runs 1000).  The regression keeps its
      100 iterations; n, m, bs, the density and r are not cut.
   4. The same sweep with --fused-impl ref (plain PyTorch products on the
@@ -65,16 +73,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      batched schedule, use_fused.  n = 16384 is the largest power of two
      whose ensemble one H100 holds; the one cut is the MU iterations (300,
      the CLI's default; the paper runs 1000).  The counters, zeroed just
-     before: fused_xa_xtb must launch once per MU iteration (1200) and the
-     grid's collective count be above 0.  The same sweep with
+     before: fused_xa_xtb and mu_update_a must launch once per MU
+     iteration (1200 each) and the grid's collective count be above 0.  The same sweep with
      impl="ref": the same k_opt, per-k s_min/s_mean/rel_err within 1e-4.
      Then ``dist_rescal`` with the sliced schedule at the same n for 20
      iterations (m launches per iteration), kernel and ref, A and R within
      1e-4 of the largest |value|.  The group is destroyed at the end.
+  7. The CLI's default path, ``rescalk_run.main`` without --data: the
+     dense sweep on one device on the synthetic tensor it builds on the
+     card, ``--n 16384 --m 8 --k-true 4 --k-min 2 --k-max 5 --r 4 --iters
+     300 --use-fused-kernel`` (phase 6's X and draws: X 8.6 GB, the 4
+     members 34.4 GB).  The counters, zeroed just before: fused_xa_xtb
+     and mu_update_a once per MU iteration (1200 each); k_opt = 4, the
+     planted rank; per-k values within 1e-4 of phase 6's grid sweep.  The
+     same run with --fused-impl ref (no launches), and with --mode grid
+     --grid-chunk 4 (4 padded cells per chunk, 34.4 GB, where the whole
+     16-cell grid would need 137 GB): the same k_opt, per-k within 1e-4
+     of the batched run.  Then at n = 4096 (an exact eigh of an (n, n)
+     surrogate per member, and a member loop, are why these run smaller)
+     the batched run, --mode loop, --schedule sliced and --init nndsvd:
+     the kernels launched and the same k_opt as the batched run.
 
-The line before the last is ``{"kernels": [...]}``, the last
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
-sources beside it, the script exits 1 and prints no result.
+Printed last, each on a line of its own: ``{"kernels": [...]}``, the
+card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader`` prints them, and ``{"ok": true, "device":
+{...}}``.  Without CUDA, or without the port's sources beside it, the
+script exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -115,6 +139,14 @@ GRID = dict(n=16384, m=8, k_true=4, noise=0.01, seed=0, k_min=2, k_max=5,
 # KMAX = 4 build and rank 5 its KMAX = 8 build, so both are held at their
 # largest rank in the sweep; the kernels line reports k = 5
 FUSED_SCALE = dict(r=4, m=8, n=16384, ks=(4, 5), sliced_k=4)
+# mu_update_a at the BCSR sweep's and the dense sweeps' shapes (A (r, n,
+# k) at k = k_max); the kernels line reports the dense one
+MU_SCALES = (dict(r=4, n=131072, k=5), dict(r=4, n=16384, k=5))
+# the CLI's default path (phase 7): the dense single-device sweep at the
+# grid sweep's size, and the modes whose member loop or exact eigh of an
+# (n, n) surrogate per member make them run smaller
+DENSE = dict(n=16384, m=8, k_true=4, k_min=2, k_max=5, r=4, iters=300,
+             grid_chunk=4, small_n=4096)
 
 
 def log(msg: str) -> None:
@@ -248,6 +280,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, name: str, reps: int) -> float:
+    """Mean device milliseconds per call of the kernels whose name holds
+    ``name``, from ``torch.profiler`` over ``reps`` calls (0.0 when the
+    profiler records no device time)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if name in e.key)
+    return total / 1e3 / reps
 
 
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
@@ -425,7 +474,7 @@ def fused_bound(X, B1, B2u, k) -> tuple[float, str]:
 def phase_fused(dev) -> dict:
     """fused_xa_xtb at the edge shapes, then held and timed on the grid
     sweep's operands: X (r, m, n, n), B1 = A (r, n, k) and B2 = A broadcast
-    over the m slices (stride 0), as ``dist.engine._fused_products`` passes
+    over the m slices (stride 0), as ``core.rescal.dense_products`` passes
     them on a 1 x 1 grid, at each KMAX build the sweep runs."""
     import torch
     from repro_torch.kernels import fused_bilinear, ref
@@ -474,6 +523,103 @@ def phase_fused(dev) -> dict:
                 source="src/repro_torch/kernels/csrc/fused_bilinear.cu",
                 replaces="src/repro/kernels/fused_bilinear.py:90",
                 launches=0, library_ms=None, **by_k[max(cfg["ks"])])
+
+
+def check_mu_edges(dev) -> None:
+    """mu_update_a against its plain version at the edge shapes: any n
+    (empty and ragged), k from 1 to 64, one or four members, S per member
+    or shared (member stride 0), and padded columns, which must stay
+    exact zeros; k = 65 is refused."""
+    import torch
+    from repro_torch.kernels import mu_update_a as mu
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    eps = 1e-16
+    for n in (0, 1, 37, 1000):
+        for k in (1, 3, 5, 16, 64):
+            for r, shared in ((None, False), (4, False), (4, True)):
+                lead = (r,) if r is not None else ()
+                A = torch.rand(lead + (n, k), generator=gen, device=dev)
+                Num = torch.rand(lead + (n, k), generator=gen, device=dev)
+                S = torch.rand((k, k) if shared or r is None
+                               else lead + (k, k), generator=gen, device=dev)
+                if shared:
+                    S = S.expand(r, k, k)
+                got = mu.mu_update_a(A, Num, S, eps)
+                torch.cuda.synchronize()
+                compare(f"mu_update_a [n={n} k={k} r={r or 1} "
+                        f"shared={shared}]", got,
+                        ref.ref_mu_update_a(A, Num, S, eps))
+        log(f"[mu] edge cases n={n}: ok")
+    # padded cells (the cross-k grid): columns past each cell's rank zero
+    # in A and in S's rows and columns
+    ks, k_max, n = (2, 3, 4, 5), 5, 1000
+    mask = (torch.arange(k_max, device=dev)[None, :]
+            < torch.tensor(ks, device=dev)[:, None]).float()
+    A = torch.rand((len(ks), n, k_max), generator=gen, device=dev) \
+        * mask[:, None, :]
+    Num = torch.rand(A.shape, generator=gen, device=dev) * mask[:, None, :]
+    S = torch.rand((len(ks), k_max, k_max), generator=gen, device=dev) \
+        * (mask[:, :, None] * mask[:, None, :])
+    got = mu.mu_update_a(A, Num, S, eps)
+    torch.cuda.synchronize()
+    compare("mu_update_a [padded cells]", got,
+            ref.ref_mu_update_a(A, Num, S, eps))
+    require(not (got * (1 - mask[:, None, :])).any(),
+            "mu_update_a: a padded column is not exactly zero")
+    try:
+        mu.mu_update_a(torch.rand((4, 65), device=dev),
+                       torch.rand((4, 65), device=dev),
+                       torch.rand((65, 65), device=dev), eps)
+    except ValueError:
+        pass
+    else:
+        raise PhaseError("mu_update_a accepted k = 65")
+    log("[mu] padded cells stay exact zeros; k = 65 refused")
+
+
+def phase_mu(dev) -> dict:
+    """mu_update_a at the edge shapes, then held and timed at the sweeps'
+    shapes (A and Num (r, n, k), S (r, k, k)) beside its plain version and
+    its bound: A and Num read and the update written once (12 bytes per
+    element, S's k*k per member besides), 2k + 2 flop per element."""
+    import torch
+    from repro_torch.kernels import mu_update_a as mu
+    from repro_torch.kernels import ref
+    check_mu_edges(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    eps = 1e-16
+    row = None
+    for cfg in MU_SCALES:
+        r, n, k = cfg["r"], cfg["n"], cfg["k"]
+        A = torch.rand((r, n, k), generator=gen, device=dev)
+        Num = torch.rand((r, n, k), generator=gen, device=dev)
+        S = torch.rand((r, k, k), generator=gen, device=dev)
+        got = mu.mu_update_a(A, Num, S, eps)
+        torch.cuda.synchronize()
+        err = compare(f"mu_update_a [r={r} n={n} k={k}]", got,
+                      ref.ref_mu_update_a(A, Num, S, eps))
+        ms = cuda_ms(lambda: mu.mu_update_a(A, Num, S, eps), reps=200)
+        plain = cuda_ms(lambda: ref.ref_mu_update_a(A, Num, S, eps),
+                        reps=200)
+        dev_ms = device_ms(lambda: mu.mu_update_a(A, Num, S, eps),
+                           "mu_update_a_kernel", reps=50)
+        b_ms, by = bound(4 * (3 * A.numel() + S.numel()),
+                         (2 * k + 2) * A.numel())
+        log(f"[mu] mu_update_a at r={r} n={n} k={k}: kernel {ms:.4f} ms "
+            f"per call ({dev_ms:.4f} ms on the device per launch, "
+            f"torch.profiler), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+            f"({by}), max |diff| {err:.3e}")
+        row = dict(name="mu_update_a", route="cuda",
+                   source="src/repro_torch/kernels/csrc/mu_update_a.cu",
+                   replaces="src/repro/kernels/mu_ratio.py:43",
+                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                   bound_ms=b_ms, bound_by=by, library_ms=None)
+        del A, Num, S, got
+    torch.cuda.empty_cache()
+    return row
 
 
 def topk_check(name: str, V64, A64, s, i, ref_s) -> float:
@@ -688,6 +834,10 @@ def phase_sweeps(kernel_rows: list[dict], tmp: Path) -> Path:
     log(f"[sweep] kernel launches in the main path: {launches}")
     for name in sweep_kernels:
         require(launches[name] > 0, f"{name} was not launched in the sweep")
+    want = (cfg["k_max"] - cfg["k_min"] + 1) * cfg["iters"]
+    require(launches["mu_update_a"] == want,
+            f"mu_update_a launched {launches['mu_update_a']} times, want "
+            f"{want} (one per MU iteration)")
     check_sweep(res, tmp / "cuda.json", cfg)
     for row in kernel_rows:
         if row["name"] in sweep_kernels:
@@ -870,9 +1020,8 @@ def run_grid_sweep(grid, X, impl: str, report: Path):
     return res
 
 
-def check_grid_result(res, n) -> None:
+def check_grid_result(res, n, cfg=GRID) -> None:
     import numpy as np
-    cfg = GRID
     require(list(res.ks) == list(range(cfg["k_min"], cfg["k_max"] + 1)),
             f"unexpected ks {list(res.ks)}")
     for name in ("s_min", "s_mean", "rel_err"):
@@ -886,8 +1035,9 @@ def check_grid_result(res, n) -> None:
                 and bool((kr.R_regress >= 0).all()), f"R_regress, k={k}")
 
 
-def phase_grid(row: dict, tmp: Path, dev) -> None:
-    """Phase 6 (see the module docstring); sets row's launches."""
+def phase_grid(row: dict, tmp: Path, dev):
+    """Phase 6 (see the module docstring); sets row's launches and
+    returns the kernel sweep's result."""
     import numpy as np
     import torch
     import torch.distributed
@@ -920,9 +1070,10 @@ def phase_grid(row: dict, tmp: Path, dev) -> None:
         log(f"[grid] kernel launches in the main path: {launches}; "
             f"collectives {collectives}; peak device memory "
             f"{peak / 1e9:.2f} GB")
-        require(launches["fused_xa_xtb"] == want,
-                f"fused_xa_xtb launched {launches['fused_xa_xtb']} times, "
-                f"want {want} (one per MU iteration)")
+        for name in ("fused_xa_xtb", "mu_update_a"):
+            require(launches[name] == want,
+                    f"{name} launched {launches[name]} times, want {want} "
+                    f"(one per MU iteration)")
         require(collectives > 0, "the grid issued no collective")
         row["launches"] = launches["fused_xa_xtb"]
         check_grid_result(res, n)
@@ -977,6 +1128,104 @@ def phase_grid(row: dict, tmp: Path, dev) -> None:
     finally:
         grid.destroy()
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the CLI's default path, the dense sweep on one device
+# ---------------------------------------------------------------------------
+
+def run_dense_cli(tmp: Path, name: str, n: int, *extra: str):
+    """One sweep through ``rescalk_run.main`` on the synthetic tensor
+    (no --data); returns (result, report, launches of this run)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import rescalk_run
+    cfg = DENSE
+    argv = ["--n", str(n), "--m", str(cfg["m"]),
+            "--k-true", str(cfg["k_true"]), "--k-min", str(cfg["k_min"]),
+            "--k-max", str(cfg["k_max"]), "--r", str(cfg["r"]),
+            "--iters", str(cfg["iters"]), "--use-fused-kernel",
+            "--report", str(tmp / f"{name}.json"), *extra]
+    log(f"[dense] rescalk_run {' '.join(argv)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, rep = rescalk_run.main(argv)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    iters = sum(len(u.cells) if u.cells else len(u.members)
+                for u in rep.units) * cfg["iters"] // cfg["r"]
+    log(f"[dense] {name}: {wall:.1f}s wall, units "
+        + " ".join(f"{u.uid}:{u.seconds:.3f}s" for u in rep.units)
+        + f"; {1e3 * rep.total_seconds / iters:.2f} ms per MU iteration of "
+        f"{cfg['r']} members; launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check_grid_result(res, n, DENSE)
+    require(rep.mode == (extra[extra.index("--mode") + 1]
+                         if "--mode" in extra else "batched"),
+            f"{name}: the report's mode is {rep.mode}")
+    torch.cuda.empty_cache()
+    return res, rep, launches
+
+
+def same_curves(tag: str, a, b, tol: float = SWEEP_TOL) -> None:
+    """The same k_opt and per-k s_min / s_mean / rel_err within tol."""
+    import numpy as np
+    require(a.k_opt == b.k_opt, f"{tag}: k_opt {a.k_opt} vs {b.k_opt}")
+    for name in ("s_min", "s_mean", "rel_err"):
+        x, y = getattr(a, name), getattr(b, name)
+        worst = float(np.abs(x - y).max())
+        log(f"[dense] {tag} {name}: {np.round(x, 6).tolist()} vs "
+            f"{np.round(y, 6).tolist()} max |diff| {worst:.2e}")
+        require(worst <= tol, f"{tag}: {name} differs by {worst:.2e}")
+
+
+def phase_dense(rows: dict, grid_res, tmp: Path) -> None:
+    """Phase 7 (see the module docstring); sets the launches of
+    fused_xa_xtb and mu_update_a from the full-width kernel run."""
+    cfg = DENSE
+    n, want = cfg["n"], (cfg["k_max"] - cfg["k_min"] + 1) * cfg["iters"]
+    res, _, launches = run_dense_cli(tmp, "dense", n)
+    for name in ("fused_xa_xtb", "mu_update_a"):
+        require(launches[name] == want,
+                f"{name} launched {launches[name]} times in the dense "
+                f"sweep, want {want} (one per MU iteration)")
+        rows[name]["launches"] = launches[name]
+    require(res.k_opt == cfg["k_true"],
+            f"the dense sweep picked k_opt = {res.k_opt}, planted "
+            f"{cfg['k_true']}")
+    same_curves("dense vs the 1 x 1 grid sweep (phase 6)", res, grid_res)
+
+    ref, _, launches = run_dense_cli(tmp, "dense_ref", n, "--fused-impl",
+                                     "ref")
+    require(not any(launches.values()), "the ref sweep launched a kernel")
+    same_curves("dense kernel vs ref", res, ref)
+
+    chunked, rep, launches = run_dense_cli(
+        tmp, "dense_grid", n, "--mode", "grid", "--grid-chunk",
+        str(cfg["grid_chunk"]))
+    cells = (cfg["k_max"] - cfg["k_min"] + 1) * cfg["r"]
+    require(len(rep.units) == -(-cells // cfg["grid_chunk"]),
+            f"grid mode ran {len(rep.units)} chunks")
+    for name in ("fused_xa_xtb", "mu_update_a"):
+        require(launches[name] == len(rep.units) * cfg["iters"],
+                f"{name} launched {launches[name]} times in grid mode")
+    same_curves("dense batched vs grid mode", res, chunked)
+
+    small = cfg["small_n"]
+    base, _, _ = run_dense_cli(tmp, "small", small)
+    for name, extra in (("small_loop", ("--mode", "loop")),
+                        ("small_sliced", ("--schedule", "sliced")),
+                        ("small_nndsvd", ("--init", "nndsvd"))):
+        other, _, launches = run_dense_cli(tmp, name, small, *extra)
+        require(launches["mu_update_a"] > 0 and launches["fused_xa_xtb"] > 0,
+                f"{name}: the kernels were not launched")
+        require(other.k_opt == base.k_opt,
+                f"{name}: k_opt {other.k_opt}, batched {base.k_opt}")
+        log(f"[dense] {name}: k_opt = {other.k_opt}, as the batched run at "
+            f"n = {small}")
 
 
 def main() -> int:
@@ -998,13 +1247,15 @@ def main() -> int:
     log(f"[card] {smi} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda})")
     phase_build()
-    rows = phase_kernels(dev) + [phase_fused(dev), phase_topk(dev)]
+    rows = phase_kernels(dev) + [phase_fused(dev), phase_mu(dev),
+                                 phase_topk(dev)]
     by_name = {row["name"]: row for row in rows}
     with tempfile.TemporaryDirectory() as tmp:
         bundle = phase_sweeps(rows, Path(tmp))
         phase_serve(bundle, by_name["score_topk"], dev)
         torch.cuda.empty_cache()
-        phase_grid(by_name["fused_xa_xtb"], Path(tmp), dev)
+        grid_res = phase_grid(by_name["fused_xa_xtb"], Path(tmp), dev)
+        phase_dense(by_name, grid_res, Path(tmp))
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if row[key] is not None:

@@ -12,8 +12,12 @@ carry across:
   * one grid cell's share of the global dense X, A and R and of the
     blocked perturbation noise, as ``repro``'s mesh shards them
     (``grid_blocks``);
-  * a ``KResult`` (``k_result``) and a ``FactorBundle``
-    (``factor_bundle``).
+  * a ``KResult`` (``k_result``), a ``FactorBundle``
+    (``factor_bundle``) and a cross-k ``GridChunk`` (``grid_chunk``).
+
+``repro``'s dense member draws and k_max-padded states need no helper:
+``selection.ArrayDraws`` takes the arrays as they are, and
+``rescal_state`` takes factors of any rank.
 
 Nothing here imports ``repro`` or ``jax``.
 """
@@ -26,6 +30,7 @@ from repro_torch import device as _device
 from repro_torch.core.rescal import RescalState
 from repro_torch.core.sparse import BCSR
 from repro_torch.dist.sharding import Grid
+from repro_torch.selection.scheduler import GridChunk
 from repro_torch.selection.types import KResult
 from repro_torch.serve.bundle import FactorBundle
 
@@ -86,6 +91,13 @@ def factor_bundle(bundle) -> FactorBundle:
                         entities=bundle.entities, relations=bundle.relations,
                         permutation=None if perm is None else np.asarray(perm),
                         manifest=bundle.manifest, meta=dict(bundle.meta))
+
+
+def grid_chunk(chunk) -> GridChunk:
+    """A GridChunk from ``repro``'s (its index, cells and k_max)."""
+    return GridChunk(index=int(chunk.index),
+                     cells=tuple((int(k), int(q)) for k, q in chunk.cells),
+                     k_max=int(chunk.k_max))
 
 
 def to_numpy(x) -> np.ndarray:

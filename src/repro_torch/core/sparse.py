@@ -22,8 +22,8 @@ pattern (nnzb == 0) is a valid tensor whose products are zero.
 With ``KernelPolicy(use_fused=True)`` every BCSR product goes through a
 kernel (``kernels/ops.py``): the MU step's pair through ``bcsr_xa_xta``,
 and the single products of ``sparse_rel_error`` and the R regression
-through ``bcsr_spmm``.  Without it the plain ``index_add_`` segment sums
-below run.
+through ``bcsr_spmm``, and the A update through ``mu_update_a``.  Without
+it the plain ``index_add_`` segment sums below run.
 """
 from __future__ import annotations
 
@@ -36,8 +36,8 @@ from repro_torch import device as _device
 from repro_torch.analysis.sanitizer import sanitize_state
 from repro_torch.obs.metrics import record_metrics, update_ratio
 
-from .rescal import (EPS_DEFAULT, a_update, atxa, fit_error, gram,
-                     r_update)
+from .rescal import (EPS_DEFAULT, RescalState, a_update, atxa, fit_error,
+                     gram, is_fused, mask_state, r_update)
 
 
 def cdiv(a: int, b: int) -> int:
@@ -258,17 +258,13 @@ def sqnorm(sp: BCSR) -> torch.Tensor:
 # Sparse MU step
 # ---------------------------------------------------------------------------
 
-def _fused(policy) -> bool:
-    return policy is not None and policy.use_fused
-
-
 def sparse_products(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor, *,
                     policy=None):
     """Both X-sided products (X @ B1, X^T @ B2) — the hot pair of every
     sparse MU iteration.  A fused ``policy`` (kernels.KernelPolicy) routes
     them through ``kernels.ops.bcsr_xa_xta`` (one pass over the stored
     blocks); otherwise the two plain segment sums run."""
-    if _fused(policy):
+    if is_fused(policy):
         from repro_torch.kernels import ops
         return ops.bcsr_xa_xta(sp, B1, B2, impl=policy.impl)
     return spmm(sp, B1), spmm_t(sp, B2)
@@ -277,7 +273,7 @@ def sparse_products(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor, *,
 def single_product(sp: BCSR, B: torch.Tensor, *, policy=None):
     """X @ B alone, through ``kernels.ops.bcsr_spmm`` under a fused
     policy."""
-    if _fused(policy):
+    if is_fused(policy):
         from repro_torch.kernels import ops
         return ops.bcsr_spmm(sp, B, impl=policy.impl)
     return spmm(sp, B)
@@ -287,13 +283,15 @@ def sparse_mu_step(sp: BCSR, A: torch.Tensor, R: torch.Tensor,
                    eps: float = EPS_DEFAULT, *, policy=None,
                    sanitize: bool = False, trace_metrics: bool = False):
     """One batched MU iteration on a BCSR tensor: the dense step's algebra
-    with the X products from ``sparse_products``.  A ([r,] n, k), R ([r,]
-    m, k, k); a member-stacked ``sp`` updates all r members at once."""
+    with the X products from ``sparse_products`` (and, under a fused
+    policy, the A update through ``mu_update_a``).  A ([r,] n, k), R
+    ([r,] m, k, k); a member-stacked ``sp`` updates all r members at
+    once."""
     A_in = A
     G = gram(A)
     XA, XTA = sparse_products(sp, A, A, policy=policy)
     R = r_update(R, atxa(A, XA), G, eps)
-    A = a_update(A, XA, XTA, R, G, eps)
+    A = a_update(A, XA, XTA, R, G, eps, policy)
     A, R = sanitize_state(A, R, where="core.sparse.sparse_mu_step",
                           enabled=sanitize)
     if trace_metrics:
@@ -303,6 +301,30 @@ def sparse_mu_step(sp: BCSR, A: torch.Tensor, R: torch.Tensor,
                        r_norm=torch.linalg.vector_norm(R, dim=(-3, -2, -1)),
                        mu_ratio=update_ratio(A_in, A))
     return A, R
+
+
+def masked_sparse_mu_step(sp: BCSR, A: torch.Tensor, R: torch.Tensor,
+                          mask: torch.Tensor, eps: float = EPS_DEFAULT, *,
+                          policy=None, sanitize: bool = False,
+                          trace_metrics: bool = False):
+    """One MU iteration on k_max-padded factors (the BCSR twin of
+    ``core.rescal.masked_mu_step``): ``sparse_mu_step``, then the padded
+    columns of A and rows and columns of R pinned to exact zero.  ``mask``
+    is (k_max,) or (cells, k_max).  The kernels keep the fixed point: a
+    zero column of A gives exact-zero product columns and ratios."""
+    A_in = A
+    A, R = sparse_mu_step(sp, A, R, eps, policy=policy)
+    st = mask_state(RescalState(A=A, R=R, step=0), mask)
+    A, R = st.A, st.R
+    if trace_metrics:       # recorded after the mask
+        record_metrics("core.sparse.masked_sparse_mu_step",
+                       rel_error=sparse_rel_error(sp, A, R, policy=policy),
+                       a_norm=torch.linalg.vector_norm(A, dim=(-2, -1)),
+                       r_norm=torch.linalg.vector_norm(R, dim=(-3, -2, -1)),
+                       mu_ratio=update_ratio(A_in * mask.unsqueeze(-2), A))
+    return sanitize_state(A, R, mask=mask,
+                          where="core.sparse.masked_sparse_mu_step",
+                          enabled=sanitize)
 
 
 def sparse_rel_error(sp: BCSR, A: torch.Tensor, R: torch.Tensor, *,

@@ -18,7 +18,9 @@ fused     — ``cfg.kernel.use_fused`` routes the two X-sided products of
             an iteration through ``kernels/fused_bilinear.py``
             (``ops.fused_xa_xtb``): one pass over X gives X^(i,j) A^(j)
             and X^(i,j)^T A^(i), and the engine uses (X^T A) R = X^T (A R)
-            so the single-pass products feed the reference update.
+            so the single-pass products feed the reference update;
+            the A update of both schedules ends in
+            ``kernels/mu_update_a.py`` (``core.rescal.a_ratio``).
 
 Not ported yet: the BCSR iterations (``repro/dist/engine.py:201,254``;
 they wait for ``ShardedBCSR``), ``make_gspmd_step`` (an XLA-only
@@ -33,10 +35,10 @@ import torch
 
 from repro_torch.analysis.sanitizer import sanitize_state
 from repro_torch.core.rescal import (EPS_DEFAULT, RescalState, a_denominator,
-                                     atxa, check_schedule, fit_error, gram,
+                                     a_ratio, atxa, check_schedule,
+                                     dense_products, fit_error, gram,
                                      init_factors, r_update, x_times, xart,
                                      xt_times)
-from repro_torch.kernels import ops
 from repro_torch.kernels.policy import KernelPolicy
 from repro_torch.obs.metrics import record_metrics, update_ratio
 
@@ -56,16 +58,6 @@ class DistRescalConfig:
         check_schedule(self.schedule)
 
 
-def _fused_products(Xl, Aj, Ai, cfg: DistRescalConfig):
-    """Single-X-pass local products through the fused kernel:
-       XA^loc  = X^(i,j) @ A^(j)      (..., m, nr, k) — row-indexed
-       XTA^loc = X^(i,j)^T @ A^(i)    (..., m, nc, k) — col-indexed
-    A^(i) goes in once, broadcast over the m slices (stride 0)."""
-    m = Xl.shape[-3]
-    B2 = Ai.unsqueeze(-3).expand(Ai.shape[:-2] + (m,) + Ai.shape[-2:])
-    return ops.fused_xa_xtb(Xl, Aj, B2, impl=cfg.kernel.impl)
-
-
 def _mu_iter_batched(grid: Grid, Xl, Ai, R, cfg: DistRescalConfig):
     """One MU iteration, all m slices per collective (paper Alg. 3 math,
     O(1) collectives)."""
@@ -75,7 +67,8 @@ def _mu_iter_batched(grid: Grid, Xl, Ai, R, cfg: DistRescalConfig):
     G = grid.psum_cast(gram(Ai), ROW_AXIS, cd)                   # line 3
 
     if cfg.kernel.use_fused:
-        XA_loc, XTA_loc = _fused_products(Xl, Aj, Ai, cfg)
+        # X^(i,j) A^(j) (row-indexed) and X^(i,j)^T A^(i) (col-indexed)
+        XA_loc, XTA_loc = dense_products(Xl, Aj, Ai, cfg.kernel)
         XA = grid.psum_cast(XA_loc, COL_AXIS, cd)                 # line 5
     else:
         XA = grid.psum_cast(x_times(Xl, Aj), COL_AXIS, cd)
@@ -100,7 +93,7 @@ def _mu_iter_batched(grid: Grid, Xl, Ai, R, cfg: DistRescalConfig):
     XTAR = grid.diag_col_to_row(XTAR_j, cd)                      # 12-13
     num = XART + XTAR                                            # line 14
     S = a_denominator(R, G)                                      # 15-19
-    Ai_new = Ai * num / (Ai @ S + eps)                           # line 21
+    Ai_new = a_ratio(Ai, num, S, eps, cfg.kernel)                # line 21
     Ai_new, R = sanitize_state(Ai_new, R,
                                where="dist.engine._mu_iter_batched",
                                enabled=cfg.sanitize)
@@ -128,7 +121,7 @@ def _mu_iter_sliced(grid: Grid, Xl, Ai, R, cfg: DistRescalConfig):
         Xt = Xl[..., t:t + 1, :, :]                 # (..., 1, nr, nc)
         Rt = R[..., t, :, :]
         if cfg.kernel.use_fused:
-            XA_loc, XTA_loc = _fused_products(Xt, Aj, Ai, cfg)
+            XA_loc, XTA_loc = dense_products(Xt, Aj, Ai, cfg.kernel)
         else:
             XA_loc, XTA_loc = x_times(Xt, Aj), None
         XA = grid.psum_cast(XA_loc[..., 0, :, :], COL_AXIS, cd)  # line 5
@@ -147,7 +140,7 @@ def _mu_iter_sliced(grid: Grid, Xl, Ai, R, cfg: DistRescalConfig):
         XTAR = grid.diag_col_to_row(XTAR_j, cd)                  # line 13
         num = num + XART + XTAR                                  # line 14
         S = S + Rt @ G @ RtT + RtT @ G @ Rt                      # 15-20
-    Ai_new = Ai * num / (Ai @ S + eps)                           # line 21
+    Ai_new = a_ratio(Ai, num, S, eps, cfg.kernel)                # line 21
     Ai_new, R = sanitize_state(Ai_new, R,
                                where="dist.engine._mu_iter_sliced",
                                enabled=cfg.sanitize)

@@ -30,6 +30,7 @@ FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # launcher name -> argtypes (pointers and the stream as void*)
 SIGNATURES = {
@@ -39,6 +40,7 @@ SIGNATURES = {
                           _L, _L, _P],
     "repro_fused_xa_xtb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
                            _L, _L, _I, _P],
+    "repro_mu_update_a": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _F, _P],
     "repro_score_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "repro_score_topk_plan": [_I, _I, _I, _I, _I, _P],

@@ -1,4 +1,4 @@
-"""Argument checks and shapes shared by the BCSR kernel wrappers."""
+"""Argument checks and shapes shared by the kernel wrappers."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +8,18 @@ from repro_torch.core.sparse import BCSR, pad_rows
 MAX_BS = 128
 MAX_K = 64
 MAX_SLICES = 65535     # gridDim.y
+
+
+def rows_contiguous(x: torch.Tensor) -> bool:
+    """The last two axes are row-major (strides of size-1 axes do not
+    matter)."""
+    return ((x.shape[-1] <= 1 or x.stride(-1) == 1)
+            and (x.shape[-2] <= 1 or x.stride(-2) == x.shape[-1]))
+
+
+def member_stride(x: torch.Tensor, dims: int) -> int:
+    """Floats between members, 0 when ``x`` has no member axis."""
+    return x.stride(0) if x.dim() == dims + 1 else 0
 
 
 class Launch:

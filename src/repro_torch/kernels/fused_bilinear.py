@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._launch import MAX_K, MAX_SLICES
+from ._launch import MAX_K, MAX_SLICES, member_stride, rows_contiguous
 from .ref import ref_fused_xa_xtb
 
 _launches = 0
@@ -45,18 +45,6 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
-
-
-def _rows_contiguous(x: torch.Tensor) -> bool:
-    """The last two axes are row-major (strides of size-1 axes do not
-    matter)."""
-    return ((x.shape[-1] <= 1 or x.stride(-1) == 1)
-            and (x.shape[-2] <= 1 or x.stride(-2) == x.shape[-1]))
-
-
-def _member_stride(x: torch.Tensor, dims: int) -> int:
-    """Floats between members, 0 when ``x`` has no member axis."""
-    return x.stride(0) if x.dim() == dims + 1 else 0
 
 
 class Call:
@@ -90,7 +78,7 @@ class Call:
             raise ValueError(f"fused_xa_xtb: member axes disagree: "
                              f"{sorted(leads)}")
         for name, x in (("X", X), ("B1", B1), ("B2", B2)):
-            if not _rows_contiguous(x):
+            if not rows_contiguous(x):
                 raise ValueError(f"fused_xa_xtb: {name}'s last two axes "
                                  f"must be row-major")
         self.members = leads.pop() if leads else None
@@ -99,8 +87,8 @@ class Call:
         if self.T > MAX_SLICES:
             raise ValueError(f"fused_xa_xtb: {self.T} slices exceed "
                              f"{MAX_SLICES}")
-        self.strides = (_member_stride(X, 3), X.stride(-3),
-                        _member_stride(B1, 2), _member_stride(B2, 3),
+        self.strides = (member_stride(X, 3), X.stride(-3),
+                        member_stride(B1, 2), member_stride(B2, 3),
                         B2.stride(-3))
         self.vec = int(n2 % 4 == 0 and X.data_ptr() % 16 == 0
                        and all(s % 4 == 0 for s in self.strides[:2]))

@@ -1,0 +1,115 @@
+"""mu_update_a — the multiplicative A update A * Num / (A @ S + eps) in
+one pass, as a CUDA kernel for Hopper.
+
+Replaces ``src/repro/kernels/mu_ratio.py:mu_update_a``, the Pallas
+kernel that fuses the (n, k) x (k, k) denominator product with the
+elementwise ratio, so A @ S never goes to memory.  Every MU step of the
+port ends with this update under a fused policy (``core.rescal.a_ratio``:
+the dense and BCSR steps, the masked steps and the grid engine).
+Source: ``csrc/mu_update_a.cu``.
+
+Bound on an H100: memory.  Each output reads one value of A and of Num
+and writes one value, at 2k + 2 flop per 12 bytes; the floor is 12 bytes
+per element over 3.35 TB/s (S is k*k floats per member).  Design: one
+thread per output element, each member's S staged in shared memory, the
+k-term dot in ascending j with ``fmaf``, then IEEE ``A * Num / (den +
+eps)`` in that order, as the Pallas kernel.  No panel grid: any n, tails
+included; offsets are 64-bit.
+
+The member axis is written out: A and Num ([r,] n, k), S ([r,] k, k); an
+S without the member axis (or with member stride 0) is shared by all
+members.  k <= 64 (S lives in shared memory); above it a CUDA call raises
+``ValueError``.
+
+On a CPU tensor the wrapper runs the plain version
+(``kernels/ref.py:ref_mu_update_a``); on a CUDA tensor it launches the
+kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._launch import MAX_K, MAX_SLICES, member_stride, rows_contiguous
+from .ref import ref_mu_update_a
+
+_launches = 0
+
+
+def launch_count() -> int:
+    """Kernel launches since the last ``reset_launch_count``."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+class Call:
+    """A checked mu_update_a call: shapes, dtype and strides validated for
+    the kernel.  ``require_cuda`` is the device check, apart, so the CPU
+    tests reach the others."""
+
+    def __init__(self, A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor):
+        if any(x.dtype != torch.float32 for x in (A, Num, S)):
+            raise TypeError("mu_update_a: A, Num and S must be float32")
+        if A.dim() not in (2, 3) or S.dim() not in (2, 3):
+            raise ValueError(f"mu_update_a: want A, Num ([r,] n, k) and S "
+                             f"([r,] k, k); got {tuple(A.shape)}, "
+                             f"{tuple(Num.shape)}, {tuple(S.shape)}")
+        n, k = A.shape[-2:]
+        if Num.shape != A.shape or tuple(S.shape[-2:]) != (k, k):
+            raise ValueError(f"mu_update_a: A {tuple(A.shape)} wants Num of "
+                             f"the same shape and S ([r,] {k}, {k}); got "
+                             f"{tuple(Num.shape)}, {tuple(S.shape)}")
+        if S.dim() == 3 and (A.dim() != 3 or S.shape[0] != A.shape[0]):
+            raise ValueError(f"mu_update_a: S {tuple(S.shape)} has a member "
+                             f"axis that A {tuple(A.shape)} lacks or "
+                             f"disagrees with")
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"mu_update_a: rank k={k} not supported "
+                             f"(1 <= k <= {MAX_K})")
+        for name, x in (("A", A), ("Num", Num), ("S", S)):
+            if not rows_contiguous(x):
+                raise ValueError(f"mu_update_a: {name}'s last two axes "
+                                 f"must be row-major")
+        self.members = A.shape[0] if A.dim() == 3 else 1
+        if self.members > MAX_SLICES:
+            raise ValueError(f"mu_update_a: {self.members} members exceed "
+                             f"{MAX_SLICES}")
+        self.n, self.k = n, k
+        self.strides = (member_stride(A, 2), member_stride(Num, 2),
+                        member_stride(S, 2))
+        self.shape = tuple(A.shape)
+        self.device = A.device
+
+    def require_cuda(self, *tensors: torch.Tensor) -> None:
+        if self.device.type != "cuda" or any(x.device != self.device
+                                             for x in tensors):
+            raise ValueError(
+                f"mu_update_a: every tensor must be on one CUDA device, "
+                f"got {sorted({str(x.device) for x in tensors})}")
+
+
+def mu_update_a(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """A ([r,] n, k), Num ([r,] n, k), S ([r,] k, k) -> A * Num / (A @ S +
+    eps) ([r,] n, k), without forming A @ S.  An empty A returns an empty
+    result without a launch."""
+    global _launches
+    if all(x.device.type == "cpu" for x in (A, Num, S)):
+        return ref_mu_update_a(A, Num, S, eps)
+    call = Call(A, Num, S)
+    call.require_cuda(A, Num, S)
+    out = torch.empty(call.shape, dtype=torch.float32, device=call.device)
+    if call.n == 0 or call.members == 0:
+        return out
+    with torch.cuda.device(call.device):
+        rc = _build.library().repro_mu_update_a(
+            A.data_ptr(), Num.data_ptr(), S.data_ptr(), out.data_ptr(),
+            call.members, call.n, call.k, *call.strides, float(eps),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "mu_update_a")
+    _launches += 1
+    return out

@@ -1,5 +1,5 @@
 """Dispatch of the kernels by ``impl`` and device (port of
-``repro/kernels/ops.py:87,151,161,181``).
+``repro/kernels/ops.py:87,130,151,161,181``).
 
 impl:
   "auto" — the kernel wrapper: the CUDA kernel for CUDA tensors, its plain
@@ -20,12 +20,13 @@ from repro_torch.core.sparse import BCSR
 from . import bcsr_fused
 from . import bcsr_spmm as _spmm_mod
 from . import fused_bilinear
+from . import mu_update_a as _mu_mod
 from . import ref as _ref
 from . import score_topk as _topk_mod
 from .policy import IMPLS
 
 __all__ = ["bcsr_spmm", "bcsr_xa_xta", "fused_xa_xtb", "launch_counts",
-           "reset_launch_counts", "score_topk"]
+           "mu_update_a", "reset_launch_counts", "score_topk"]
 
 
 def _require(impl: str, kernel: str, *tensors) -> str:
@@ -60,6 +61,14 @@ def fused_xa_xtb(X, B1, B2, *, impl: str = "auto"):
     return fused_bilinear.fused_xa_xtb(X, B1, B2)
 
 
+def mu_update_a(A, Num, S, eps: float, *, impl: str = "auto"):
+    """A * Num / (A @ S + eps) without forming A @ S: A, Num ([r,] n, k),
+    S ([r,] k, k) (kernels/mu_update_a.py)."""
+    if _require(impl, "mu_update_a", A, Num, S) == "ref":
+        return _ref.ref_mu_update_a(A, Num, S, eps)
+    return _mu_mod.mu_update_a(A, Num, S, eps)
+
+
 def score_topk(V, A, *, topk: int, impl: str = "auto",
                pn: int | None = None):
     """Top-k of V @ A^T without the (b, n) scores (kernels/score_topk.py):
@@ -72,7 +81,8 @@ def score_topk(V, A, *, topk: int, impl: str = "auto",
 
 
 _KERNELS = {"bcsr_xa_xta": bcsr_fused, "bcsr_spmm": _spmm_mod,
-            "fused_xa_xtb": fused_bilinear, "score_topk": _topk_mod}
+            "fused_xa_xtb": fused_bilinear, "mu_update_a": _mu_mod,
+            "score_topk": _topk_mod}
 
 
 def launch_counts() -> dict[str, int]:

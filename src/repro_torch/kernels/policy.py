@@ -16,6 +16,7 @@ IMPLS = ("auto", "cuda", "ref")
 class KernelPolicy:
     """use_fused  route the X-sided MU products through the kernels
                (bcsr_xa_xta / bcsr_spmm on BCSR, fused_xa_xtb on dense)
+               and every MU step's A update through mu_update_a
     impl       auto — the CUDA kernel for CUDA tensors, the plain PyTorch
                       version for CPU tensors
                cuda — the CUDA kernel; a CPU tensor raises

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (port of
-``repro/kernels/ref.py:15,22,53,57`` and ``repro/kernels/score_topk.py:138``).
+``repro/kernels/ref.py:15,22,48,53,57`` and
+``repro/kernels/score_topk.py:138``).
 
 Each ``ref_*`` computes the same function as its kernel with tensor ops.
 The CPU tests run them against ``repro``; ``chip_smoke.py`` holds each
@@ -19,6 +20,14 @@ def ref_fused_xa_xtb(X: torch.Tensor, B1: torch.Tensor, B2: torch.Tensor):
     n2), B1 ([r,] n2, k), B2 ([r,] m, n1, k) -> (([r,] m, n1, k),
     ([r,] m, n2, k)).  Reads X twice; the kernel reads it once."""
     return x_times(X, B1), xt_times(X, B2)
+
+
+def ref_mu_update_a(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """A * Num / (A @ S + eps): A, Num ([r,] n, k), S ([r,] k, k), the
+    member axis broadcasting.  Forms A @ S in memory; the kernel does
+    not."""
+    return A * Num / (A @ S + eps)
 
 
 def ref_bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor):

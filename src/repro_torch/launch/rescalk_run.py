@@ -1,11 +1,18 @@
 """RESCALk model-selection CLI of the port (port of
-``repro/launch/rescalk_run.py``): a BCSR sweep on a TSV triple list or an
-NPZ COO file, which persists the selected factors as a FactorBundle.
+``repro/launch/rescalk_run.py``): the sweep on the synthetic dense tensor
+of ``--n/--m/--k-true`` (the default, built on the run's device), or a
+BCSR sweep on a TSV triple list or an NPZ COO file (``--data``); it
+persists the selected factors as a FactorBundle.
 
 Runs on the H100 by default; ``--device cpu`` runs the plain PyTorch path
-on the CPU.  ``--use-fused-kernel`` routes every BCSR product through the
-hand-written CUDA kernels (``--fused-impl ref`` keeps the plain PyTorch
-products on the card instead).
+on the CPU.  ``--use-fused-kernel`` routes the MU products and the A
+update through the hand-written CUDA kernels (``--fused-impl ref`` keeps
+the plain PyTorch versions on the card instead).  ``--mode`` runs the
+members batched, as a loop, or as the cross-k grid in chunks of
+``--grid-chunk`` cells.
+
+    PYTHONPATH=src python -m repro_torch.launch.rescalk_run \\
+        --n 256 --m 4 --k-true 5 --k-min 2 --k-max 7 --use-fused-kernel
 
     PYTHONPATH=src python -m repro_torch.launch.rescalk_run \\
         --data X.npz --bs 128 --k-min 2 --k-max 5 --r 4 --use-fused-kernel \\
@@ -20,25 +27,46 @@ import argparse
 import os
 import time
 
+import numpy as np
+
 from repro_torch import device as _device
-from repro_torch.io import coo_to_bcsr, ingest_npz, ingest_tsv, manifest_of
+from repro_torch.core.rescal import MU_SCHEDULES
+from repro_torch.data.synthetic import synthetic_rescal
+from repro_torch.io import (coo_to_bcsr, ingest_npz, ingest_tsv, manifest_of,
+                            operand_dims)
 from repro_torch.kernels.policy import IMPLS, KernelPolicy
-from repro_torch.selection import CRITERIA, RescalkConfig, SweepScheduler
+from repro_torch.selection import (CRITERIA, INITS, RescalkConfig,
+                                   SweepScheduler)
+from repro_torch.selection.scheduler import SWEEP_MODES
 from repro_torch.serve import FactorBundle
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--data", required=True,
+    ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--m", type=int, default=4)
+    ap.add_argument("--k-true", type=int, default=5)
+    ap.add_argument("--data", default=None,
                     help="a .tsv triple list (head, relation, tail, "
                          "optional weight) or an .npz COO file (arrays "
-                         "row/rel/col and optional val)")
+                         "row/rel/col and optional val); default: the "
+                         "synthetic dense tensor of --n/--m/--k-true")
     ap.add_argument("--bs", type=int, default=128,
                     help="BCSR block size")
     ap.add_argument("--k-min", type=int, default=2)
     ap.add_argument("--k-max", type=int, default=7)
     ap.add_argument("--r", type=int, default=4)
     ap.add_argument("--iters", type=int, default=300)
+    ap.add_argument("--schedule", default="batched",
+                    choices=tuple(MU_SCHEDULES))
+    ap.add_argument("--init", default="random", choices=INITS)
+    ap.add_argument("--mode", default="batched", choices=SWEEP_MODES,
+                    help="ensemble execution: one batched loop per rank, "
+                         "the sequential per-member loop, or the cross-k "
+                         "grid (the (k, q) grid padded to k_max)")
+    ap.add_argument("--grid-chunk", type=int, default=None,
+                    help="mode=grid: cells per chunk (default: the whole "
+                         "grid in one chunk)")
     ap.add_argument("--criterion", default="threshold",
                     choices=sorted(CRITERIA),
                     help="k-selection rule (selection/criteria.py)")
@@ -49,8 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "here; default: <report>.bundle next to --report. "
                          "The report's meta gains a 'bundle' pointer")
     ap.add_argument("--use-fused-kernel", action="store_true",
-                    help="route the BCSR products through the CUDA "
-                         "kernels (kernels/ops.py)")
+                    help="route the MU products and the A update "
+                         "through the CUDA kernels (kernels/ops.py)")
     ap.add_argument("--fused-impl", default="auto", choices=IMPLS,
                     help="kernel impl for --use-fused-kernel (auto: the "
                          "CUDA kernel on the card, the plain version on "
@@ -59,9 +87,16 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args):
-    """Ingest, sweep and print; returns (RescalkResult, SelectionReport)."""
-    dev = _device.resolve(args.device)
+def load_operand(args, dev):
+    """The sweep's operand: (X, A_true | None, vocab | None).  Ground truth
+    exists only for the synthetic tensor, the vocab only for TSV
+    ingest."""
+    if args.data is None:
+        X, A_true, _ = synthetic_rescal(args.n, args.m, args.k_true, seed=0,
+                                        device=dev)
+        print(f"[io] synthetic X m={args.m} n={args.n} k_true={args.k_true}:"
+              f" {X.numel() * X.element_size() / 2**20:.1f} MiB on {dev}")
+        return X, A_true, None
     t0 = time.perf_counter()
     vocab = None
     if args.data.endswith(".tsv"):
@@ -79,22 +114,48 @@ def run(args):
     print(f"[io] bcsr bs={args.bs} nnzb={sp.nnzb} resident "
           f"{resident / 2**20:.1f} MiB on {dev} "
           f"({time.perf_counter() - t0:.1f}s)")
-    print(f"operand m={sp.m} n={sp.n}, schedule=batched, mode=batched, "
-          f"criterion={args.criterion}")
+    return sp, None, vocab
+
+
+def feature_correlations(A_true, A_median) -> list[float]:
+    """For each planted column, its best |correlation| with a column of
+    the selected median factor."""
+    A = A_true.cpu().numpy()
+    return [max(abs(np.corrcoef(A[:, c], A_median[:, j])[0, 1])
+                for j in range(A_median.shape[1]))
+            for c in range(A.shape[1])]
+
+
+def run(args):
+    """Load, sweep and print; returns (RescalkResult, SelectionReport)."""
+    dev = _device.resolve(args.device)
+    if args.grid_chunk is not None and args.mode != "grid":
+        raise SystemExit("--grid-chunk requires --mode grid")
+    X, A_true, vocab = load_operand(args, dev)
+    m, n = operand_dims(X)
+    print(f"operand m={m} n={n}, schedule={args.schedule}, "
+          f"mode={args.mode}, criterion={args.criterion}")
     cfg = RescalkConfig(k_min=args.k_min, k_max=args.k_max,
                         n_perturbations=args.r, rescal_iters=args.iters,
+                        schedule=args.schedule, init=args.init,
                         kernel=KernelPolicy(use_fused=args.use_fused_kernel,
                                             impl=args.fused_impl))
-    sched = SweepScheduler(cfg, criterion=args.criterion,
+    sched = SweepScheduler(cfg, mode=args.mode, grid_chunk=args.grid_chunk,
+                           criterion=args.criterion,
                            report_path=args.report, verbose=True)
-    res = sched.run(sp)
+    res = sched.run(X)
     print("\n" + res.summary())
-    print(f"\nselected k_opt = {res.k_opt}")
+    print(f"\nselected k_opt = {res.k_opt}"
+          + (f" (planted {args.k_true})" if A_true is not None else ""))
     rep = sched.report
     print(f"[sweep] {len(rep.units)} units, {rep.n_reused} reused, "
           f"{rep.total_seconds:.2f}s compute, kernel launches "
           f"{rep.meta['kernel_launches']}")
-    _persist_bundle(args, sp, res, vocab, rep)
+    if A_true is not None and res.k_opt == args.k_true:
+        corrs = feature_correlations(A_true, res.per_k[res.k_opt].A_median)
+        print(f"feature correlation vs ground truth: "
+              f"min={min(corrs):.3f} mean={np.mean(corrs):.3f}")
+    _persist_bundle(args, X, res, vocab, rep)
     return res, rep
 
 
@@ -106,7 +167,7 @@ def _bundle_dir(args) -> str | None:
     return None
 
 
-def _persist_bundle(args, sp, res, vocab, report) -> None:
+def _persist_bundle(args, X, res, vocab, report) -> None:
     """Persist the selected-k factors (member-median A, regressed R) as a
     FactorBundle, with the vocab of a TSV ingest and the operand's
     manifest, and point the report's meta at it."""
@@ -116,7 +177,7 @@ def _persist_bundle(args, sp, res, vocab, report) -> None:
     ents, rels = vocab.names() if vocab is not None else (None, None)
     bundle = FactorBundle.from_sweep(
         res, entities=ents, relations=rels,
-        manifest=manifest_of(sp).fingerprint(),
+        manifest=manifest_of(X).fingerprint(),
         meta={"criterion": args.criterion})
     bundle.save(bundle_dir)
     print(f"[bundle] {bundle_dir}: n={bundle.n} m={bundle.m} "

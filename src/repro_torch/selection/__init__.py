@@ -1,15 +1,17 @@
-"""The RESCALk model-selection sweep of the port (batched mode: BCSR
-operands on one device, dense operands on the 2D process grid)."""
+"""The RESCALk model-selection sweep of the port: dense and BCSR operands
+on one device (batched, loop and cross-k grid modes), and dense operands
+on the 2D process grid (batched mode)."""
 from .criteria import CRITERIA
 from .draws import ArrayDraws, TorchDraws
-from .ensemble import EnsembleResult, run_ensemble, run_grid_ensemble
+from .ensemble import (EnsembleResult, grid_init, run_ensemble,
+                       run_grid_ensemble, run_sweep_batched)
 from .report import SelectionReport, UnitRecord
-from .scheduler import (SweepScheduler, WorkUnit, plan_sweep, reduce_k,
-                        reduce_k_grid)
-from .types import KResult, RescalkConfig, RescalkResult
+from .scheduler import (GridChunk, SweepScheduler, WorkUnit, plan_sweep,
+                        reduce_k, reduce_k_grid)
+from .types import INITS, KResult, RescalkConfig, RescalkResult
 
-__all__ = ["CRITERIA", "ArrayDraws", "EnsembleResult", "KResult",
-           "RescalkConfig", "RescalkResult", "SelectionReport",
+__all__ = ["CRITERIA", "INITS", "ArrayDraws", "EnsembleResult", "GridChunk",
+           "KResult", "RescalkConfig", "RescalkResult", "SelectionReport",
            "SweepScheduler", "TorchDraws", "UnitRecord", "WorkUnit",
-           "plan_sweep", "reduce_k", "reduce_k_grid", "run_ensemble",
-           "run_grid_ensemble"]
+           "grid_init", "plan_sweep", "reduce_k", "reduce_k_grid",
+           "run_ensemble", "run_grid_ensemble", "run_sweep_batched"]

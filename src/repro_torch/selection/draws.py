@@ -13,10 +13,17 @@ draws from a source:
     it with ``repro``'s own draws, so both packages compute on the same
     numbers.
 
-Per member (k, q) a source gives the multiplicative noise for the stored
-blocks (uniform in [1 - delta, 1 + delta], the data's shape) and the
-initial factors A0 (n, k) and R0 (m, k, k) (uniform in [0.05, 1)); per
-rank k it gives the regression's initial R0 (m, k, k).
+Per member (k, q) a source gives the multiplicative noise for the values
+the member perturbs (uniform in [1 - delta, 1 + delta]): the stored
+blocks of a BCSR operand, or the whole (m, n, n) of a dense one
+(``repro``'s ``core/perturb.py:17``), written into a caller's buffer
+when one is given; and the initial factors A0 (n, k) and R0 (m, k, k)
+(uniform in [0.05, 1)).  Per rank k it gives the regression's initial R0
+(m, k, k).
+
+``TorchDraws`` draws a dense member exactly as ``grid_member`` draws the
+one cell of a 1 x 1 grid, so the single-device dense sweep and the 1 x 1
+grid sweep compute on the same numbers.
 
 On the dense grid (``grid_member``, the counterpart of ``repro``'s
 ``perturb_shard``, ``core/perturb.py:24``) the noise of a member's local
@@ -39,10 +46,20 @@ from repro_torch.core.sparse import BCSR
 _REGRESS_WORD = 17   # repro's fixed regression key, PRNGKey(17)
 
 
+def perturbed_values(operand) -> torch.Tensor:
+    """The values a member perturbs: a BCSR's stored blocks, or the whole
+    dense X."""
+    return operand.data if isinstance(operand, BCSR) else operand
+
+
 class DrawSource(Protocol):
-    def member(self, k: int, q: int, sp: BCSR, delta: float
+    def member(self, k: int, q: int, operand, delta: float,
+               out: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(noise, A0, R0) of member q at rank k."""
+        """(noise, A0, R0) of member q at rank k on ``operand`` (a BCSR or
+        a dense (m, n, n) tensor); the noise has the shape of
+        ``perturbed_values(operand)`` and is written into ``out`` when
+        given."""
 
     def regress_R0(self, k: int, m: int) -> torch.Tensor:
         """Initial R (m, k, k) of rank k's regression."""
@@ -67,13 +84,31 @@ class TorchDraws:
         g.manual_seed(int(state >> np.uint64(1)))
         return g
 
-    def member(self, k: int, q: int, sp: BCSR, delta: float):
+    def member(self, k: int, q: int, operand, delta: float,
+               out: torch.Tensor | None = None):
+        vals = perturbed_values(operand)
+        noise = out if out is not None else torch.empty(
+            vals.shape, dtype=vals.dtype, device=self.device)
+        if not isinstance(operand, BCSR):
+            return (noise,) + self._dense(k, q, 0, noise, operand.shape[-1],
+                                          delta)
         g = self._generator(self.seed, k, q)
-        noise = torch.empty(sp.data.shape, dtype=sp.data.dtype,
-                            device=self.device)
         noise.uniform_(1.0 - delta, 1.0 + delta, generator=g)
-        st = init_factors(sp.n, sp.m, k, generator=g, dtype=sp.data.dtype)
+        st = init_factors(operand.n, operand.m, k, generator=g,
+                          dtype=vals.dtype)
         return noise, st.A, st.R
+
+    def _dense(self, k: int, q: int, cell: int, out: torch.Tensor, n: int,
+               delta: float):
+        """A dense member's draws: the noise of grid cell ``cell`` into
+        ``out`` (m, rows, cols) from (seed, k, q, cell), and the global A0
+        (n, k), R0 from (seed, k, q)."""
+        out.uniform_(1.0 - delta, 1.0 + delta,
+                     generator=self._generator(self.seed, k, q, cell))
+        st = init_factors(n, out.shape[-3], k,
+                          generator=self._generator(self.seed, k, q),
+                          dtype=out.dtype)
+        return st.A, st.R
 
     def regress_R0(self, k: int, m: int) -> torch.Tensor:
         g = self._generator(_REGRESS_WORD, k)
@@ -82,14 +117,8 @@ class TorchDraws:
 
     def grid_member(self, k: int, q: int, grid, out: torch.Tensor,
                     delta: float):
-        out.uniform_(1.0 - delta, 1.0 + delta,
-                     generator=self._generator(self.seed, k, q,
-                                               grid.linear_index))
-        m, nr, _ = out.shape
-        st = init_factors(nr * grid.rows, m, k,
-                          generator=self._generator(self.seed, k, q),
-                          dtype=out.dtype)
-        return st.A, st.R
+        return self._dense(k, q, grid.linear_index, out,
+                           out.shape[-2] * grid.rows, delta)
 
 
 class ArrayDraws:
@@ -105,13 +134,17 @@ class ArrayDraws:
         return torch.as_tensor(np.array(x, np.float32),
                                device=self.device)
 
-    def member(self, k: int, q: int, sp: BCSR, delta: float):
+    def member(self, k: int, q: int, operand, delta: float,
+               out: torch.Tensor | None = None):
         if (k, q) not in self.members:
             raise KeyError(f"no draws for member (k={k}, q={q})")
         noise, A0, R0 = (self._tensor(x) for x in self.members[(k, q)])
-        if noise.shape != sp.data.shape:
+        vals = perturbed_values(operand)
+        if noise.shape != vals.shape:
             raise ValueError(f"noise {tuple(noise.shape)} does not match "
-                             f"the data {tuple(sp.data.shape)}")
+                             f"the values {tuple(vals.shape)}")
+        if out is not None:
+            noise = out.copy_(noise)
         return noise, A0, R0
 
     def regress_R0(self, k: int, m: int) -> torch.Tensor:

@@ -1,32 +1,42 @@
-"""Batched perturbation ensembles (port of
-``repro/selection/ensemble.py:202,421,823``): a BCSR operand on one device
-(batched mode), and a dense operand on the 2D process grid (the mesh
-program ``make_mesh_ensemble``).
+"""Perturbation ensembles (port of ``repro/selection/ensemble.py:132,234,
+421,508,720,793,823``): a dense or BCSR operand on one device, batched or
+as a sequential loop; the cross-k grid of padded cells; and a dense
+operand on the 2D process grid (the mesh program ``make_mesh_ensemble``).
 
 ``repro`` vmaps the member pipeline (perturb -> init -> MU -> normalize ->
 rel_error) over the r members of a work unit.  Here the member axis is
-written out: the perturbed data is one (r, m, nnzb, bs, bs) tensor and the
-factors are (r, n, k) and (r, m, k, k), so each MU iteration is one
-kernel launch for all r members (the kernels index the factors by member).
+written out: the perturbed data is one (r, m, n, n) tensor, or (r, m,
+nnzb, bs, bs) stored blocks, and the factors are (r, n, k) and (r, m, k,
+k), so each MU iteration is one kernel launch for all r members (the
+kernels index the operand and the factors by member).  The r perturbed
+copies stay resident for the unit's MU loop, on top of the unperturbed
+tensor; loop mode holds one copy at a time.
 
-The r perturbed copies stay resident for the unit's MU loop: r times the
-stored blocks (or this cell's dense block) on the device, on top of the
-unperturbed tensor.
+Every member's noise and initial factors come from a draw source
+(``draws.py``); the perturbed copy is the noise, drawn into its slot of
+the member buffer and multiplied by X there, so no separate noise tensor
+exists.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core.rescal import (EPS_DEFAULT, RescalState, init_factors,
-                                     normalize)
-from repro_torch.core.sparse import BCSR, sparse_mu_step, sparse_rel_error
+from repro_torch.core.nndsvd import nndsvd_init_A
+from repro_torch.core.rescal import (EPS_DEFAULT, MU_SCHEDULES, RescalState,
+                                     column_mask, masked_mu_step,
+                                     masked_normalize, normalize, pad_state,
+                                     rel_error)
+from repro_torch.core.sparse import (BCSR, masked_sparse_mu_step,
+                                     sparse_mu_step, sparse_rel_error)
 from repro_torch.dist.engine import (DistRescalConfig, get_mu_iter,
                                      local_normalize, local_rel_error)
 from repro_torch.dist.sharding import Grid
 
-from .draws import DrawSource
+from .draws import DrawSource, perturbed_values
+
+MODES = ("batched", "loop")
 
 
 class EnsembleResult(NamedTuple):
@@ -36,33 +46,130 @@ class EnsembleResult(NamedTuple):
     errors: torch.Tensor   # (r,) rel. error vs the UNperturbed X
 
 
-def run_ensemble(sp: BCSR, k: int, cfg, draws: DrawSource
-                 ) -> EnsembleResult:
-    """Run the cfg.n_perturbations members of candidate rank k on ``sp``
-    (on its device).  ``cfg`` is a ``RescalkConfig``."""
-    if sp.batch_shape:
-        raise ValueError("run_ensemble takes the unperturbed tensor")
-    r = cfg.n_perturbations
-    policy = cfg.kernel
-    data = torch.empty((r,) + tuple(sp.data.shape), dtype=sp.data.dtype,
-                       device=sp.device)
+def _require_random_init(cfg, what: str) -> None:
+    if cfg.init != "random":
+        raise NotImplementedError(
+            f"{what} supports init='random' only (NNDSVD eigensolves the "
+            f"dense tensor; distributed/sparse NNDSVD is a ROADMAP item)")
+
+
+def _perturbed(X, k: int, members: Sequence[int], cfg, draws: DrawSource):
+    """The members' perturbed copies of X (one operand with a leading
+    member axis) and their initial factors, stacked; under
+    init="nndsvd" each member's A0 is the NNDSVD of its own copy."""
+    vals = perturbed_values(X)
+    buf = torch.empty((len(members),) + tuple(vals.shape), dtype=vals.dtype,
+                      device=vals.device)
     A0, R0 = [], []
-    for q in range(r):
-        noise, A_q, R_q = draws.member(k, q, sp, cfg.perturbation_delta)
-        torch.mul(sp.data, noise, out=data[q])
-        del noise
-        st = init_factors(sp.n, sp.m, k, A=A_q, R=R_q)
+    for slot, q in enumerate(members):
+        _, A_q, R_q = draws.member(k, q, X, cfg.perturbation_delta,
+                                   out=buf[slot])
+        buf[slot].mul_(vals)
+        if cfg.init == "nndsvd":
+            A_q = nndsvd_init_A(buf[slot], k).to(vals.dtype)
+        A0.append(A_q)
+        R0.append(R_q)
+    X_q = X.with_data(buf) if isinstance(X, BCSR) else buf
+    return X_q, RescalState(A=torch.stack(A0), R=torch.stack(R0), step=0)
+
+
+def _factorize(X_q, st: RescalState, cfg) -> RescalState:
+    """cfg.rescal_iters MU iterations of cfg.schedule under cfg.kernel on
+    the perturbed operand, then the normalization."""
+    policy = cfg.kernel
+    if isinstance(X_q, BCSR):
+        A, R = st.A, st.R
+        for _ in range(cfg.rescal_iters):
+            A, R = sparse_mu_step(X_q, A, R, EPS_DEFAULT, policy=policy)
+        st = RescalState(A=A, R=R, step=cfg.rescal_iters)
+    else:
+        step = MU_SCHEDULES[cfg.schedule]
+        for _ in range(cfg.rescal_iters):
+            st = step(X_q, st, EPS_DEFAULT, policy=policy)
+    return normalize(st)
+
+
+def _errors(X, st: RescalState, policy) -> torch.Tensor:
+    """Each member's relative error against the unperturbed X."""
+    if isinstance(X, BCSR):
+        return sparse_rel_error(X, st.A, st.R, policy=policy)
+    return rel_error(X, st.A, st.R)
+
+
+def run_ensemble(X, k: int, cfg, draws: DrawSource, *,
+                 members: Sequence[int] | None = None,
+                 mode: str = "batched") -> EnsembleResult:
+    """Run members of candidate rank k on X (on its device): a dense (m,
+    n, n) tensor or an unperturbed ``core.sparse.BCSR``.  ``cfg`` is a
+    ``RescalkConfig``; ``members`` a subset of the member ids (default
+    all).  ``mode`` "batched" runs them as one member-stacked MU loop,
+    "loop" one after another (one perturbed copy resident at a time)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown ensemble mode {mode!r}")
+    members = tuple(members) if members is not None else \
+        tuple(range(cfg.n_perturbations))
+    if isinstance(X, BCSR):
+        if X.batch_shape:
+            raise ValueError("run_ensemble takes the unperturbed tensor")
+        _require_random_init(cfg, "BCSR ensembles")
+    groups = [members] if mode == "batched" else [(q,) for q in members]
+    outs = []
+    for group in groups:
+        X_q, st = _perturbed(X, k, group, cfg, draws)
+        st = _factorize(X_q, st, cfg)
+        del X_q
+        outs.append((st.A, st.R, _errors(X, st, cfg.kernel)))
+    A, R, errs = (torch.cat(parts) for parts in zip(*outs))
+    return EnsembleResult(A=A, R=R, errors=errs)
+
+
+def grid_init(cells, X, k_max: int, cfg, draws: DrawSource,
+              out: torch.Tensor):
+    """Per-cell masks (cells, k_max) and padded initial factors for a
+    chunk of (k, q) cells; each cell's noise goes into its slot of
+    ``out``.  The draws are made at the reference shape (n, k), exactly as
+    the per-k ensemble's, and zero-padded to k_max, so a grid row cropped
+    to its k starts where that member starts in batched mode."""
+    A0, R0 = [], []
+    for row, (k, q) in enumerate(cells):
+        _, A_q, R_q = draws.member(k, q, X, cfg.perturbation_delta,
+                                   out=out[row])
+        st = pad_state(RescalState(A=A_q, R=R_q, step=0), k_max)
         A0.append(st.A)
         R0.append(st.R)
-    sp_q = sp.with_data(data)
-    A, R = torch.stack(A0), torch.stack(R0)
-    for _ in range(cfg.rescal_iters):
-        A, R = sparse_mu_step(sp_q, A, R, EPS_DEFAULT, policy=policy)
-    del sp_q, data
-    st = normalize(RescalState(A=A, R=R, step=cfg.rescal_iters))
-    return EnsembleResult(A=st.A, R=st.R,
-                          errors=sparse_rel_error(sp, st.A, st.R,
-                                                  policy=policy))
+    mask = column_mask([k for k, _ in cells], k_max, dtype=out.dtype,
+                       device=out.device)
+    return mask, RescalState(A=torch.stack(A0), R=torch.stack(R0), step=0)
+
+
+def run_sweep_batched(X, cells, cfg, draws: DrawSource) -> EnsembleResult:
+    """A chunk of flattened (k, q) cells as one member-stacked MU loop:
+    every cell's factors padded to k_max = max(cfg.ks) under its column
+    mask (the masked steps), on a dense X or a BCSR.  Rows come back
+    padded; the masked columns are exact zeros."""
+    cells = tuple(cells)
+    _require_random_init(cfg, "the cross-k grid program")
+    k_max = max(cfg.ks)
+    policy = cfg.kernel
+    vals = perturbed_values(X)
+    buf = torch.empty((len(cells),) + tuple(vals.shape), dtype=vals.dtype,
+                      device=vals.device)
+    mask, st = grid_init(cells, X, k_max, cfg, draws, buf)
+    buf.mul_(vals)
+    if isinstance(X, BCSR):
+        sp_q = X.with_data(buf)
+        A, R = st.A, st.R
+        for _ in range(cfg.rescal_iters):
+            A, R = masked_sparse_mu_step(sp_q, A, R, mask, EPS_DEFAULT,
+                                         policy=policy)
+        st = RescalState(A=A, R=R, step=cfg.rescal_iters)
+    else:
+        for _ in range(cfg.rescal_iters):
+            st = masked_mu_step(buf, st, mask, EPS_DEFAULT, cfg.schedule,
+                                policy=policy)
+    del buf
+    st = masked_normalize(st, mask)
+    return EnsembleResult(A=st.A, R=st.R, errors=_errors(X, st, policy))
 
 
 def run_grid_ensemble(grid: Grid, Xl: torch.Tensor, k: int, cfg,
@@ -73,6 +180,10 @@ def run_grid_ensemble(grid: Grid, Xl: torch.Tensor, k: int, cfg,
     the unperturbed block.  ``Xl`` is X^(i,j) (m, n/g, n/g).  Returns the
     pod's members (``grid.pod_members``): A^(i) (r/pods, n/g, k), R and
     errors, equal on every cell of the pod but A."""
+    if cfg.init != "random":
+        raise NotImplementedError(
+            "the grid ensemble supports init='random' only (distributed "
+            "NNDSVD is a ROADMAP open item); drop grid= for nndsvd")
     members = grid.pod_members(cfg.n_perturbations)
     dcfg = DistRescalConfig(schedule=cfg.schedule, kernel=cfg.kernel)
     it = get_mu_iter(cfg.schedule)

@@ -3,12 +3,13 @@
 
 ``RescalkConfig`` keeps ``repro``'s field names and defaults for what the
 port runs.  ``kernel`` is a ``kernels.KernelPolicy``; ``schedule`` is the
-dense grid engine's MU schedule, one of ``core.rescal.MU_SCHEDULES`` (the
-BCSR sweep runs only the batched one, as ``repro``'s does, and refuses
-another).  Not ported yet: ``repro``'s deprecated aliases
-(``use_fused_kernel``/``fused_impl``), ``init`` (random init only, as
-``repro``'s mesh path), ``sanitize`` and ``trace_metrics`` (the MU steps
-take both flags; no config or CLI sets them yet).
+dense MU schedule, one of ``core.rescal.MU_SCHEDULES`` (the BCSR sweep
+runs only the batched one, as ``repro``'s does, and refuses another);
+``init`` is one of ``INITS`` ("nndsvd" on dense operands outside the
+cross-k grid only, as in ``repro``).  Not ported yet: ``repro``'s
+deprecated aliases (``use_fused_kernel``/``fused_impl``), ``sanitize``
+and ``trace_metrics`` (the MU steps take both flags; no config or CLI
+sets them yet).
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import dataclasses
 import numpy as np
 
 from repro_torch.kernels.policy import KernelPolicy
+
+INITS = ("random", "nndsvd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +30,7 @@ class RescalkConfig:
     perturbation_delta: float = 0.02   # noise half-width (paper: [0.005, .03])
     rescal_iters: int = 1000           # paper §6.2.1 uses 1000
     regress_iters: int = 100
+    init: str = "random"               # "random" | "nndsvd" (paper §6.1.3)
     schedule: str = "batched"          # "batched" | "sliced" (paper-faithful)
     seed: int = 0
     sil_threshold: float = 0.75        # stability bar for k selection
@@ -35,6 +39,9 @@ class RescalkConfig:
     def __post_init__(self):
         from repro_torch.core.rescal import check_schedule
         check_schedule(self.schedule)
+        if self.init not in INITS:
+            raise ValueError(f"init must be one of {INITS}, "
+                             f"got {self.init!r}")
 
     @property
     def ks(self) -> list[int]:

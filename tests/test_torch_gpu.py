@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a card: each against its plain version, a
 small sweep through the kernels against the same sweep on the CPU, a
-small ServeEngine on the card against the same engine on the CPU, and a
-small dense grid sweep on a 1 x 1 NCCL grid, kernel against plain.
+small ServeEngine on the card against the same engine on the CPU, a
+small dense grid sweep on a 1 x 1 NCCL grid and a small single-device
+dense sweep (batched and cross-k grid mode), kernel against plain.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -64,7 +65,8 @@ def test_kernels_match_plain_versions_on_card(cuda, n, bs, density, k, r):
     sa = bcsr_spmm.bcsr_spmm(t, B1)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"bcsr_xa_xta": 1, "bcsr_spmm": 1,
-                                   "fused_xa_xtb": 0, "score_topk": 0}
+                                   "fused_xa_xtb": 0, "mu_update_a": 0,
+                                   "score_topk": 0}
     ra, rt = tref.ref_bcsr_xa_xta(t, B1, B2)
     for got, ref in ((xa, ra), (xt, rt), (sa, ra)):
         assert rel_err(got, ref) <= 1e-5
@@ -79,7 +81,8 @@ def test_cuda_impl_launches_and_ref_impl_does_not(cuda):
     ref = ops.bcsr_spmm(t, B, impl="ref")
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"bcsr_xa_xta": 0, "bcsr_spmm": 1,
-                                   "fused_xa_xtb": 0, "score_topk": 0}
+                                   "fused_xa_xtb": 0, "mu_update_a": 0,
+                                   "score_topk": 0}
     assert rel_err(got, ref) <= 1e-5
 
 
@@ -108,6 +111,7 @@ def test_sweep_on_card_matches_cpu(cuda):
     got = sched.run(on_card)
     launches = sched.report.meta["kernel_launches"]
     assert launches["bcsr_xa_xta"] == len(cfg.ks) * cfg.rescal_iters
+    assert launches["mu_update_a"] == len(cfg.ks) * cfg.rescal_iters
     assert launches["bcsr_spmm"] == 3 * len(cfg.ks)
     assert got.k_opt == ref.k_opt
     for name in ("s_min", "s_mean", "rel_err"):
@@ -278,8 +282,9 @@ def test_grid_sweep_1x1_nccl_kernel_matches_ref(cuda):
                                                     impl=impl))
             ops.reset_launch_counts()
             out[impl] = rescalk(X, cfg, grid=grid)
-            launches = ops.launch_counts()["fused_xa_xtb"]
-            assert launches == (60 if impl == "auto" else 0)
+            launches = ops.launch_counts()
+            assert launches["fused_xa_xtb"] == launches["mu_update_a"] \
+                == (60 if impl == "auto" else 0)
         assert grid.collectives > 0
         assert out["auto"].k_opt == out["ref"].k_opt
         for name in ("s_min", "s_mean", "rel_err"):
@@ -288,3 +293,65 @@ def test_grid_sweep_1x1_nccl_kernel_matches_ref(cuda):
                                        rtol=1e-4, atol=1e-4)
     finally:
         grid.destroy()
+
+
+# (n, k, r, S shared over members): empty and ragged n, k = 1 and 64
+MU_GPU_CASES = [(0, 3, None, False), (1, 1, None, False), (37, 5, 4, False),
+                (1000, 64, 4, True), (1000, 16, None, False)]
+
+
+@pytest.mark.parametrize("n,k,r,shared", MU_GPU_CASES)
+def test_mu_update_a_matches_plain_version_on_card(cuda, n, k, r, shared):
+    """Relative Frobenius error <= 1e-6: the k-term dot sums in another
+    order than the plain version's product; one launch per call."""
+    from repro_torch.kernels import mu_update_a as mu
+    lead = (r,) if r is not None else ()
+    A = torch.rand(lead + (n, k), device=cuda)
+    Num = torch.rand(lead + (n, k), device=cuda)
+    S = torch.rand((k, k), device=cuda)
+    if r is not None:
+        S = S.expand(r, k, k) if shared else torch.rand((r, k, k),
+                                                         device=cuda)
+    ops.reset_launch_counts()
+    got = mu.mu_update_a(A, Num, S, 1e-16)
+    got2 = ops.mu_update_a(A, Num, S, 1e-16)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mu_update_a"] == (2 if n else 0)
+    ref = tref.ref_mu_update_a(A, Num, S, 1e-16)
+    if n:
+        assert rel_err(got, ref) <= 1e-6 and torch.equal(got, got2)
+    assert got.shape == ref.shape
+
+
+def test_mu_update_a_refuses_rank_above_64_on_card(cuda):
+    from repro_torch.kernels import mu_update_a as mu
+    with pytest.raises(ValueError, match="rank k=65"):
+        mu.mu_update_a(torch.rand(16, 65, device=cuda),
+                       torch.rand(16, 65, device=cuda),
+                       torch.rand(65, 65, device=cuda), 1e-16)
+
+
+@pytest.mark.parametrize("mode", ["batched", "grid"])
+def test_dense_sweep_on_card_kernel_matches_ref(cuda, mode):
+    """The single-device dense sweep through the kernels and through the
+    plain versions on the card: fused_xa_xtb and mu_update_a once per MU
+    iteration, the same k_opt, per-k values within 1e-4."""
+    from repro_torch.core.rescalk import rescalk
+    from repro_torch.data.synthetic import synthetic_rescal
+    X, _, _ = synthetic_rescal(256, 3, 3, seed=1, device=cuda)
+    out = {}
+    for impl in ("auto", "ref"):
+        cfg = RescalkConfig(k_min=2, k_max=3, n_perturbations=2,
+                            rescal_iters=30, regress_iters=20,
+                            kernel=KernelPolicy(use_fused=True, impl=impl))
+        ops.reset_launch_counts()
+        out[impl] = rescalk(X, cfg, mode=mode,
+                            grid_chunk=2 if mode == "grid" else None)
+        launches = ops.launch_counts()
+        want = 60 if impl == "auto" else 0
+        assert launches["fused_xa_xtb"] == launches["mu_update_a"] == want
+    assert out["auto"].k_opt == out["ref"].k_opt
+    for name in ("s_min", "s_mean", "rel_err"):
+        np.testing.assert_allclose(getattr(out["auto"], name),
+                                   getattr(out["ref"], name),
+                                   rtol=1e-4, atol=1e-4)

@@ -121,7 +121,8 @@ def test_cpu_dispatch_uses_plain_version_and_counts_nothing():
     close(xt, tsp.spmm_t(t, B))
     close(bcsr_spmm.bcsr_spmm(t, B), tsp.spmm(t, B))
     assert ops.launch_counts() == {"bcsr_xa_xta": 0, "bcsr_spmm": 0,
-                                   "fused_xa_xtb": 0, "score_topk": 0}
+                                   "fused_xa_xtb": 0, "mu_update_a": 0,
+                                   "score_topk": 0}
 
 
 @pytest.mark.parametrize("kernel", ["bcsr_xa_xta", "bcsr_spmm"])
@@ -140,15 +141,16 @@ def test_policy_rejects_unknown_impl():
 
 
 def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
-    """All four kernels' sources are compiled, and an edit to any source
+    """All five kernels' sources are compiled, and an edit to any source
     — the shared header included — gives a new build directory
     (test_torch_cli checks that importing builds nothing)."""
     names = {p.name for p in _build.sources()}
     assert names == {"bcsr_spmm.cu", "bcsr_fused.cu", "fused_bilinear.cu",
-                     "score_topk.cu"}
+                     "mu_update_a.cu", "score_topk.cu"}
     assert set(_build.SIGNATURES) == {"repro_bcsr_spmm",
                                       "repro_bcsr_xa_xta",
                                       "repro_fused_xa_xtb",
+                                      "repro_mu_update_a",
                                       "repro_score_topk",
                                       "repro_score_topk_plan"}
     for src in _build.CSRC.iterdir():
@@ -156,7 +158,8 @@ def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = _build._digest()
     assert before == _build._digest()
-    for name in ("bcsr_tile.cuh", "score_topk.cu", "fused_bilinear.cu"):
+    for name in ("bcsr_tile.cuh", "score_topk.cu", "fused_bilinear.cu",
+                 "mu_update_a.cu"):
         with open(tmp_path / name, "a") as f:
             f.write("\n")
         assert _build._digest() != before

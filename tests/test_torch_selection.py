@@ -194,6 +194,7 @@ def test_plan_and_report_read_by_repro(tmp_path):
     assert back.meta["kernel_launches"] == {"bcsr_xa_xta": 0,
                                             "bcsr_spmm": 0,
                                             "fused_xa_xtb": 0,
+                                            "mu_update_a": 0,
                                             "score_topk": 0}
     kr = convert.k_result(dataclasses.replace(res.per_k[2]))
     np.testing.assert_array_equal(kr.A_median, res.per_k[2].A_median)
