@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-  1. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+  1. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
      with nvcc (sm_90a; ptxas register/shared-memory report printed) and
      print the card's name and power limit.
   2. Hold each kernel against its plain PyTorch version on the card.  The
@@ -93,6 +93,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      surrogate per member, and a member loop, are why these run smaller)
      the batched run, --mode loop, --schedule sliced and --init nndsvd:
      the kernels launched and the same k_opt as the batched run.
+  8. LM serving, the dense decoder through flash_attention.  The kernel
+     against its plain version (``ref_attention``) on permuted (B, S, H,
+     D) views over FLASH_CHECK: fp32 and bf16, d in {16, 32, 64, 128},
+     (hq, hkv) in {(4, 4), (8, 2), (5, 1), (32, 8)}, causal or not,
+     q_offset 0 and 64, sq in {1, 37, 256, 1000} x skv in {37, 1000,
+     4096}; fp32 to REL_TOL / ABS_TOL, bf16 to BF16_REL_TOL /
+     BF16_ABS_TOL against the plain version in bf16 and on fp32 copies.
+     Timed (bf16, causal) at the LM cell's prefill shape (b = 4, hq = 32,
+     hkv = 8, s = 4096, d = 64; the kernels line) and at one 32k sequence,
+     beside its plain version, its bound and the
+     ``scaled_dot_product_attention`` yardstick.  Then llama3.2-1b at full
+     width in fp32 (seeded init): one prefill of 2 x 1024 through the
+     kernel and one through the plain chunked path, 16 launches, logits
+     and caches within LM_F32_TOL.  Then the slice through the CLI's entry
+     point (``repro_torch.launch.decode_demo.main``), llama3.2-1b at full
+     width in bf16, --batch 4 --prompt-len 4096 --new-tokens 64 (after a
+     short warm-up run): the counters, zeroed just before, show one
+     flash_attention launch per layer (16) and no other kernel; prefill
+     and decode times, tok/s and peak device memory are printed.  The
+     same prompts through the plain chunked path: last-position logits,
+     and each decode step's logits when fed the kernel path's tokens,
+     within LM_BF16_TOL.  Last, the prefill and 16 decode steps under
+     ``torch.profiler`` (device idle share, time by kernel).  The cut
+     against ``repro``'s prefill_32k shape (B = 32 x 32768): B = 4 x 4096.
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -142,6 +166,28 @@ FUSED_SCALE = dict(r=4, m=8, n=16384, ks=(4, 5), sliced_k=4)
 # mu_update_a at the BCSR sweep's and the dense sweeps' shapes (A (r, n,
 # k) at k = k_max); the kernels line reports the dense one
 MU_SCALES = (dict(r=4, n=131072, k=5), dict(r=4, n=16384, k=5))
+# phase 8: flash_attention's check grid (inputs as permuted (B, S, H, D)
+# views), its timing shapes (the LM cell's prefill and one 32k sequence;
+# the kernels line reports the first), and the LM serve cell
+FLASH_CHECK = dict(b=2, dtypes=("float32", "bfloat16"),
+                   dims=(16, 32, 64, 128),
+                   heads=((4, 4), (8, 2), (5, 1), (32, 8)), q_offsets=(0, 64),
+                   sq=(1, 37, 256, 1000), skv=(37, 1000, 4096))
+FLASH_SCALES = (dict(b=4, hq=32, hkv=8, s=4096, d=64),
+                dict(b=1, hq=32, hkv=8, s=32768, d=64))
+LM = dict(arch="llama3.2-1b", batch=4, prompt=4096, new_tokens=64,
+          parity_batch=2, parity_len=1024)
+# bf16 flash_attention against the plain version: the kernel rounds p to
+# bf16 for p @ v, per 64-key tile, and the output to bf16
+BF16_REL_TOL = 1e-2   # relative Frobenius error
+BF16_ABS_TOL = 2e-2   # max |diff| / max |ref|
+# the model's logits and caches, kernel path vs plain chunked path: fp32
+# differs by summation order through 16 layers; bf16 also rounds p at
+# other tiles (64 keys against 1024) and every activation after it
+LM_F32_TOL = 1e-4
+LM_BF16_TOL = 5e-2
+# the card's published bf16 dense tensor-core peak (H100 SXM data sheet)
+PEAK_BF16_FLOP_PER_S = 989e12
 # the CLI's default path (phase 7): the dense single-device sweep at the
 # grid sweep's size, and the modes whose member loop or exact eigh of an
 # (n, n) surrogate per member make them run smaller
@@ -186,8 +232,10 @@ def phase_build():
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def compare(name: str, got, ref) -> float:
-    """Raise unless got ~ ref; return max |got - ref|."""
+def compare(name: str, got, ref, rel_tol: float = REL_TOL,
+            abs_tol: float = ABS_TOL) -> float:
+    """Raise unless got ~ ref (relative Frobenius error <= rel_tol, max
+    |diff| <= abs_tol * max |ref|); return max |got - ref|."""
     import torch
     require(got.shape == ref.shape,
             f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
@@ -200,9 +248,9 @@ def compare(name: str, got, ref) -> float:
         require(max_abs == 0.0, f"{name}: reference is zero, kernel is not")
         return 0.0
     rel = float(torch.linalg.vector_norm(got - ref)) / ref_norm
-    require(rel <= REL_TOL, f"{name}: relative error {rel:.3e} > {REL_TOL}")
-    require(max_abs <= ABS_TOL * ref_max,
-            f"{name}: max |diff| {max_abs:.3e} > {ABS_TOL} * {ref_max:.3e}")
+    require(rel <= rel_tol, f"{name}: relative error {rel:.3e} > {rel_tol}")
+    require(max_abs <= abs_tol * ref_max,
+            f"{name}: max |diff| {max_abs:.3e} > {abs_tol} * {ref_max:.3e}")
     return max_abs
 
 
@@ -958,37 +1006,48 @@ def phase_serve(bundle: Path, row: dict, dev) -> None:
     profile_serve(fb, queries)
 
 
-def profile_serve(fb, queries) -> None:
-    """The serve stream once more, on a fresh engine, under
-    torch.profiler: wall time, the device's busy time and idle share, and
-    device time by kernel, per device batch."""
+def profiled(fn):
+    """Run ``fn`` under torch.profiler, ending in a synchronize: (wall
+    seconds, device busy seconds, device events by descending time)."""
     import torch
-    from repro_torch.serve import ServeConfig, ServeEngine
-    cfg = SERVE
-    engine = ServeEngine(fb, ServeConfig(topk=cfg["topk"],
-                                         batch=cfg["batch"]))
-    per = -(-len(queries) // cfg["requests"])
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for c0 in range(0, len(queries), per):
-            engine.query(queries[c0:c0 + per])
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    batches = engine.stats()["batches"]
     cuda_type = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
               and (getattr(e, "device_type", None) == cuda_type
                    or e.cpu_time_total == 0)]
     busy = sum(e.device_time_total for e in events) / 1e6
+    return wall, busy, sorted(events, key=lambda e: -e.device_time_total)
+
+
+def profile_serve(fb, queries) -> None:
+    """The serve stream once more, on a fresh engine, under
+    torch.profiler: wall time, the device's busy time and idle share, and
+    device time by kernel, per device batch."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg = SERVE
+    engine = ServeEngine(fb, ServeConfig(topk=cfg["topk"],
+                                         batch=cfg["batch"]))
+    per = -(-len(queries) // cfg["requests"])
+
+    def stream():
+        for c0 in range(0, len(queries), per):
+            engine.query(queries[c0:c0 + per])
+
+    wall, busy, events = profiled(stream)
+    batches = engine.stats()["batches"]
     log(f"[serve] profiled stream: {batches} device batches, wall "
         f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
         f"({100 * (1 - busy / wall):.1f}% idle); per batch "
         f"{wall / batches * 1e3:.4f} ms wall, "
         f"{busy / batches * 1e3:.4f} ms device")
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
+    for e in events[:8]:
         log(f"[serve]   {e.device_time_total / 1e3 / batches:8.4f} ms/batch "
             f"{100 * e.device_time_total / 1e6 / busy:5.1f}%  "
             f"x{e.count:<4d} {e.key[:70]}")
@@ -1228,6 +1287,295 @@ def phase_dense(rows: dict, grid_res, tmp: Path) -> None:
             f"n = {small}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: LM serving, the dense decoder through flash_attention
+# ---------------------------------------------------------------------------
+
+def flash_inputs(gen, dev, dtype, b, sq, skv, hq, hkv, d):
+    """q, k, v as (b, h, s, d) views of (b, s, h, d) tensors, the model's
+    layout."""
+    import torch
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+               .to(dtype).transpose(1, 2)
+               for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    return q, k, v
+
+
+def check_flash(name: str, got, q, k, v, **kw) -> tuple[float, float]:
+    """Hold a flash_attention result to the plain version on the same
+    inputs: fp32 to REL_TOL / ABS_TOL; bf16 to BF16_REL_TOL /
+    BF16_ABS_TOL against the plain version in bf16 and against it on the
+    fp32 copies.  Returns (relative error, max |diff|) against the plain
+    version."""
+    import torch
+    from repro_torch.kernels import ref
+    want = ref.ref_attention(q, k, v, **kw)
+    require(got.dtype == q.dtype and got.shape == q.shape,
+            f"{name}: {got.dtype} {tuple(got.shape)}")
+    if q.dtype == torch.float32:
+        err = compare(name, got, want)
+    else:
+        err = compare(name + " vs plain bf16", got.float(), want.float(),
+                      BF16_REL_TOL, BF16_ABS_TOL)
+        want32 = ref.ref_attention(q.float(), k.float(), v.float(), **kw)
+        compare(name + " vs plain fp32", got.float(), want32, BF16_REL_TOL,
+                BF16_ABS_TOL)
+        want = want32
+    return rel_frob(got, want), err
+
+
+def check_flash_grid(dev) -> None:
+    """flash_attention against its plain version over FLASH_CHECK: every
+    dtype, head dim, (hq, hkv), causal or not, q_offset and (sq, skv)."""
+    import itertools
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    cfg = FLASH_CHECK
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    for dtype, d in itertools.product(cfg["dtypes"], cfg["dims"]):
+        t0 = time.perf_counter()
+        worst, worst_abs, n = 0.0, 0.0, 0
+        for (hq, hkv), causal, q_offset, sq, skv in itertools.product(
+                cfg["heads"], (True, False), cfg["q_offsets"], cfg["sq"],
+                cfg["skv"]):
+            q, k, v = flash_inputs(gen, dev, getattr(torch, dtype),
+                                   cfg["b"], sq, skv, hq, hkv, d)
+            kw = dict(causal=causal, q_offset=q_offset)
+            got = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            rel, err = check_flash(
+                f"flash_attention [{dtype} d={d} hq={hq} hkv={hkv} "
+                f"causal={causal} q_offset={q_offset} sq={sq} skv={skv}]",
+                got, q, k, v, **kw)
+            worst, worst_abs, n = max(worst, rel), max(worst_abs, err), n + 1
+        log(f"[flash] {dtype} d={d}: {n} cases ok, largest relative error "
+            f"{worst:.3e}, largest max |diff| {worst_abs:.3e} "
+            f"({time.perf_counter() - t0:.1f}s)")
+
+
+def sdpa_call(q, k, v):
+    """torch's scaled_dot_product_attention, causal, GQA, on the same (b,
+    h, s, d) tensors: the yardstick, timed here and never called by the
+    port."""
+    import torch
+    F = torch.nn.functional
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+
+def time_flash(dev, cfg: dict, reps: int, plain_reps: int) -> dict:
+    """flash_attention at one timing shape (bf16, causal): checked against
+    the plain version, then the kernel, the plain version and the
+    yardstick timed with CUDA events, beside the bound from this shape's
+    operations (4 b hq d times the s (s + 1) / 2 visible pairs, over the
+    bf16 tensor-core peak) and bytes (q, k and v read once, the output
+    written once, over the HBM rate)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, hq, hkv, s, d = (cfg[x] for x in ("b", "hq", "hkv", "s", "d"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(s)
+    q, k, v = flash_inputs(gen, dev, torch.bfloat16, b, s, s, hq, hkv, d)
+    tag = f"b={b} hq={hq} hkv={hkv} s={s} d={d} bf16 causal"
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rel, err = check_flash(f"flash_attention [{tag}]", got, q, k, v,
+                           causal=True)
+    lib_fn = sdpa_call(q, k, v)
+    compare(f"scaled_dot_product_attention [{tag}] (yardstick)",
+            lib_fn().float(), got.float(), BF16_REL_TOL, BF16_ABS_TOL)
+    del got
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=reps)
+    plain = cuda_ms(lambda: ref.ref_attention(q, k, v, causal=True),
+                    reps=plain_reps, warmup=1)
+    lib = cuda_ms(lib_fn, reps=reps)
+    flops = 4 * b * hq * d * s * (s + 1) // 2
+    nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, by = (t_ops, "operations") if t_ops >= t_bytes else \
+        (t_bytes, "bytes")
+    log(f"[flash] {tag}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s), plain {plain:.3f} ms, scaled_dot_product_attention "
+        f"{lib:.3f} ms, bound {bound_ms:.3f} ms ({by}), relative error "
+        f"{rel:.3e}, max |diff| {err:.3e}")
+    del q, k, v, lib_fn
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                bound_by=by, max_abs_err=err)
+
+
+def rel_frob(a, b) -> float:
+    import torch
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def check_full_width_fp32(dev) -> None:
+    """llama3.2-1b at full width in fp32 (seeded torch init): one prefill
+    through the kernel and one through the plain chunked path; last-
+    position logits and both caches within LM_F32_TOL, one flash_attention
+    launch per layer."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import make_prefill_step
+    cfg = dataclasses.replace(ARCHS[LM["arch"]], dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = Transformer(cfg, device=dev, gen=gen)
+    toks = torch.randint(0, cfg.vocab, (LM["parity_batch"],
+                                        LM["parity_len"]),
+                         generator=gen, device=dev)
+    ops.reset_launch_counts()
+    logits, cache = make_prefill_step(model)(toks)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["flash_attention"]
+    require(launches == cfg.n_layers,
+            f"fp32 prefill launched flash_attention {launches} times, want "
+            f"{cfg.n_layers}")
+    ref_logits, ref_cache = make_prefill_step(model, impl="ref")(toks)
+    require(ops.launch_counts()["flash_attention"] == launches,
+            "the ref prefill launched flash_attention")
+    errs = {"logits": rel_frob(logits, ref_logits)}
+    errs.update({name: rel_frob(cache[name], ref_cache[name])
+                 for name in ("k", "v")})
+    for name, e in errs.items():
+        require(e <= LM_F32_TOL, f"fp32 full-width prefill: {name} relative "
+                f"error {e:.3e} > {LM_F32_TOL}")
+    log(f"[lm] {cfg.name} fp32 full width, prefill {LM['parity_batch']}x"
+        f"{LM['parity_len']}: {launches} flash_attention launches; kernel vs "
+        f"plain relative error " + ", ".join(f"{n} {e:.3e}"
+                                             for n, e in errs.items()))
+    del model, logits, cache, ref_logits, ref_cache
+    torch.cuda.empty_cache()
+
+
+def run_demo(*extra: str):
+    from repro_torch.launch import decode_demo
+    argv = ["--arch", LM["arch"], *extra]
+    log(f"[lm] decode_demo {' '.join(argv)}")
+    return decode_demo.main(argv)
+
+
+def profile_lm(res, steps: int) -> None:
+    """The cell's prefill once more, then ``steps`` decode steps fed the
+    run's tokens, each under torch.profiler: wall, device busy time and
+    idle share, and device time by kernel."""
+    import torch
+    from repro_torch.train import make_prefill_step, make_serve_step
+    model, prompts = res.model, res.prompts
+    B, Pn = prompts.shape
+    prefill = make_prefill_step(model)
+    serve = make_serve_step(model)
+    out = {}
+    wall, busy, events = profiled(lambda: out.update(
+        zip(("logits", "cache"), prefill(prompts))))
+    windows = [("prefill", 1, wall, busy, events)]
+    with torch.inference_mode():
+        cache = model.init_cache(B, Pn + steps)
+        for name in cache:
+            cache[name][:, :, :Pn] = out["cache"][name]
+    del out
+
+    def decode():
+        for t in range(steps):
+            serve(cache, res.tokens[:, t:t + 1], Pn + t)
+
+    windows.append(("decode", steps, *profiled(decode)))
+    for label, n, wall, busy, events in windows:
+        log(f"[lm] profiled {label} ({n} call(s)): wall {wall * 1e3:.3f} ms, "
+            f"device busy {busy * 1e3:.3f} ms ({100 * (1 - busy / wall):.1f}%"
+            f" idle)")
+        for e in events[:8]:
+            log(f"[lm]   {e.device_time_total / 1e3 / n:9.4f} ms/call "
+                f"{100 * e.device_time_total / 1e6 / busy:5.1f}%  "
+                f"x{e.count:<5d} {e.key[:70]}")
+    del cache
+    torch.cuda.empty_cache()
+
+
+def phase_lm(dev, smi: str) -> dict:
+    """Phase 8 (see the module docstring); returns flash_attention's row of
+    the kernels line."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train import make_prefill_step, make_serve_step
+    check_flash_grid(dev)
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:99",
+               launches=0, max_abs_err=None, ms=None, plain_ms=None,
+               bound_ms=None, bound_by=None, library_ms=None)
+    row.update(time_flash(dev, FLASH_SCALES[0], reps=10, plain_reps=3))
+    time_flash(dev, FLASH_SCALES[1], reps=3, plain_reps=1)
+    check_full_width_fp32(dev)
+
+    B, Pn, T = LM["batch"], LM["prompt"], LM["new_tokens"]
+    run_demo("--batch", str(B), "--prompt-len", "256", "--new-tokens",
+             "2")                                      # warm-up, unchecked
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    res = run_demo("--batch", str(B), "--prompt-len", str(Pn),
+                   "--new-tokens", str(T))
+    launches = ops.launch_counts()
+    cfg = res.model.cfg
+    require(launches["flash_attention"] == cfg.n_layers
+            == res.flash_launches,
+            f"decode_demo launched flash_attention "
+            f"{launches['flash_attention']} times, want {cfg.n_layers}")
+    require(not any(n for name, n in launches.items()
+                    if name != "flash_attention"),
+            f"decode_demo launched other kernels: {launches}")
+    row["launches"] = launches["flash_attention"]
+    require(res.tokens.shape == (B, T + 1) and int(res.tokens.max())
+            < cfg.vocab and int(res.tokens.min()) >= 0,
+            "decode_demo: bad tokens")
+    require(bool(torch.isfinite(res.prefill_logits).all())
+            and bool(torch.isfinite(res.step_logits).all()),
+            "decode_demo: non-finite logits")
+
+    ref_logits, ref_cache = make_prefill_step(res.model, impl="ref")(
+        res.prompts)
+    require(ops.launch_counts()["flash_attention"] == cfg.n_layers,
+            "the ref prefill launched flash_attention")
+    pre_err = rel_frob(res.prefill_logits, ref_logits)
+    require(pre_err <= LM_BF16_TOL, f"decode_demo: last-position logits "
+            f"{pre_err:.3e} from the plain path (> {LM_BF16_TOL})")
+    serve = make_serve_step(res.model)
+    with torch.inference_mode():
+        cache = res.model.init_cache(B, Pn + T)
+        for name in cache:
+            cache[name][:, :, :Pn] = ref_cache[name]
+    del ref_cache
+    step_errs, same = [], 0
+    for t in range(T):
+        logits, cache = serve(cache, res.tokens[:, t:t + 1], Pn + t)
+        step_errs.append(rel_frob(res.step_logits[:, t:t + 1], logits))
+        same += int((logits.argmax(-1) == res.tokens[:, t + 1:t + 2]).sum())
+    require(max(step_errs) <= LM_BF16_TOL, f"decode_demo: step logits "
+            f"{max(step_errs):.3e} from the plain path (> {LM_BF16_TOL})")
+    log(f"[lm] {cfg.name} {cfg.dtype} full width ({smi}): prefill {B}x{Pn} "
+        f"{res.prefill_ms:.1f} ms ({B * Pn / res.prefill_ms * 1e3:.0f} "
+        f"tok/s); decode {T} steps {res.decode_ms / T:.2f} ms/step "
+        f"({B * T / res.decode_ms * 1e3:.0f} tok/s); flash_attention "
+        f"launches {launches['flash_attention']}; peak device memory "
+        f"{res.peak_bytes / 1e9:.2f} GB")
+    log(f"[lm] kernel vs plain path: last-position logits relative error "
+        f"{pre_err:.3e}; decode logits fed the kernel path's tokens, "
+        f"largest relative error {max(step_errs):.3e}; the plain path's "
+        f"greedy token equals the kernel path's in {same} of {B * T}")
+    del cache
+    profile_lm(res, min(16, T))
+    del res
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1256,6 +1604,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         grid_res = phase_grid(by_name["fused_xa_xtb"], Path(tmp), dev)
         phase_dense(by_name, grid_res, Path(tmp))
+    torch.cuda.empty_cache()
+    rows.append(phase_lm(dev, smi))
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if row[key] is not None:

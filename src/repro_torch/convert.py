@@ -13,7 +13,9 @@ carry across:
     blocked perturbation noise, as ``repro``'s mesh shards them
     (``grid_blocks``);
   * a ``KResult`` (``k_result``), a ``FactorBundle``
-    (``factor_bundle``) and a cross-k ``GridChunk`` (``grid_chunk``).
+    (``factor_bundle``) and a cross-k ``GridChunk`` (``grid_chunk``);
+  * the LM zoo's parameter pytree, as the state dict of the port's dense
+    decoder (``lm_params_from_repro``).
 
 ``repro``'s dense member draws and k_max-padded states need no helper:
 ``selection.ArrayDraws`` takes the arrays as they are, and
@@ -30,6 +32,7 @@ from repro_torch import device as _device
 from repro_torch.core.rescal import RescalState
 from repro_torch.core.sparse import BCSR
 from repro_torch.dist.sharding import Grid
+from repro_torch.models.transformer import dtype_of
 from repro_torch.selection.scheduler import GridChunk
 from repro_torch.selection.types import KResult
 from repro_torch.serve.bundle import FactorBundle
@@ -98,6 +101,33 @@ def grid_chunk(chunk) -> GridChunk:
     return GridChunk(index=int(chunk.index),
                      cells=tuple((int(k), int(q)) for k, q in chunk.cells),
                      k_max=int(chunk.k_max))
+
+
+def lm_params_from_repro(params, cfg, device=None) -> dict[str, torch.Tensor]:
+    """The state dict of ``models.transformer.Transformer(cfg)`` from
+    ``repro``'s ``init_params`` pytree: ``embed/table``, ``final_norm``
+    and ``layers/{ln1, ln2, attn/{wq, wk, wv, wo}, mlp/{wi, [wg,] wo}}``
+    stacked on a leading L axis.  Both packages keep dense weights as
+    (d_in, d_out) applied as ``x @ w``, so the arrays carry over as they
+    are, in ``cfg.dtype`` (bf16 arrays pass through fp32 exactly)."""
+    dev = _device.resolve(device)
+    dtype = dtype_of(cfg)
+
+    def t(x) -> torch.Tensor:
+        return torch.as_tensor(np.array(x, dtype=np.float32),
+                               device=dev).to(dtype)
+
+    layers = params["layers"]
+    stacked = {"ln1": t(layers["ln1"]), "ln2": t(layers["ln2"])}
+    stacked.update({f"attn.{w}": t(layers["attn"][w])
+                    for w in ("wq", "wk", "wv", "wo")})
+    stacked.update({f"mlp.{w}": t(x) for w, x in layers["mlp"].items()})
+    state = {"embed": t(params["embed"]["table"]),
+             "final_norm": t(params["final_norm"])}
+    for i in range(cfg.n_layers):
+        state.update({f"layers.{i}.{name}": x[i]
+                      for name, x in stacked.items()})
+    return state
 
 
 def to_numpy(x) -> np.ndarray:

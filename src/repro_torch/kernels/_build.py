@@ -36,6 +36,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_bcsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
                         _P],
+    "repro_flash_attention": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 12
+                             + [_I, _I, _F, _P],
     "repro_bcsr_xa_xta": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _L, _L, _P],
     "repro_fused_xa_xtb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,

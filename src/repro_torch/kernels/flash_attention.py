@@ -1,0 +1,132 @@
+"""flash_attention — causal or non-causal GQA attention with online softmax,
+as a CUDA kernel for Hopper.
+
+Replaces ``src/repro/kernels/flash_attention.py:flash_attention``, the
+Pallas kernel that ``repro`` calls the TPU execution path of
+``models/attention.py:chunked_attention``.  In the port every layer's
+full-sequence attention on a CUDA tensor (``models.attention.
+chunked_attention``, hence ``prefill`` and ``forward``) launches it.
+Source: ``csrc/flash_attention.cu``.
+
+Contract, as ``repro``'s: q (b, hq, sq, d), k and v (b, hkv, skv, d),
+hq % hkv == 0 -> (b, hq, sq, d) in q's dtype; s = (q @ k^T) * sm_scale
+in fp32 (sm_scale defaults to 1 / sqrt(d)), masked to -1e30 where
+q_offset + qi < kj when causal, the running (m, l, acc) in fp32, p cast
+to v's dtype for p @ v, out = acc / max(l, 1e-30).
+
+Bound on an H100: operations, 4 * b * hq * sq * skv * d flop, about half
+when causal (the masked key tiles are skipped).  Design: one CTA per (64
+query rows, b*hq) loops over 64-key tiles staged in shared memory, with
+the rows' statistics in registers; both products on the fp32 FMA pipes
+(the tensor cores are later work), so the kernel sits at the fp32 rate
+and not the bf16 tensor-core bound.  K and V of a query head's KV group
+are read through strides (no repeat, no transpose); any sq and skv.
+
+Limits of the kernel (``repro``'s plain and Pallas paths have none of
+them, apart from Pallas's tile multiples): float32 or bfloat16, all three
+alike; d in {16, 32, 64, 128}; a unit stride on d; q_offset >= 0; b * hq
+<= 65535.  Outside them a CUDA call raises ``ValueError``.
+
+On CPU tensors the wrapper runs the plain version
+(``kernels/ref.py:ref_attention``); on CUDA tensors it launches the
+kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._launch import MAX_SLICES
+from .ref import ref_attention
+
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+
+_launches = 0
+
+
+def launch_count() -> int:
+    """Kernel launches since the last ``reset_launch_count``."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+class Call:
+    """A checked flash_attention call: shapes, dtypes, strides and the
+    query offset validated for the kernel.  ``require_cuda`` is the device
+    check, apart, so the CPU tests reach the others."""
+
+    def __init__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_offset: int):
+        if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+            raise ValueError(f"flash_attention: want q (b, hq, sq, d) and "
+                             f"k, v (b, hkv, skv, d); got {tuple(q.shape)}, "
+                             f"{tuple(k.shape)}, {tuple(v.shape)}")
+        b, hq, sq, d = q.shape
+        _, hkv, skv, dk = k.shape
+        if k.shape[0] != b or dk != d or hkv < 1 or hq % hkv:
+            raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
+                             f"{tuple(k.shape)} disagree (same b and d, "
+                             f"hq a multiple of hkv)")
+        if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+            raise ValueError(f"flash_attention: q, k and v must all be "
+                             f"float32 or all bfloat16, got {q.dtype}, "
+                             f"{k.dtype}, {v.dtype}")
+        if d not in HEAD_DIMS:
+            raise ValueError(f"flash_attention: head dim {d} not supported "
+                             f"(one of {HEAD_DIMS})")
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.stride(-1) != 1:
+                raise ValueError(f"flash_attention: {name}'s last axis must "
+                                 f"have unit stride")
+        if q_offset < 0:
+            raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+        if skv < 1:
+            raise ValueError("flash_attention: no keys (skv = 0)")
+        if b * hq > MAX_SLICES:
+            raise ValueError(f"flash_attention: b * hq = {b * hq} exceeds "
+                             f"{MAX_SLICES}")
+        self.b, self.hq, self.sq, self.d = b, hq, sq, d
+        self.hkv, self.skv = hkv, skv
+        self.device = q.device
+
+    def require_cuda(self, *tensors: torch.Tensor) -> None:
+        if self.device.type != "cuda" or any(x.device != self.device
+                                             for x in tensors):
+            raise ValueError(
+                f"flash_attention: every tensor must be on one CUDA device, "
+                f"got {sorted({str(x.device) for x in tensors})}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    sm_scale: float | None = None) -> torch.Tensor:
+    """q (b, hq, sq, d), k and v (b, hkv, skv, d) -> (b, hq, sq, d) in q's
+    dtype, laid out in memory as q is (a permuted (B, S, H, D) view gives
+    a (B, S, H, D) buffer)."""
+    global _launches
+    if all(x.device.type == "cpu" for x in (q, k, v)):
+        return ref_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             sm_scale=sm_scale)
+    call = Call(q, k, v, q_offset)
+    call.require_cuda(q, k, v)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if sm_scale is None:
+        sm_scale = 1.0 / (call.d ** 0.5)
+    strides = [x.stride(i) for x in (q, k, v, out) for i in range(3)]
+    with torch.cuda.device(call.device):
+        rc = _build.library().repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            call.b, call.hq, call.hkv, call.sq, call.skv, call.d,
+            int(q.dtype == torch.bfloat16), *strides, int(causal),
+            int(q_offset), float(sm_scale),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "flash_attention")
+    _launches += 1
+    return out

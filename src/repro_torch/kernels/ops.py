@@ -1,5 +1,5 @@
 """Dispatch of the kernels by ``impl`` and device (port of
-``repro/kernels/ops.py:87,130,151,161,181``).
+``repro/kernels/ops.py:87,130,151,161,181,208``).
 
 impl:
   "auto" — the kernel wrapper: the CUDA kernel for CUDA tensors, its plain
@@ -19,14 +19,16 @@ from repro_torch.core.sparse import BCSR
 
 from . import bcsr_fused
 from . import bcsr_spmm as _spmm_mod
+from . import flash_attention as _flash_mod
 from . import fused_bilinear
 from . import mu_update_a as _mu_mod
 from . import ref as _ref
 from . import score_topk as _topk_mod
 from .policy import IMPLS
 
-__all__ = ["bcsr_spmm", "bcsr_xa_xta", "fused_xa_xtb", "launch_counts",
-           "mu_update_a", "reset_launch_counts", "score_topk"]
+__all__ = ["bcsr_spmm", "bcsr_xa_xta", "flash_attention", "fused_xa_xtb",
+           "launch_counts", "mu_update_a", "reset_launch_counts",
+           "score_topk"]
 
 
 def _require(impl: str, kernel: str, *tensors) -> str:
@@ -80,9 +82,21 @@ def score_topk(V, A, *, topk: int, impl: str = "auto",
     return _topk_mod.score_topk(V, A, topk=topk, pn=pn)
 
 
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    sm_scale: float | None = None, impl: str = "auto"):
+    """Online-softmax GQA attention: q (b, hq, sq, d), k and v (b, hkv,
+    skv, d) -> (b, hq, sq, d) (kernels/flash_attention.py).  ``impl="ref"``
+    is the materializing softmax (``ref.ref_attention``)."""
+    if _require(impl, "flash_attention", q, k, v) == "ref":
+        return _ref.ref_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                  sm_scale=sm_scale)
+    return _flash_mod.flash_attention(q, k, v, causal=causal,
+                                      q_offset=q_offset, sm_scale=sm_scale)
+
+
 _KERNELS = {"bcsr_xa_xta": bcsr_fused, "bcsr_spmm": _spmm_mod,
             "fused_xa_xtb": fused_bilinear, "mu_update_a": _mu_mod,
-            "score_topk": _topk_mod}
+            "score_topk": _topk_mod, "flash_attention": _flash_mod}
 
 
 def launch_counts() -> dict[str, int]:

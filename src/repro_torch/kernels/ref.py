@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (port of
-``repro/kernels/ref.py:15,22,48,53,57`` and
+``repro/kernels/ref.py:15,22,48,53,57,72`` and
 ``repro/kernels/score_topk.py:138``).
 
 Each ``ref_*`` computes the same function as its kernel with tensor ops.
@@ -114,3 +114,39 @@ def ref_score_topk_stream(V: torch.Tensor, A: torch.Tensor, topk: int,
         run_s, run_i = _best(torch.cat([run_s, sp], dim=1),
                              torch.cat([run_i, gidx], dim=1), topk)
     return run_s, run_i
+
+
+# ref_attention scores this many (b, hq, rows, skv) fp32 values at a time
+ATTN_BLOCK = 1 << 28
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, q_offset: int = 0,
+                  sm_scale: float | None = None) -> torch.Tensor:
+    """Exact softmax attention with GQA broadcast, in fp32: q (b, hq, sq,
+    d), k and v (b, hkv, skv, d), hq % hkv == 0 -> (b, hq, sq, d) in q's
+    dtype.  s = (q @ k^T) * sm_scale, masked to -1e30 where q_offset + qi
+    < kj when causal, softmax, then p @ v.  The scores are materialized a
+    block of query rows at a time (each row's softmax is whole), so at
+    most ``ATTN_BLOCK`` of them are alive; the kernel writes none."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    kq = k.repeat_interleave(group, dim=1).float()
+    vq = v.repeat_interleave(group, dim=1).float()
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rows = max(1, ATTN_BLOCK // max(1, b * hq * skv))
+    k_ids = torch.arange(skv, device=q.device)
+    for i0 in range(0, sq, rows):
+        qi = q[:, :, i0:i0 + rows].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qi, kq) * sm_scale
+        if causal:
+            q_ids = q_offset + torch.arange(i0, i0 + qi.shape[2],
+                                            device=q.device)
+            s = torch.where(q_ids[:, None] >= k_ids[None, :], s, -1e30)
+        p = torch.softmax(s, dim=-1)
+        out[:, :, i0:i0 + rows] = torch.einsum(
+            "bhqk,bhkd->bhqd", p, vq).to(q.dtype)
+    return out

@@ -1,0 +1,130 @@
+"""Transformer decode demo of the port (port of
+``repro/launch/decode_demo.py``): a batched prefill of random prompts,
+then greedy autoregressive decode, on random weights drawn from a seed.
+
+Runs on the H100 by default (``--device cpu`` runs the plain PyTorch path
+on the CPU).  On the card every layer's prefill attention launches the
+hand-written CUDA flash_attention kernel.
+
+    PYTHONPATH=src python -m repro_torch.launch.decode_demo \\
+        --arch llama3.2-1b --reduced --batch 4 --prompt-len 16 \\
+        --new-tokens 16 --device cpu
+
+Decode continues from the prefill's cache (copied into a cache of
+prompt + new-tokens positions); ``repro``'s demo decodes against a fresh
+zero cache instead.  ``repro``'s ``--mesh`` is not defined here (ROADMAP.md
+§1).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import device as _device
+from repro_torch.configs import ARCHS, REDUCED_ARCHS
+from repro_torch.kernels import ops
+from repro_torch.models.model import greedy_sample
+from repro_torch.models.transformer import Transformer
+from repro_torch.train import make_prefill_step, make_serve_step
+
+
+@dataclasses.dataclass
+class DemoResult:
+    """What one run produced and measured (times on the host's clock,
+    around work that ends in a device synchronize)."""
+    model: Transformer
+    prompts: torch.Tensor          # (B, P)
+    prefill_logits: torch.Tensor   # (B, 1, Vpad), last prompt position
+    tokens: torch.Tensor           # (B, T + 1): the prefill's, then T steps
+    step_logits: torch.Tensor      # (B, T, Vpad): step t's input tokens[:, t]
+    prefill_ms: float
+    decode_ms: float
+    flash_launches: int            # flash_attention launches in the prefill
+    peak_bytes: int | None         # peak device memory (None on the CPU)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    return ap
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(args) -> DemoResult:
+    cfg = (REDUCED_ARCHS if args.reduced else ARCHS)[args.arch]
+    if cfg.family in ("encdec", "vlm"):
+        raise SystemExit("token-only server targets decoder-only archs")
+    dev = _device.resolve(args.device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = Transformer(cfg, device=dev, gen=gen)
+    B, Pn, T = args.batch, args.prompt_len, args.new_tokens
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (B, Pn), generator=gen, device=dev)
+
+    prefill = make_prefill_step(model)
+    launches0 = ops.launch_counts()["flash_attention"]
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, filled = prefill(prompts)
+    _sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()["flash_attention"] - launches0
+    print(f"prefill {B}x{Pn}: {prefill_ms:.1f} ms "
+          f"({B * Pn / prefill_ms * 1e3:.0f} tok/s)")
+    print(f"flash_attention launches in the prefill: {launches} "
+          f"({cfg.n_layers} layers)")
+
+    serve = make_serve_step(model)
+    with torch.inference_mode():
+        cache = model.init_cache(B, Pn + T)
+        for name in cache:
+            cache[name][:, :, :Pn] = filled[name]
+    del filled
+    tok = greedy_sample(logits, cfg.vocab)
+    tokens, steps = [tok], []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for pos in range(Pn, Pn + T):
+        step_logits, cache = serve(cache, tok, pos)
+        tok = greedy_sample(step_logits, cfg.vocab)
+        tokens.append(tok)
+        steps.append(step_logits)
+    _sync(dev)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    print(f"decode: {T} steps x {B} seqs in {decode_ms:.1f} ms "
+          f"({decode_ms / max(T, 1):.2f} ms/step, "
+          f"{B * T / decode_ms * 1e3:.0f} tok/s)")
+    peak = None
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"peak device memory: {peak / 2**30:.2f} GiB")
+    empty = logits.new_empty((B, 0, logits.shape[-1]))
+    return DemoResult(
+        model=model, prompts=prompts, prefill_logits=logits,
+        tokens=torch.cat(tokens, dim=1),
+        step_logits=torch.cat(steps, dim=1) if steps else empty,
+        prefill_ms=prefill_ms, decode_ms=decode_ms, flash_launches=launches,
+        peak_bytes=peak)
+
+
+def main(argv=None) -> DemoResult:
+    return run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,132 @@
+"""Transformer building blocks (port of ``repro/models/layers.py``).
+
+Weights keep ``repro``'s orientation: a dense weight is (d_in, d_out) and
+is applied as ``x @ w``, the embedding table is (vocab, d_model) and the
+unembedding is tied to it.  ``repro``'s ``constrain`` calls are sharding
+hints, no-ops on one device, and are not carried over.  Draws come from a
+``torch.Generator`` (``repro``'s ``jax.random`` keys cannot be
+reproduced), so parity tests load ``repro``'s parameters through
+``convert.lm_params_from_repro``.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
+               scale: float | None = None) -> torch.Tensor:
+    """N(0, 1) * scale in ``dtype``, scale 1 / sqrt(d_in) by default."""
+    scale = scale if scale is not None else (1.0 / d_in) ** 0.5
+    return torch.randn((d_in, d_out), generator=gen, dtype=dtype,
+                       device=device) * scale
+
+
+def param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialized parameter (filled by ``init_parameters`` or a
+    loaded state dict)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """RMS normalization in fp32, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * w).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0) -> torch.Tensor:
+    """1 / theta ** (2i / d) in fp32, computed on the CPU so that every
+    device rotates by the same angles."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32)
+                            / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _freqs_on(head_dim: int, theta: float, device: torch.device
+              ) -> torch.Tensor:
+    """``rope_freqs`` moved to ``device`` once: a copy from pageable host
+    memory waits for the device's stream, which would stall every decode
+    step twice per layer."""
+    return rope_freqs(head_dim, theta).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x (..., seq, heads, head_dim), positions (..., seq): the half-split
+    rotation (not interleaved), angles in fp32."""
+    d = x.shape[-1]
+    freqs = _freqs_on(d, theta, x.device)
+    ang = positions[..., :, None, None].float() * freqs  # (..., s, 1, d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward blocks
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """Gated SwiGLU MLP: (silu(x @ wg) * (x @ wi)) @ wo."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device):
+        super().__init__()
+        self.wi = param((d_model, d_ff), dtype, device)
+        self.wg = param((d_model, d_ff), dtype, device)
+        self.wo = param((d_ff, d_model), dtype, device)
+
+    @torch.no_grad()
+    def init_parameters(self, gen: torch.Generator) -> None:
+        for w in (self.wi, self.wg, self.wo):
+            w.copy_(dense_init(gen, *w.shape, w.dtype, w.device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (F.silu(x @ self.wg) * (x @ self.wi)) @ self.wo
+
+
+class MLP2(nn.Module):
+    """Two-matrix GELU MLP (tanh approximation, as ``jax.nn.gelu``):
+    gelu(x @ wi) @ wo."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device):
+        super().__init__()
+        self.wi = param((d_model, d_ff), dtype, device)
+        self.wo = param((d_ff, d_model), dtype, device)
+
+    @torch.no_grad()
+    def init_parameters(self, gen: torch.Generator) -> None:
+        for w in (self.wi, self.wo):
+            w.copy_(dense_init(gen, *w.shape, w.dtype, w.device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(x @ self.wi, approximate="tanh") @ self.wo
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
+               device) -> torch.Tensor:
+    return torch.randn((vocab, d_model), generator=gen, dtype=dtype,
+                       device=device) * 0.02
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: logits = x @ table^T."""
+    return x @ table.T

@@ -2,7 +2,8 @@
 small sweep through the kernels against the same sweep on the CPU, a
 small ServeEngine on the card against the same engine on the CPU, a
 small dense grid sweep on a 1 x 1 NCCL grid and a small single-device
-dense sweep (batched and cross-k grid mode), kernel against plain.
+dense sweep (batched and cross-k grid mode), kernel against plain, and
+flash_attention with a prefill of the reduced llama3.2-1b through it.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -66,7 +67,7 @@ def test_kernels_match_plain_versions_on_card(cuda, n, bs, density, k, r):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"bcsr_xa_xta": 1, "bcsr_spmm": 1,
                                    "fused_xa_xtb": 0, "mu_update_a": 0,
-                                   "score_topk": 0}
+                                   "score_topk": 0, "flash_attention": 0}
     ra, rt = tref.ref_bcsr_xa_xta(t, B1, B2)
     for got, ref in ((xa, ra), (xt, rt), (sa, ra)):
         assert rel_err(got, ref) <= 1e-5
@@ -82,7 +83,7 @@ def test_cuda_impl_launches_and_ref_impl_does_not(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"bcsr_xa_xta": 0, "bcsr_spmm": 1,
                                    "fused_xa_xtb": 0, "mu_update_a": 0,
-                                   "score_topk": 0}
+                                   "score_topk": 0, "flash_attention": 0}
     assert rel_err(got, ref) <= 1e-5
 
 
@@ -355,3 +356,82 @@ def test_dense_sweep_on_card_kernel_matches_ref(cuda, mode):
         np.testing.assert_allclose(getattr(out["auto"], name),
                                    getattr(out["ref"], name),
                                    rtol=1e-4, atol=1e-4)
+
+
+# (sq, skv, d, (hq, hkv), causal, q_offset): tails no tile divides, every
+# head dim, MHA / GQA / MQA, the continuation offset
+FLASH_GPU_CASES = [(1, 37, 16, (4, 4), True, 0),
+                   (37, 37, 32, (8, 2), True, 0),
+                   (256, 1000, 64, (5, 1), False, 0),
+                   (1000, 1000, 128, (32, 8), True, 0),
+                   (200, 264, 64, (8, 2), True, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,d,heads,causal,q_offset", FLASH_GPU_CASES)
+def test_flash_attention_matches_plain_version_on_card(
+        cuda, dtype, sq, skv, d, heads, causal, q_offset):
+    """Inputs as permuted (B, S, H, D) views.  fp32: relative Frobenius
+    error <= 1e-5 (sums in another order).  bf16: <= 1e-2 against the
+    plain version on the same bf16 inputs and against it on their fp32
+    copies (the kernel rounds p to bf16 before p @ v, the plain version
+    keeps it in fp32; the output rounds to bf16)."""
+    from repro_torch.kernels import flash_attention as fa
+    hq, hkv = heads
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv + d)
+    q = torch.randn((2, sq, hq, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, skv, hkv, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, skv, hkv, d), generator=gen, device=cuda).to(dtype)
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    kw = dict(causal=causal, q_offset=q_offset)
+    ops.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert got.stride() == q.stride()
+    ref = tref.ref_attention(q, k, v, **kw)
+    if dtype == torch.float32:
+        assert rel_err(got, ref) <= 1e-5
+    else:
+        ref32 = tref.ref_attention(q.float(), k.float(), v.float(), **kw)
+        assert rel_err(got.float(), ref.float()) <= 1e-2
+        assert rel_err(got.float(), ref32) <= 1e-2
+
+
+def test_flash_attention_refuses_outside_its_limits_on_card(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, kv = (torch.rand((1, h, 8, 64), device=cuda) for h in (4, 2))
+    with pytest.raises(ValueError, match="head dim 24"):
+        fa.flash_attention(torch.rand((1, 4, 8, 24), device=cuda),
+                           torch.rand((1, 2, 8, 24), device=cuda),
+                           torch.rand((1, 2, 8, 24), device=cuda))
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(q, kv, kv, q_offset=-1)
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention(torch.rand((1, 4, 8, 128), device=cuda)[..., ::2],
+                           kv, kv)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fa.flash_attention(q.half(), kv.half(), kv.half())
+
+
+def test_prefill_on_card_launches_once_per_layer(cuda):
+    """The reduced llama3.2-1b's prefill on the card: one flash_attention
+    launch per layer, logits and cache within 1e-4 of the plain chunked
+    path on the card."""
+    from repro_torch.configs import REDUCED_ARCHS
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import make_prefill_step
+    cfg = REDUCED_ARCHS["llama3.2-1b"]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = Transformer(cfg, device=cuda, gen=gen)
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    logits, cache = make_prefill_step(model)(toks)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    ref_logits, ref_cache = make_prefill_step(model, impl="ref")(toks)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert rel_err(logits, ref_logits) <= 1e-4
+    for name in ("k", "v"):
+        assert rel_err(cache[name], ref_cache[name]) <= 1e-4

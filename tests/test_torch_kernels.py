@@ -122,7 +122,7 @@ def test_cpu_dispatch_uses_plain_version_and_counts_nothing():
     close(bcsr_spmm.bcsr_spmm(t, B), tsp.spmm(t, B))
     assert ops.launch_counts() == {"bcsr_xa_xta": 0, "bcsr_spmm": 0,
                                    "fused_xa_xtb": 0, "mu_update_a": 0,
-                                   "score_topk": 0}
+                                   "score_topk": 0, "flash_attention": 0}
 
 
 @pytest.mark.parametrize("kernel", ["bcsr_xa_xta", "bcsr_spmm"])
@@ -141,14 +141,15 @@ def test_policy_rejects_unknown_impl():
 
 
 def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
-    """All five kernels' sources are compiled, and an edit to any source
+    """All six kernels' sources are compiled, and an edit to any source
     — the shared header included — gives a new build directory
     (test_torch_cli checks that importing builds nothing)."""
     names = {p.name for p in _build.sources()}
     assert names == {"bcsr_spmm.cu", "bcsr_fused.cu", "fused_bilinear.cu",
-                     "mu_update_a.cu", "score_topk.cu"}
+                     "mu_update_a.cu", "score_topk.cu", "flash_attention.cu"}
     assert set(_build.SIGNATURES) == {"repro_bcsr_spmm",
                                       "repro_bcsr_xa_xta",
+                                      "repro_flash_attention",
                                       "repro_fused_xa_xtb",
                                       "repro_mu_update_a",
                                       "repro_score_topk",
@@ -159,7 +160,7 @@ def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
     before = _build._digest()
     assert before == _build._digest()
     for name in ("bcsr_tile.cuh", "score_topk.cu", "fused_bilinear.cu",
-                 "mu_update_a.cu"):
+                 "mu_update_a.cu", "flash_attention.cu"):
         with open(tmp_path / name, "a") as f:
             f.write("\n")
         assert _build._digest() != before

@@ -195,7 +195,8 @@ def test_plan_and_report_read_by_repro(tmp_path):
                                             "bcsr_spmm": 0,
                                             "fused_xa_xtb": 0,
                                             "mu_update_a": 0,
-                                            "score_topk": 0}
+                                            "score_topk": 0,
+                                            "flash_attention": 0}
     kr = convert.k_result(dataclasses.replace(res.per_k[2]))
     np.testing.assert_array_equal(kr.A_median, res.per_k[2].A_median)
     assert kr.s_min == res.per_k[2].s_min
