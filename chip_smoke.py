@@ -5,9 +5,11 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-  1. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
-     with nvcc (sm_90a; ptxas register/shared-memory report printed) and
-     print the card's name and power limit.
+  1. Build the six CUDA kernels (seven sources: flash_attention has a
+     bf16 and an fp32 kernel) from ``src/repro_torch/kernels/csrc`` with
+     nvcc (sm_90a; ptxas register/shared-memory report printed; the
+     library's build time on a line of its own) and print the card's
+     name and power limit.
   2. Hold each kernel against its plain PyTorch version on the card.  The
      BCSR kernels: at edge shapes (bs not dividing n, empty block rows and
      cols, nnzb == 0, k in {3, 16}, r in {1, 4}) and at the sweep's shape
@@ -93,29 +95,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      surrogate per member, and a member loop, are why these run smaller)
      the batched run, --mode loop, --schedule sliced and --init nndsvd:
      the kernels launched and the same k_opt as the batched run.
-  8. LM serving, the dense decoder through flash_attention.  The kernel
-     against its plain version (``ref_attention``) on permuted (B, S, H,
-     D) views over FLASH_CHECK: fp32 and bf16, d in {16, 32, 64, 128},
+  8. LM serving, the dense decoder through flash_attention: bf16 runs
+     the tensor-core kernel (variant ``sm90_bf16``, wgmma and a TMA
+     ring), fp32 the FMA kernel (``fma_fp32``), each case through its
+     dtype's variant (per-variant counters).  The kernels against their
+     plain version (``ref_attention``) on permuted (B, S, H, D) views
+     over FLASH_CHECK: fp32 and bf16, d in {16, 32, 64, 128},
      (hq, hkv) in {(4, 4), (8, 2), (5, 1), (32, 8)}, causal or not,
      q_offset 0 and 64, sq in {1, 37, 256, 1000} x skv in {37, 1000,
      4096}; fp32 to REL_TOL / ABS_TOL, bf16 to BF16_REL_TOL /
      BF16_ABS_TOL against the plain version in bf16 and on fp32 copies.
      Timed (bf16, causal) at the LM cell's prefill shape (b = 4, hq = 32,
      hkv = 8, s = 4096, d = 64; the kernels line) and at one 32k sequence,
-     beside its plain version, its bound and the
-     ``scaled_dot_product_attention`` yardstick.  Then llama3.2-1b at full
+     beside its plain version, its bound (TFLOP/s and the share of the
+     bound printed) and the ``scaled_dot_product_attention`` yardstick.  Then llama3.2-1b at full
      width in fp32 (seeded init): one prefill of 2 x 1024 through the
      kernel and one through the plain chunked path, 16 launches, logits
      and caches within LM_F32_TOL.  Then the slice through the CLI's entry
      point (``repro_torch.launch.decode_demo.main``), llama3.2-1b at full
      width in bf16, --batch 4 --prompt-len 4096 --new-tokens 64 (after a
      short warm-up run): the counters, zeroed just before, show one
-     flash_attention launch per layer (16) and no other kernel; prefill
+     tensor-core flash_attention launch per layer (16) and no other
+     kernel; prefill
      and decode times, tok/s and peak device memory are printed.  The
      same prompts through the plain chunked path: last-position logits,
      and each decode step's logits when fed the kernel path's tokens,
      within LM_BF16_TOL.  Last, the prefill and 16 decode steps under
-     ``torch.profiler`` (device idle share, time by kernel).  The cut
+     ``torch.profiler`` (device idle share, time by kernel, attention's
+     share of the prefill).  The cut
      against ``repro``'s prefill_32k shape (B = 32 x 32768): B = 4 x 4096.
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
@@ -178,7 +185,7 @@ FLASH_SCALES = (dict(b=4, hq=32, hkv=8, s=4096, d=64),
 LM = dict(arch="llama3.2-1b", batch=4, prompt=4096, new_tokens=64,
           parity_batch=2, parity_len=1024)
 # bf16 flash_attention against the plain version: the kernel rounds p to
-# bf16 for p @ v, per 64-key tile, and the output to bf16
+# bf16 for p @ v, per 128-key tile, and the output to bf16
 BF16_REL_TOL = 1e-2   # relative Frobenius error
 BF16_ABS_TOL = 2e-2   # max |diff| / max |ref|
 # the model's logits and caches, kernel path vs plain chunked path: fp32
@@ -224,7 +231,8 @@ def phase_build():
     t0 = time.perf_counter()
     lib = _build.build(verbose=True)
     _build.library()
-    log(f"[build] {lib.relative_to(ROOT)} in "
+    log(f"[build] kernel library {lib.relative_to(ROOT)}: "
+        f"{len(_build.sources())} sources built and loaded in "
         f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -1336,6 +1344,7 @@ def check_flash_grid(dev) -> None:
     for dtype, d in itertools.product(cfg["dtypes"], cfg["dims"]):
         t0 = time.perf_counter()
         worst, worst_abs, n = 0.0, 0.0, 0
+        fa.reset_launch_count()
         for (hq, hkv), causal, q_offset, sq, skv in itertools.product(
                 cfg["heads"], (True, False), cfg["q_offsets"], cfg["sq"],
                 cfg["skv"]):
@@ -1349,7 +1358,13 @@ def check_flash_grid(dev) -> None:
                 f"causal={causal} q_offset={q_offset} sq={sq} skv={skv}]",
                 got, q, k, v, **kw)
             worst, worst_abs, n = max(worst, rel), max(worst_abs, err), n + 1
-        log(f"[flash] {dtype} d={d}: {n} cases ok, largest relative error "
+        variant = fa.VARIANTS[getattr(torch, dtype)]
+        by_variant = fa.launch_count_by_variant()
+        require(by_variant[variant] == n == fa.launch_count(),
+                f"flash_attention {dtype} d={d}: launches {by_variant}, want "
+                f"{n} of {variant}")
+        log(f"[flash] {dtype} d={d} ({variant}): {n} cases ok, largest "
+            f"relative error "
             f"{worst:.3e}, largest max |diff| {worst_abs:.3e} "
             f"({time.perf_counter() - t0:.1f}s)")
 
@@ -1379,8 +1394,12 @@ def time_flash(dev, cfg: dict, reps: int, plain_reps: int) -> dict:
     gen.manual_seed(s)
     q, k, v = flash_inputs(gen, dev, torch.bfloat16, b, s, s, hq, hkv, d)
     tag = f"b={b} hq={hq} hkv={hkv} s={s} d={d} bf16 causal"
+    fa.reset_launch_count()
     got = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
+    require(fa.launch_count_by_variant()["sm90_bf16"] == 1,
+            f"flash_attention [{tag}]: not the tensor-core kernel "
+            f"({fa.launch_count_by_variant()})")
     rel, err = check_flash(f"flash_attention [{tag}]", got, q, k, v,
                            causal=True)
     lib_fn = sdpa_call(q, k, v)
@@ -1397,9 +1416,10 @@ def time_flash(dev, cfg: dict, reps: int, plain_reps: int) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms, by = (t_ops, "operations") if t_ops >= t_bytes else \
         (t_bytes, "bytes")
-    log(f"[flash] {tag}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-        f"TFLOP/s), plain {plain:.3f} ms, scaled_dot_product_attention "
-        f"{lib:.3f} ms, bound {bound_ms:.3f} ms ({by}), relative error "
+    log(f"[flash] {tag}: kernel sm90_bf16 {ms:.3f} ms ({flops / ms / 1e9:.1f}"
+        f" TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound), plain "
+        f"{plain:.3f} ms, scaled_dot_product_attention {lib:.3f} ms "
+        f"({ms / lib:.2f}x), bound {bound_ms:.3f} ms ({by}), relative error "
         f"{rel:.3e}, max |diff| {err:.3e}")
     del q, k, v, lib_fn
     torch.cuda.empty_cache()
@@ -1421,6 +1441,7 @@ def check_full_width_fp32(dev) -> None:
     import dataclasses
     import torch
     from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Transformer
     from repro_torch.train import make_prefill_step
@@ -1435,9 +1456,11 @@ def check_full_width_fp32(dev) -> None:
     logits, cache = make_prefill_step(model)(toks)
     torch.cuda.synchronize()
     launches = ops.launch_counts()["flash_attention"]
-    require(launches == cfg.n_layers,
-            f"fp32 prefill launched flash_attention {launches} times, want "
-            f"{cfg.n_layers}")
+    require(launches == cfg.n_layers
+            == fa.launch_count_by_variant()["fma_fp32"],
+            f"fp32 prefill launched flash_attention {launches} times "
+            f"({fa.launch_count_by_variant()}), want {cfg.n_layers} of "
+            f"fma_fp32")
     ref_logits, ref_cache = make_prefill_step(model, impl="ref")(toks)
     require(ops.launch_counts()["flash_attention"] == launches,
             "the ref prefill launched flash_attention")
@@ -1491,6 +1514,12 @@ def profile_lm(res, steps: int) -> None:
         log(f"[lm] profiled {label} ({n} call(s)): wall {wall * 1e3:.3f} ms, "
             f"device busy {busy * 1e3:.3f} ms ({100 * (1 - busy / wall):.1f}%"
             f" idle)")
+        if label == "prefill":
+            attn = sum(e.device_time_total for e in events
+                       if "flash_sm90" in e.key) / 1e6
+            log(f"[lm]   attention (flash_sm90) {attn * 1e3:.3f} ms, "
+                f"{100 * attn / busy:.1f}% of the device's busy time, "
+                f"{100 * attn / wall:.1f}% of the wall")
         for e in events[:8]:
             log(f"[lm]   {e.device_time_total / 1e3 / n:9.4f} ms/call "
                 f"{100 * e.device_time_total / 1e6 / busy:5.1f}%  "
@@ -1503,11 +1532,12 @@ def phase_lm(dev, smi: str) -> dict:
     """Phase 8 (see the module docstring); returns flash_attention's row of
     the kernels line."""
     import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.train import make_prefill_step, make_serve_step
     check_flash_grid(dev)
     row = dict(name="flash_attention", route="cuda",
-               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                replaces="src/repro/kernels/flash_attention.py:99",
                launches=0, max_abs_err=None, ms=None, plain_ms=None,
                bound_ms=None, bound_by=None, library_ms=None)
@@ -1531,6 +1561,10 @@ def phase_lm(dev, smi: str) -> dict:
     require(not any(n for name, n in launches.items()
                     if name != "flash_attention"),
             f"decode_demo launched other kernels: {launches}")
+    by_variant = fa.launch_count_by_variant()
+    require(by_variant == {"sm90_bf16": cfg.n_layers, "fma_fp32": 0},
+            f"decode_demo's bf16 prefill launched {by_variant}, want "
+            f"{cfg.n_layers} tensor-core (sm90_bf16) launches")
     row["launches"] = launches["flash_attention"]
     require(res.tokens.shape == (B, T + 1) and int(res.tokens.max())
             < cfg.vocab and int(res.tokens.min()) >= 0,
@@ -1563,7 +1597,8 @@ def phase_lm(dev, smi: str) -> dict:
         f"{res.prefill_ms:.1f} ms ({B * Pn / res.prefill_ms * 1e3:.0f} "
         f"tok/s); decode {T} steps {res.decode_ms / T:.2f} ms/step "
         f"({B * T / res.decode_ms * 1e3:.0f} tok/s); flash_attention "
-        f"launches {launches['flash_attention']}; peak device memory "
+        f"launches {launches['flash_attention']} (sm90_bf16 "
+        f"{by_variant['sm90_bf16']}); peak device memory "
         f"{res.peak_bytes / 1e9:.2f} GB")
     log(f"[lm] kernel vs plain path: last-position logits relative error "
         f"{pre_err:.3e}; decode logits fed the kernel path's tokens, "

@@ -1,5 +1,5 @@
 """Triple ingest to a deduplicated COO tensor (port of
-``repro/io/triples.py:59,98,127,202,216``).
+``repro/io/triples.py:59,98,127,172,202,216``).
 
 ``read_triples_tsv`` yields bounded chunks of a TSV triple list
 (``head \t relation \t tail [\t weight]``), which ``Vocab`` numbers in
@@ -126,20 +126,23 @@ def read_coo_npz(path: str, *, chunk: int = DEFAULT_CHUNK
         yield rows[s:e], rels[s:e], cols[s:e], vals[s:e]
 
 
-def coo_from_chunks(chunks) -> COOTensor:
+def coo_from_chunks(chunks, *, n: int | None = None,
+                    m: int | None = None) -> COOTensor:
     """Concatenate (rows, rels, cols, vals) chunks, sort by (rel, row, col)
-    and sum duplicates.  n and m are one past the largest ids."""
+    and sum duplicates.  Declared n and m override the inferred ones (one
+    past the largest ids); an id outside them raises ``ValueError``."""
     parts = list(chunks)
     if not parts:
         z = np.zeros(0, np.int64)
         return COOTensor(rels=z, rows=z, cols=z,
-                         vals=np.zeros(0, np.float32), n=0, m=0)
+                         vals=np.zeros(0, np.float32), n=n or 0, m=m or 0)
     rows, rels, cols, vals = (np.concatenate(p) for p in zip(*parts))
     vals = vals.astype(np.float32)
-    if min(rows.min(), cols.min(), rels.min()) < 0:
-        raise ValueError("negative entity or relation id")
-    n = int(max(rows.max(), cols.max())) + 1
-    m = int(rels.max()) + 1
+    n = n if n is not None else int(max(rows.max(), cols.max())) + 1
+    m = m if m is not None else int(rels.max()) + 1
+    if (min(rows.min(), cols.min(), rels.min()) < 0
+            or max(rows.max(), cols.max()) >= n or rels.max() >= m):
+        raise ValueError("coordinate out of bounds for declared (m, n)")
     order = np.lexsort((cols, rows, rels))
     rels, rows, cols, vals = (rels[order], rows[order], cols[order],
                               vals[order])
@@ -168,6 +171,8 @@ def ingest_tsv(path: str, *, chunk: int = DEFAULT_CHUNK
     return coo_from_chunks(chunks()), vocab
 
 
-def ingest_npz(path: str, *, chunk: int = DEFAULT_CHUNK) -> COOTensor:
-    """Chunked NPZ COO ingest (ids already assigned upstream)."""
-    return coo_from_chunks(read_coo_npz(path, chunk=chunk))
+def ingest_npz(path: str, *, n: int | None = None, m: int | None = None,
+               chunk: int = DEFAULT_CHUNK) -> COOTensor:
+    """Chunked NPZ COO ingest (ids already assigned upstream); ``n`` and
+    ``m`` declare the dimensions, as ``coo_from_chunks`` takes them."""
+    return coo_from_chunks(read_coo_npz(path, chunk=chunk), n=n, m=m)

@@ -32,12 +32,16 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
+# flash_attention's two launchers: q, k, v, out; b, hq, hkv, sq, skv, d;
+# the (b, h, s) strides of q, k, v, out; causal, q_offset, sm_scale; stream
+_FLASH = [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _P]
+
 # launcher name -> argtypes (pointers and the stream as void*)
 SIGNATURES = {
     "repro_bcsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
                         _P],
-    "repro_flash_attention": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 12
-                             + [_I, _I, _F, _P],
+    "repro_flash_attention": _FLASH,        # fp32, FMA
+    "repro_flash_attention_sm90": _FLASH,   # bf16, tensor cores
     "repro_bcsr_xa_xta": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _L, _L, _P],
     "repro_fused_xa_xtb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,

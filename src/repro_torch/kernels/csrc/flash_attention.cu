@@ -1,6 +1,8 @@
 // flash_attention: softmax(s) @ v with s = (q @ k^T) * sm_scale, causal or
 // not, with grouped KV heads (GQA), a query offset, and the (sq, skv)
-// score matrix never written to memory.
+// score matrix never written to memory.  This file is the fp32 path; bf16
+// runs on the tensor cores in flash_attention_sm90.cu (the wrapper picks
+// by dtype).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention (Pallas grid (b*hq, sq/bq, skv/bk), the jk axis walked
@@ -37,10 +39,9 @@
 // products), about half of it when causal; the ridge is far below the
 // work per byte (each query tile re-reads K and V, but K and V of one
 // head fit in L2).  This first design runs both products on the fp32
-// FMA pipes (67 TFLOP/s peak), not the tensor cores (989 TFLOP/s bf16):
-// float4 shared-memory reads keep it FMA-bound rather than bound by
-// shared memory; mma/wgmma and a TMA ring are later work.
-#include <cuda_bf16.h>
+// FMA pipes (67 TFLOP/s peak): float4 shared-memory reads keep it
+// FMA-bound rather than bound by shared memory.  The repo keeps TF32 off,
+// so fp32 stays off the tensor cores.
 #include <cuda_runtime.h>
 
 namespace fa {
@@ -65,18 +66,11 @@ struct Args {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a dtype cast
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -287,13 +281,13 @@ int dispatch(const Args& a, int batch, int d, cudaStream_t stream) {
 }  // namespace fa
 
 // out (b, hq, sq, d) = attention of q (b, hq, sq, d) over k, v (b, hkv,
-// skv, d), each addressed through its (b, h, s) strides in elements with
-// a unit d stride.  bf16 != 0: every tensor is bfloat16, else float32.
-// d in {16, 32, 64, 128}; hq % hkv == 0; q_offset >= 0; skv >= 1; b * hq
-// <= 65535.  Returns the launch's cudaError_t (0 when sq or b is 0).
+// skv, d), all float32, each addressed through its (b, h, s) strides in
+// elements with a unit d stride.  d in {16, 32, 64, 128}; hq % hkv == 0;
+// q_offset >= 0; skv >= 1; b * hq <= 65535.  Returns the launch's
+// cudaError_t (0 when sq or b is 0).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int batch, int hq,
-    int hkv, int sq, int skv, int d, int bf16, long long qb, long long qh,
+    int hkv, int sq, int skv, int d, long long qb, long long qh,
     long long qs, long long kb, long long kh, long long ks, long long vb,
     long long vh, long long vs, long long ob, long long oh, long long os,
     int causal, int q_offset, float sm_scale, void* stream) {
@@ -305,6 +299,5 @@ extern "C" int repro_flash_attention(
   fa::Args a{q,  k,  v,  o,  hq, hkv, sq, skv, qb,     qh,       qs,
              kb, kh, ks, vb, vh, vs,  ob, oh,  os, causal, q_offset, sm_scale};
   auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? fa::dispatch<__nv_bfloat16>(a, batch, d, s)
-              : fa::dispatch<float>(a, batch, d, s);
+  return fa::dispatch<float>(a, batch, d, s);
 }

@@ -1,35 +1,44 @@
 """flash_attention — causal or non-causal GQA attention with online softmax,
-as a CUDA kernel for Hopper.
+as CUDA kernels for Hopper.
 
 Replaces ``src/repro/kernels/flash_attention.py:flash_attention``, the
 Pallas kernel that ``repro`` calls the TPU execution path of
 ``models/attention.py:chunked_attention``.  In the port every layer's
 full-sequence attention on a CUDA tensor (``models.attention.
 chunked_attention``, hence ``prefill`` and ``forward``) launches it.
-Source: ``csrc/flash_attention.cu``.
+
+Two kernels, chosen by dtype (``variant``), each counted apart
+(``launch_count_by_variant``; ``launch_count`` is their sum):
+
+  ``sm90_bf16`` (``csrc/flash_attention_sm90.cu``): bfloat16 on the
+      tensor cores: wgmma for q @ k^T and for p @ v with p kept in
+      registers, K and V tiles loaded by TMA into a shared-memory ring by
+      a producer warpgroup.
+  ``fma_fp32`` (``csrc/flash_attention.cu``): float32 on the FMA pipes
+      (the repo keeps TF32 off, so fp32 keeps its full precision).
 
 Contract, as ``repro``'s: q (b, hq, sq, d), k and v (b, hkv, skv, d),
 hq % hkv == 0 -> (b, hq, sq, d) in q's dtype; s = (q @ k^T) * sm_scale
 in fp32 (sm_scale defaults to 1 / sqrt(d)), masked to -1e30 where
 q_offset + qi < kj when causal, the running (m, l, acc) in fp32, p cast
-to v's dtype for p @ v, out = acc / max(l, 1e-30).
+to v's dtype for p @ v, out = acc / max(l, 1e-30).  The bf16 kernel
+folds sm_scale * log2(e) into one fp32 product and takes exp2.
 
-Bound on an H100: operations, 4 * b * hq * sq * skv * d flop, about half
-when causal (the masked key tiles are skipped).  Design: one CTA per (64
-query rows, b*hq) loops over 64-key tiles staged in shared memory, with
-the rows' statistics in registers; both products on the fp32 FMA pipes
-(the tensor cores are later work), so the kernel sits at the fp32 rate
-and not the bf16 tensor-core bound.  K and V of a query head's KV group
-are read through strides (no repeat, no transpose); any sq and skv.
+Bound on an H100: operations, 4 * b * hq * d flop per visible (query,
+key) pair, about half of sq * skv when causal (the masked key tiles are
+skipped).  K and V of a query head's KV group are read through strides
+(no repeat, no transpose); any sq and skv.
 
-Limits of the kernel (``repro``'s plain and Pallas paths have none of
+Limits of the kernels (``repro``'s plain and Pallas paths have none of
 them, apart from Pallas's tile multiples): float32 or bfloat16, all three
 alike; d in {16, 32, 64, 128}; a unit stride on d; q_offset >= 0; b * hq
-<= 65535.  Outside them a CUDA call raises ``ValueError``.
+<= 65535.  bfloat16 also: q, k and v 16-byte aligned, and their b, h and
+s strides (on axes longer than 1) multiples of 16 bytes (TMA), sq <=
+65535 * 128.  Outside them a CUDA call raises ``ValueError``.
 
 On CPU tensors the wrapper runs the plain version
 (``kernels/ref.py:ref_attention``); on CUDA tensors it launches the
-kernel or raises.
+kernel of its dtype or raises.
 """
 from __future__ import annotations
 
@@ -41,18 +50,26 @@ from .ref import ref_attention
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+VARIANTS = {torch.bfloat16: "sm90_bf16", torch.float32: "fma_fp32"}
+BQ_SM90 = 128          # query rows per CTA of the bf16 kernel (grid.y)
 
-_launches = 0
+_launches = dict.fromkeys(VARIANTS.values(), 0)
 
 
 def launch_count() -> int:
-    """Kernel launches since the last ``reset_launch_count``."""
-    return _launches
+    """Kernel launches, both variants, since the last
+    ``reset_launch_count``."""
+    return sum(_launches.values())
+
+
+def launch_count_by_variant() -> dict[str, int]:
+    """Kernel launches per variant since the last ``reset_launch_count``."""
+    return dict(_launches)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for name in _launches:
+        _launches[name] = 0
 
 
 class Call:
@@ -90,9 +107,29 @@ class Call:
         if b * hq > MAX_SLICES:
             raise ValueError(f"flash_attention: b * hq = {b * hq} exceeds "
                              f"{MAX_SLICES}")
+        self.variant = VARIANTS[q.dtype]
+        if self.variant == "sm90_bf16":
+            self._check_tma(q, k, v)
         self.b, self.hq, self.sq, self.d = b, hq, sq, d
         self.hkv, self.skv = hkv, skv
         self.device = q.device
+
+    @staticmethod
+    def _check_tma(q, k, v) -> None:
+        """The bf16 kernel reads q, k and v by TMA: a 16-byte aligned base
+        and b, h, s strides of whole 16 bytes (axes of length 1 aside)."""
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name}'s base address is "
+                                 f"not 16-byte aligned (bf16 reads by TMA)")
+            for axis, size, stride in zip("bhs", x.shape, x.stride()):
+                if size > 1 and stride * x.element_size() % 16:
+                    raise ValueError(
+                        f"flash_attention: {name}'s {axis} stride {stride} "
+                        f"is not a multiple of 16 bytes (bf16 reads by TMA)")
+        if -(-q.shape[2] // BQ_SM90) > MAX_SLICES:
+            raise ValueError(f"flash_attention: sq = {q.shape[2]} exceeds "
+                             f"{MAX_SLICES * BQ_SM90}")
 
     def require_cuda(self, *tensors: torch.Tensor) -> None:
         if self.device.type != "cuda" or any(x.device != self.device
@@ -108,7 +145,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (b, hq, sq, d), k and v (b, hkv, skv, d) -> (b, hq, sq, d) in q's
     dtype, laid out in memory as q is (a permuted (B, S, H, D) view gives
     a (B, S, H, D) buffer)."""
-    global _launches
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return ref_attention(q, k, v, causal=causal, q_offset=q_offset,
                              sm_scale=sm_scale)
@@ -121,12 +157,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sm_scale = 1.0 / (call.d ** 0.5)
     strides = [x.stride(i) for x in (q, k, v, out) for i in range(3)]
     with torch.cuda.device(call.device):
-        rc = _build.library().repro_flash_attention(
+        lib = _build.library()
+        launcher = (lib.repro_flash_attention_sm90
+                    if call.variant == "sm90_bf16"
+                    else lib.repro_flash_attention)
+        rc = launcher(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            call.b, call.hq, call.hkv, call.sq, call.skv, call.d,
-            int(q.dtype == torch.bfloat16), *strides, int(causal),
-            int(q_offset), float(sm_scale),
+            call.b, call.hq, call.hkv, call.sq, call.skv, call.d, *strides,
+            int(causal), int(q_offset), float(sm_scale),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "flash_attention")
-    _launches += 1
+    _build.check(rc, f"flash_attention ({call.variant})")
+    _launches[call.variant] += 1
     return out

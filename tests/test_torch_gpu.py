@@ -359,23 +359,32 @@ def test_dense_sweep_on_card_kernel_matches_ref(cuda, mode):
 
 
 # (sq, skv, d, (hq, hkv), causal, q_offset): tails no tile divides, every
-# head dim, MHA / GQA / MQA, the continuation offset
+# head dim, MHA / GQA / MQA, the continuation offset; for the bf16
+# kernel's edges: d = 16 and 128 (the 32-byte swizzle and the two
+# 64-column halves) on sq, skv not multiples of its 128-row and 128-key
+# tiles, sq = 1, causal with q_offset 64, hq = hkv and hq / hkv = 5
 FLASH_GPU_CASES = [(1, 37, 16, (4, 4), True, 0),
                    (37, 37, 32, (8, 2), True, 0),
                    (256, 1000, 64, (5, 1), False, 0),
                    (1000, 1000, 128, (32, 8), True, 0),
-                   (200, 264, 64, (8, 2), True, 64)]
+                   (200, 264, 64, (8, 2), True, 64),
+                   (129, 257, 16, (4, 4), True, 0),
+                   (129, 257, 128, (10, 2), False, 0),
+                   (1, 300, 128, (5, 1), True, 64),
+                   (300, 300, 16, (10, 2), True, 64),
+                   (127, 129, 32, (4, 4), False, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,skv,d,heads,causal,q_offset", FLASH_GPU_CASES)
 def test_flash_attention_matches_plain_version_on_card(
         cuda, dtype, sq, skv, d, heads, causal, q_offset):
-    """Inputs as permuted (B, S, H, D) views.  fp32: relative Frobenius
-    error <= 1e-5 (sums in another order).  bf16: <= 1e-2 against the
-    plain version on the same bf16 inputs and against it on their fp32
-    copies (the kernel rounds p to bf16 before p @ v, the plain version
-    keeps it in fp32; the output rounds to bf16)."""
+    """Inputs as permuted (B, S, H, D) views.  fp32 (the FMA kernel):
+    relative Frobenius error <= 1e-5 (sums in another order).  bf16 (the
+    tensor-core kernel): <= 1e-2 against the plain version on the same
+    bf16 inputs and against it on their fp32 copies (the kernel rounds p
+    to bf16 before p @ v, the plain version keeps it in fp32; the output
+    rounds to bf16)."""
     from repro_torch.kernels import flash_attention as fa
     hq, hkv = heads
     gen = torch.Generator(device=cuda).manual_seed(sq + skv + d)
@@ -388,6 +397,9 @@ def test_flash_attention_matches_plain_version_on_card(
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == 1
+    bf16 = dtype == torch.bfloat16
+    assert fa.launch_count_by_variant() == {"sm90_bf16": int(bf16),
+                                            "fma_fp32": int(not bf16)}
     assert got.dtype == dtype and got.shape == q.shape
     assert got.stride() == q.stride()
     ref = tref.ref_attention(q, k, v, **kw)
@@ -397,6 +409,23 @@ def test_flash_attention_matches_plain_version_on_card(
         ref32 = tref.ref_attention(q.float(), k.float(), v.float(), **kw)
         assert rel_err(got.float(), ref.float()) <= 1e-2
         assert rel_err(got.float(), ref32) <= 1e-2
+
+
+def test_flash_attention_bf16_refuses_misaligned_views_on_card(cuda):
+    """A bf16 view whose s stride (260 elements, 520 bytes) TMA cannot
+    take raises before any launch; its fp32 copy runs the FMA kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    buf = torch.randn(2 * 8 * 260, device=cuda).to(torch.bfloat16)
+    q = buf.as_strided((2, 4, 8, 64), (2080, 64, 260, 1))
+    kv = torch.randn((2, 8, 2, 64), device=cuda).to(torch.bfloat16)
+    kv = kv.transpose(1, 2)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="s stride 260"):
+        fa.flash_attention(q, kv, kv)
+    assert ops.launch_counts()["flash_attention"] == 0
+    fa.flash_attention(q.float(), kv.float(), kv.float())
+    torch.cuda.synchronize()
+    assert fa.launch_count_by_variant() == {"sm90_bf16": 0, "fma_fp32": 1}
 
 
 def test_flash_attention_refuses_outside_its_limits_on_card(cuda):

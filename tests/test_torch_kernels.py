@@ -141,15 +141,18 @@ def test_policy_rejects_unknown_impl():
 
 
 def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
-    """All six kernels' sources are compiled, and an edit to any source
-    — the shared header included — gives a new build directory
-    (test_torch_cli checks that importing builds nothing)."""
+    """All six kernels' sources (flash_attention's two variants) are
+    compiled, and an edit to any source — the shared header included —
+    gives a new build directory (test_torch_cli checks that importing
+    builds nothing)."""
     names = {p.name for p in _build.sources()}
     assert names == {"bcsr_spmm.cu", "bcsr_fused.cu", "fused_bilinear.cu",
-                     "mu_update_a.cu", "score_topk.cu", "flash_attention.cu"}
+                     "mu_update_a.cu", "score_topk.cu", "flash_attention.cu",
+                     "flash_attention_sm90.cu"}
     assert set(_build.SIGNATURES) == {"repro_bcsr_spmm",
                                       "repro_bcsr_xa_xta",
                                       "repro_flash_attention",
+                                      "repro_flash_attention_sm90",
                                       "repro_fused_xa_xtb",
                                       "repro_mu_update_a",
                                       "repro_score_topk",
@@ -160,7 +163,8 @@ def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
     before = _build._digest()
     assert before == _build._digest()
     for name in ("bcsr_tile.cuh", "score_topk.cu", "fused_bilinear.cu",
-                 "mu_update_a.cu", "flash_attention.cu"):
+                 "mu_update_a.cu", "flash_attention.cu",
+                 "flash_attention_sm90.cu"):
         with open(tmp_path / name, "a") as f:
             f.write("\n")
         assert _build._digest() != before

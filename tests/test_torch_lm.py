@@ -307,6 +307,52 @@ def test_kernel_call_checks(tmp_path):
                           kv.transpose(1, 2), impl="cuda")
 
 
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "sm90_bf16"),
+                                           (torch.float32, "fma_fp32")])
+def test_kernel_variant_follows_dtype(dtype, variant):
+    """bf16 calls go to the tensor-core kernel, fp32 calls to the FMA
+    kernel: a choice by dtype in the wrapper.  CPU tensors run the plain
+    version and count no launch of either."""
+    q, kv = (torch.zeros((1, h, 8, 64), dtype=dtype) for h in (4, 2))
+    assert tflash.Call(q, kv, kv, 0).variant == variant
+    tflash.reset_launch_count()
+    tflash.flash_attention(q, kv, kv)
+    assert tflash.launch_count_by_variant() == {"sm90_bf16": 0,
+                                                "fma_fp32": 0}
+    assert tflash.launch_count() == 0
+
+
+def strided(strides, dtype=torch.bfloat16, offset=0, shape=(2, 4, 8, 64)):
+    """A (b, h, s, d) view of a flat buffer with the given strides."""
+    buf = torch.zeros(offset + 8 * 4 * 8 * 272, dtype=dtype)
+    return buf.as_strided(shape, strides, offset)
+
+
+# (b, h, s, d) strides of a (B, S, H, D) view, then one flaw each: the
+# base 2 bytes past alignment; s, h or b strides of 520, 136, 4104 bytes
+TMA_CASES = [(dict(strides=(2048, 64, 256, 1), offset=1), "base address"),
+             (dict(strides=(2080, 64, 260, 1)), "s stride 260"),
+             (dict(strides=(2176, 68, 272, 1)), "h stride 68"),
+             (dict(strides=(2052, 64, 256, 1)), "b stride 2052")]
+
+
+@pytest.mark.parametrize("kwargs,msg", TMA_CASES)
+@pytest.mark.parametrize("which", ["q", "k"])
+def test_bf16_call_refuses_what_tma_cannot_read(kwargs, msg, which):
+    """The bf16 kernel reads q, k and v by TMA: a 16-byte aligned base and
+    b, h, s strides of whole 16 bytes, checked by Call before any launch
+    (so here, without a card).  The fp32 kernel has no such limit."""
+    good = strided((2048, 64, 256, 1))
+    bad = strided(**kwargs)
+    args = (bad, good, good) if which == "q" else (good, bad, good)
+    with pytest.raises(ValueError, match=f"{which}'s {msg}"):
+        tflash.Call(*args, 0)
+    assert tflash.Call(*(x.float() for x in args), 0).variant == "fma_fp32"
+    # an axis of length 1 takes any stride
+    one = strided((7, 64, 256, 1), shape=(1, 4, 8, 64))
+    tflash.Call(one, one, one, 0)
+
+
 # ---------------------------------------------------------------------------
 # The dense decoder
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ from repro import serve as jserve
 from repro.kernels.policy import KernelPolicy as JPolicy
 from repro.selection import types as jtypes
 from repro_torch import convert
-from repro_torch.io import coo_to_bcsr, ingest_tsv, manifest_of
+from repro_torch.io import coo_to_bcsr, ingest_npz, ingest_tsv, manifest_of
 from repro_torch.kernels.policy import KernelPolicy
 from repro_torch.launch import rescalk_run
 from repro_torch.launch import serve as tserve
@@ -76,6 +76,60 @@ def test_ingest_tsv_matches_repro(tmp_path, chunk):
     assert vocab.entities == jvocab.entities
     assert vocab.relations == jvocab.relations
     assert coo.nnz < 10 + sum(1 for _ in open(path))   # duplicates summed
+
+
+def write_npz(path, n=50, m=3, nnz=200, seed=0, **extra):
+    """A seeded pre-numbered COO file with repeated coordinates, its ids
+    below n and m (the largest entity id below n - 1 when n > 40)."""
+    rng = np.random.default_rng(seed)
+    arrays = dict(row=rng.integers(0, min(n, 40), nnz),
+                  rel=rng.integers(0, m, nnz),
+                  col=rng.integers(0, min(n, 40), nnz),
+                  val=rng.random(nnz, np.float32))
+    arrays.update(extra)
+    np.savez(path, **arrays)
+    return str(path)
+
+
+def assert_same_coo(coo, jcoo):
+    assert (coo.n, coo.m, coo.nnz) == (jcoo.n, jcoo.m, jcoo.nnz)
+    for name in ("rels", "rows", "cols", "vals"):
+        np.testing.assert_array_equal(getattr(coo, name),
+                                      getattr(jcoo, name))
+
+
+@pytest.mark.parametrize("dims", [dict(), dict(n=50), dict(n=50, m=5)])
+def test_ingest_npz_declared_dims_match_repro(tmp_path, dims):
+    """Declared dimensions override the inferred ones, as in repro: the
+    file's largest id is below n - 1, so n = 50 gives a larger tensor."""
+    path = write_npz(tmp_path / "x.npz")
+    coo = ingest_npz(path, chunk=64, **dims)
+    assert_same_coo(coo, jio.ingest_npz(path, chunk=64, **dims))
+    assert coo.n == dims.get("n", 40)
+
+
+@pytest.mark.parametrize("dims,bad", [
+    (dict(n=30), {}),                                  # ids >= declared n
+    (dict(n=50, m=2), {}),                             # rel >= declared m
+    (dict(), dict(row=np.full(200, -1))),              # a negative id
+])
+def test_ingest_npz_out_of_bounds_raises_as_repro(tmp_path, dims, bad):
+    path = write_npz(tmp_path / "x.npz", **bad)
+    msg = "coordinate out of bounds for declared"
+    with pytest.raises(ValueError, match=msg):
+        jio.ingest_npz(path, **dims)
+    with pytest.raises(ValueError, match=msg):
+        ingest_npz(path, **dims)
+
+
+@pytest.mark.parametrize("dims", [dict(), dict(n=7, m=2)])
+def test_ingest_npz_empty_file_matches_repro(tmp_path, dims):
+    path = tmp_path / "empty.npz"
+    np.savez(path, row=np.zeros(0, np.int64), rel=np.zeros(0, np.int64),
+             col=np.zeros(0, np.int64))
+    coo = ingest_npz(str(path), **dims)
+    assert_same_coo(coo, jio.ingest_npz(str(path), **dims))
+    assert (coo.n, coo.m) == (dims.get("n", 0), dims.get("m", 0))
 
 
 def test_manifest_of_matches_repro(tmp_path):
