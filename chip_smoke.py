@@ -11,12 +11,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      library's build time on a line of its own) and print the card's
      name and power limit.
   2. Hold each kernel against its plain PyTorch version on the card.  The
-     BCSR kernels: at edge shapes (bs not dividing n, empty block rows and
-     cols, nnzb == 0, k in {3, 16}, r in {1, 4}) and at the sweep's shape
-     with k = 8, to a relative Frobenius error <= 1e-5 and max |diff| <=
-     1e-4 * max |ref| (XTB's atomics and the plain version's sums add in
-     different orders).  Times kernel, plain version and, for bcsr_spmm,
-     the ``torch.sparse_bsr_tensor @ B`` yardstick with CUDA events.
+     BCSR kernels: at edge shapes (bs in {32, 64, 96, 128}, bs not dividing
+     n, empty block rows and cols, one block row of 44 blocks beside empty
+     ones, nnzb == 0, k in {1, 3, 4, 5, 8, 9, 12, 16, 33, 64}, r in {1, 4},
+     shared data with r operand members), to a relative Frobenius error
+     <= 1e-5 and max |diff| <= 1e-4 * max |ref| (XTB's atomics and the
+     plain version's sums add in different orders); empty block rows and
+     cols exactly zero; bcsr_xa_xta's XA bit-identical across two calls.
+     bcsr_xa_xta then on the sweep's operands (r = 4 members, m = 8, n =
+     131072, bs = 128, 13.1 GB of stored blocks, B1 = B2 = A) at k = 4 and
+     5, the largest rank of each of its builds (4 and 8 columns) that the
+     sweep runs, and at k = 8, the shape earlier PRs reported, held, XA
+     compared across two calls, and timed; the kernels line reports k = 5.
+     bcsr_spmm at that shape with k = 8.  Times kernel, plain version and,
+     for bcsr_spmm, the ``torch.sparse_bsr_tensor @ B`` yardstick with CUDA
+     events.
      score_topk: n in {1, 5, 1000, 3000}, b in {1, 32, 128}, k in {3, 32},
      topk in {1, 10, 100, 1024}, held as a top-k (``topk_check``), and
      exact-tie cases (integer factors, rows of A repeated; n = 500, and
@@ -159,6 +168,11 @@ TOPK_TOL = 1e-5
 
 FULL = dict(n=131072, m=8, bs=128, off_density=0.005, fill=0.02,
             k_min=2, k_max=5, r=4, iters=300, seed=0)
+# bcsr_xa_xta on the BCSR sweep's operands: ranks 2..4 run the kernel's
+# 4-column build and rank 5 its 8-column build, so each is timed at its
+# largest rank in the sweep (the kernels line reports k = 5); k = 8 is the
+# shape earlier PRs reported
+BCSR_KS = (4, 5, 8)
 # the serve phase's stream, and score_topk's serving-scale timing shape
 SERVE = dict(queries="random:4096:1.1", batch=32, topk=10, requests=16,
              mode="mixed", seed=0)
@@ -282,13 +296,18 @@ def pattern_bcsr(rows, cols, n, bs, m, r, gen, dev):
 
 
 def check_edges(dev) -> None:
-    """Both kernels at the edge shapes, against their plain versions."""
+    """Both kernels at the edge shapes, against their plain versions; XA
+    bit-identical across two calls; empty block rows and cols exactly
+    zero."""
     import torch
     from repro_torch.kernels import bcsr_fused, bcsr_spmm, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    # nb = 5: block rows 1 and 3 and block cols 0 and 4 store nothing
+    # nb = 5 (or 7): block rows 1 and 3 and block cols 0 and 4 store nothing
     gappy = ([0, 0, 2, 2, 4], [1, 3, 1, 2, 3])
+    # nb = 47: block row 0 holds 44 blocks, rows 1-2 and 4-45 none, block
+    # cols 44 and 45 none (uneven work per block row)
+    uneven = ([0] * 44 + [3, 3, 46], list(range(44)) + [0, 5, 46])
     cases = [  # (n, bs, pattern, k, data members, operand members)
         (600, 128, gappy, 3, None, None),      # bs does not divide n
         (600, 128, gappy, 16, 4, 4),           # r = 4, k = 16
@@ -296,6 +315,16 @@ def check_edges(dev) -> None:
         (160, 32, gappy, 16, None, 4),         # shared data, r = 4 operand
         (256, 128, ([], []), 3, None, None),   # nnzb == 0
         (256, 128, ([], []), 16, 4, 4),
+        (6000, 128, uneven, 5, 4, 4),          # 44 blocks beside empty rows
+        (6000, 128, uneven, 8, None, 4),       # the same, shared data
+        (300, 64, gappy, 5, None, None),       # bs = 64
+        (300, 64, gappy, 4, 4, 4),
+        (450, 96, gappy, 9, 4, 4),             # bs = 96, two k-slices
+        (450, 96, gappy, 8, None, 4),
+        (600, 128, gappy, 1, None, 4),         # k = 1, shared data
+        (600, 128, gappy, 12, 4, 4),           # k = 12: a half-full k-slice
+        (600, 128, gappy, 33, 4, 4),           # k = 33: five k-slices
+        (200, 32, gappy, 64, None, 4),         # k = 64, shared data
     ]
     for n, bs, (rows, cols), k, dr, br in cases:
         sp = pattern_bcsr(rows, cols, n, bs, 3, dr, gen, dev)
@@ -303,6 +332,7 @@ def check_edges(dev) -> None:
         B1 = torch.rand(shape, generator=gen, device=dev)
         B2 = torch.rand(shape, generator=gen, device=dev)
         xa, xt = bcsr_fused.bcsr_xa_xta(sp, B1, B2)
+        xa2, _ = bcsr_fused.bcsr_xa_xta(sp, B1, B2)
         sa = bcsr_spmm.bcsr_spmm(sp, B1)
         torch.cuda.synchronize()
         ra, rt = ref.ref_bcsr_xa_xta(sp, B1, B2)
@@ -310,6 +340,8 @@ def check_edges(dev) -> None:
         compare(f"bcsr_xa_xta XA [{tag}]", xa, ra)
         compare(f"bcsr_xa_xta XTB [{tag}]", xt, rt)
         compare(f"bcsr_spmm [{tag}]", sa, ra)
+        require(torch.equal(xa, xa2), f"bcsr_xa_xta XA differs between two "
+                                      f"calls [{tag}]")
         nb = -(-n // bs)
         for i in range(nb):
             sl = slice(i * bs, min((i + 1) * bs, n))
@@ -400,7 +432,7 @@ def phase_kernels(dev) -> list[dict]:
     check_edges(dev)
 
     cfg = FULL
-    n, m, bs, r, k = cfg["n"], cfg["m"], cfg["bs"], cfg["r"], 8
+    n, m, bs, r = cfg["n"], cfg["m"], cfg["bs"], cfg["r"]
     _, rows, cols = main_pattern(n, bs, cfg["off_density"], cfg["seed"])
     nnzb = len(rows)
     gen = torch.Generator(device=dev)
@@ -411,26 +443,45 @@ def phase_kernels(dev) -> list[dict]:
     # the MU step's operand: r perturbed members, factors (r, n, k)
     sp_r = BCSR(data=torch.rand((r, m, nnzb, bs, bs), generator=gen,
                                 device=dev), **idx)
-    A_r = torch.rand((r, n, k), generator=gen, device=dev)
     log(f"[kernels] main-path shape: r={r} m={m} nnzb={nnzb} bs={bs} n={n} "
-        f"k={k} ({sp_r.data.numel() * 4 / 1e9:.2f} GB of stored blocks)")
-    xa, xt = bcsr_fused.bcsr_xa_xta(sp_r, A_r, A_r)
-    torch.cuda.synchronize()
-    ra, rt = ref.ref_bcsr_xa_xta(sp_r, A_r, A_r)
-    err_f = max(compare("bcsr_xa_xta XA [main]", xa, ra),
-                compare("bcsr_xa_xta XTB [main]", xt, rt))
-    del xa, xt, ra, rt
+        f"k in {BCSR_KS} ({sp_r.data.numel() * 4 / 1e9:.2f} GB of stored "
+        f"blocks)")
     T = r * m
-    f_bytes = sp_r.data.numel() * 4 + 2 * A_r.numel() * 4 + 2 * T * n * k * 4
-    f_flops = T * nnzb * bs * bs * 4 * k
-    f_ms = cuda_ms(lambda: bcsr_fused.bcsr_xa_xta(sp_r, A_r, A_r), reps=10)
-    f_plain = cuda_ms(lambda: ref.ref_bcsr_xa_xta(sp_r, A_r, A_r), reps=3,
-                      warmup=1)
-    f_bound, f_by = bound(f_bytes, f_flops)
-    del sp_r, A_r
+    by_k = {}
+    for k in BCSR_KS:
+        A_r = torch.rand((r, n, k), generator=gen, device=dev)
+        xa, xt = bcsr_fused.bcsr_xa_xta(sp_r, A_r, A_r)
+        xa2, _ = bcsr_fused.bcsr_xa_xta(sp_r, A_r, A_r)
+        torch.cuda.synchronize()
+        require(torch.equal(xa, xa2), f"bcsr_xa_xta XA differs between two "
+                                      f"calls [main, k={k}]")
+        del xa2
+        ra, rt = ref.ref_bcsr_xa_xta(sp_r, A_r, A_r)
+        err = max(compare(f"bcsr_xa_xta XA [main, k={k}]", xa, ra),
+                  compare(f"bcsr_xa_xta XTB [main, k={k}]", xt, rt))
+        del xa, xt, ra, rt
+        f_bytes = (sp_r.data.numel() * 4 + 2 * A_r.numel() * 4
+                   + 2 * T * n * k * 4)
+        f_flops = T * nnzb * bs * bs * 4 * k
+        ms = cuda_ms(lambda: bcsr_fused.bcsr_xa_xta(sp_r, A_r, A_r), reps=10)
+        plain = cuda_ms(lambda: ref.ref_bcsr_xa_xta(sp_r, A_r, A_r), reps=3,
+                        warmup=1)
+        b_ms, by = bound(f_bytes, f_flops)
+        by_k[k] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=by)
+        log(f"[kernels] bcsr_xa_xta at k={k}: kernel {ms:.3f} ms "
+            f"({100 * b_ms / ms:.1f}% of the bound), plain {plain:.3f} ms, "
+            f"bound {b_ms:.3f} ms ({by}), max |diff| {err:.3e}, XA "
+            f"bit-identical across calls")
+        del A_r
+    log(f"[kernels] bcsr_xa_xta at k=8: {by_k[8]['ms']:.3f} ms (PR 16's "
+        f"kernel: 8.322 ms)")
+    del sp_r
     torch.cuda.empty_cache()
 
-    # the error / regression operand: the unperturbed tensor, A (n, k)
+    # the error / regression operand: the unperturbed tensor, A (n, k), at
+    # the k = 8 of earlier PRs' rows
+    k = 8
     sp = BCSR(data=torch.rand((m, nnzb, bs, bs), generator=gen, device=dev),
               **idx)
     A = torch.rand((n, k), generator=gen, device=dev)
@@ -463,8 +514,7 @@ def phase_kernels(dev) -> list[dict]:
         dict(name="bcsr_xa_xta", route="cuda",
              source="src/repro_torch/kernels/csrc/bcsr_fused.cu",
              replaces="src/repro/kernels/bcsr_fused.py:123",
-             launches=0, max_abs_err=err_f, ms=f_ms, plain_ms=f_plain,
-             bound_ms=f_bound, bound_by=f_by, library_ms=None),
+             launches=0, library_ms=None, **by_k[FULL["k_max"]]),
         dict(name="bcsr_spmm", route="cuda",
              source="src/repro_torch/kernels/csrc/bcsr_spmm.cu",
              replaces="src/repro/kernels/bcsr_spmm.py:89",

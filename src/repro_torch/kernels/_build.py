@@ -42,8 +42,7 @@ SIGNATURES = {
                         _P],
     "repro_flash_attention": _FLASH,        # fp32, FMA
     "repro_flash_attention_sm90": _FLASH,   # bf16, tensor cores
-    "repro_bcsr_xa_xta": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _L, _L, _P],
+    "repro_bcsr_xa_xta": [_P] * 7 + [_I] * 8 + [_L] * 3 + [_P],
     "repro_fused_xa_xtb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
                            _L, _L, _I, _P],
     "repro_mu_update_a": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _F, _P],

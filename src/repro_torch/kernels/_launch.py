@@ -83,8 +83,10 @@ class Launch:
         divide n)."""
         return pad_rows(B, self.sp.n, self.sp.n_pad)
 
-    def empty(self, zero: bool = False) -> torch.Tensor:
-        shape = (self.T, self.sp.n_pad, self.k)
+    def empty(self, zero: bool = False, cols: int | None = None
+              ) -> torch.Tensor:
+        """A (T, n_pad, cols or k) float32 output."""
+        shape = (self.T, self.sp.n_pad, cols or self.k)
         dev = self.sp.data.device
         return (torch.zeros if zero else torch.empty)(
             shape, dtype=torch.float32, device=dev)

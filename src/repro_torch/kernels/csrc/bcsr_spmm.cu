@@ -69,7 +69,7 @@ template <int KMAX>
 cudaError_t launch_spmm(const float* data, const int* row_ptr, const int* cols,
                    const float* B, float* out, int T, Shape sh,
                    cudaStream_t stream) {
-  const int smem = smem_floats<KMAX>(sh.bs, false) * (int)sizeof(float);
+  const int smem = smem_floats<KMAX>(sh.bs) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       spmm_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -1,4 +1,4 @@
-// Shared pieces of the BCSR kernels (bcsr_spmm.cu, bcsr_fused.cu).
+// Pieces of the BCSR product kernel (bcsr_spmm.cu).
 //
 // Layout (core/sparse.py): stored blocks data[t][z] are (bs, bs) row-major
 // float32; the blocks of block-row i are z in [row_ptr[i], row_ptr[i+1]),
@@ -8,11 +8,11 @@
 // One CTA owns one (t, block-row i) and has bs threads: thread a owns
 // output row a of the block-row.  Each stored block is staged through
 // shared memory in column strips of STRIP columns (all bs rows), padded
-// to STRIP + 1 floats per row so that both a row-wise walk (thread a reads
-// ds[a][b]) and a column-wise walk (lane b reads ds[a][b]) are free of
-// bank conflicts.  The operand's (bs, k) row tiles are staged zero-padded
-// to KMAX columns, KMAX a compile-time bound >= k, so the inner loops are
-// unrolled and the padding columns are computed and never stored.
+// to STRIP + 1 floats per row so that the row-wise walk (thread a reads
+// ds[a][b]) is free of bank conflicts.  The operand's (bs, k) row tiles
+// are staged zero-padded to KMAX columns, KMAX a compile-time bound >= k,
+// so the inner loops are unrolled and the padding columns are computed
+// and never stored.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -88,9 +88,8 @@ __device__ __forceinline__ void row_times_tile(float (&acc)[KMAX],
 
 // Dynamic shared memory of one CTA, in floats.
 template <int KMAX>
-constexpr int smem_floats(int bs, bool fused) {
-  return bs * DPAD + bs * KMAX +
-         (fused ? bs * KMAX + (bs / 32) * STRIP * (KMAX + 1) : 0);
+constexpr int smem_floats(int bs) {
+  return bs * DPAD + bs * KMAX;
 }
 
 // Dispatch a launcher templated on KMAX to the smallest bound >= k.

@@ -73,6 +73,67 @@ def test_kernels_match_plain_versions_on_card(cuda, n, bs, density, k, r):
         assert rel_err(got, ref) <= 1e-5
 
 
+# block patterns (rows, cols), row-major: GAPPY leaves block rows 1 and 3
+# and block cols 0 and 4 empty; UNEVEN puts 44 blocks in block row 0 beside
+# empty rows 1-2 and 4-45 (nb = 47), block cols 44 and 45 empty
+GAPPY = ([0, 0, 2, 2, 4], [1, 3, 1, 2, 3])
+UNEVEN = ([0] * 44 + [3, 3, 46], list(range(44)) + [0, 5, 46])
+# (n, bs, pattern, k, data members, operand members): uneven work per
+# block row, bs 64 and 96, k from 1 to 64 (one to eight 8-column slices),
+# shared data with r operand members
+BCSR_EDGE_CASES = [(6000, 128, UNEVEN, 5, 4, 4),
+                   (6000, 128, UNEVEN, 8, None, 4),
+                   (300, 64, GAPPY, 5, None, None),
+                   (450, 96, GAPPY, 9, 4, 4),
+                   (600, 128, GAPPY, 1, None, 4),
+                   (600, 128, GAPPY, 4, None, None),
+                   (600, 128, GAPPY, 33, 4, 4),
+                   (200, 32, GAPPY, 64, None, 4)]
+
+
+def pattern_bcsr(pattern, n, bs, m, members, rng, device):
+    """A BCSR over the given block pattern with uniform values, zero in
+    the padded tail; member-stacked when ``members`` is not None."""
+    rows, cols = (np.asarray(x, dtype=np.int64) for x in pattern)
+    nb = -(-n // bs)
+    lead = (members, m) if members is not None else (m,)
+    data = rng.random(lead + (len(rows), bs, bs), dtype=np.float32)
+    valid = (np.arange(nb * bs) < n).astype(np.float32).reshape(nb, bs)
+    data *= valid[rows][:, :, None] * valid[cols][:, None, :]
+    return tsp.BCSR(data=torch.from_numpy(data).to(device),
+                    block_rows=torch.from_numpy(rows.astype(np.int32)).to(
+                        device),
+                    block_cols=torch.from_numpy(cols.astype(np.int32)).to(
+                        device), n=n)
+
+
+@pytest.mark.parametrize("n,bs,pattern,k,dr,br", BCSR_EDGE_CASES)
+def test_bcsr_xa_xta_edges_on_card(cuda, n, bs, pattern, k, dr, br):
+    """Relative Frobenius error <= 1e-5 against the plain version (XTB's
+    atomics add in no fixed order); XA bit-identical across two calls;
+    block rows and cols that store nothing exactly zero."""
+    rng = np.random.default_rng(n + k)
+    sp = pattern_bcsr(pattern, n, bs, 3, dr, rng, cuda)
+    shape = (br, n, k) if br is not None else (n, k)
+    B1 = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)
+    B2 = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)
+    ops.reset_launch_counts()
+    xa, xt = bcsr_fused.bcsr_xa_xta(sp, B1, B2)
+    xa2, _ = bcsr_fused.bcsr_xa_xta(sp, B1, B2)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bcsr_xa_xta"] == 2
+    assert torch.equal(xa, xa2)
+    ra, rt = tref.ref_bcsr_xa_xta(sp, B1, B2)
+    assert rel_err(xa, ra) <= 1e-5 and rel_err(xt, rt) <= 1e-5
+    rows, cols = pattern
+    for i in range(-(-n // bs)):
+        sl = slice(i * bs, min((i + 1) * bs, n))
+        if i not in rows:
+            assert not xa[..., sl, :].any()
+        if i not in cols:
+            assert not xt[..., sl, :].any()
+
+
 def test_cuda_impl_launches_and_ref_impl_does_not(cuda):
     t = tsp.random_bcsr(np.random.default_rng(0), m=2, n=128, bs=32,
                         block_density=0.3, device=cuda)

@@ -172,10 +172,16 @@ def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
 
 
 def _launch_args(*, k=4, bs=32, dtype=torch.float32, operand_members=None,
-                 transpose=False):
+                 transpose=False, misaligned=False):
     rng = np.random.default_rng(9)
     t = tsp.random_bcsr(rng, m=2, n=70, bs=bs, block_density=0.5,
                         device="cpu")
+    if misaligned:          # contiguous, but 4 bytes past a 16-byte boundary
+        buf = torch.empty(t.data.numel() + 4)
+        off = (-(buf.data_ptr() // 4) + 1) % 4
+        data = buf[off:off + t.data.numel()].view(t.data.shape)
+        data.copy_(t.data)
+        t = t.with_data(data)
     shape = (70, k) if operand_members is None else (operand_members, 70, k)
     B = torch.rand(shape, dtype=dtype)
     if transpose:
@@ -188,6 +194,7 @@ def _launch_args(*, k=4, bs=32, dtype=torch.float32, operand_members=None,
     (dict(bs=16), ValueError, "block size 16"),
     (dict(dtype=torch.float64), TypeError, "float32"),
     (dict(transpose=True), ValueError, "contiguous"),
+    (dict(misaligned=True), ValueError, "16-byte aligned"),
     (dict(), ValueError, "one CUDA device"),
 ])
 @pytest.mark.parametrize("kernel", ["bcsr_xa_xta", "bcsr_spmm"])
@@ -195,12 +202,49 @@ def test_wrapper_checks_reject_what_the_kernels_cannot_take(kernel, kwargs,
                                                             error, match):
     """The checks a CUDA launch passes first: the shared-memory layout's
     limits (k <= 64, bs a multiple of 32 up to 128), float32, contiguity,
+    stored blocks 16-byte aligned (bcsr_xa_xta reads them by bulk copy),
     and every tensor on one CUDA device."""
     from repro_torch.kernels._launch import Launch
     t, B = _launch_args(**kwargs)
     operands = (B, B) if kernel == "bcsr_xa_xta" else (B,)
     with pytest.raises(error, match=match):
         Launch(kernel, t, *operands)
+
+
+@pytest.mark.parametrize("k,members,bs,n", [(1, None, 32, 70), (4, 3, 64, 130),
+                                            (5, 2, 32, 64), (12, None, 96, 200),
+                                            (33, 4, 128, 130)])
+def test_operand_tiles_are_the_kernels_layout(k, members, bs, n):
+    """bcsr_xa_xta's operand layout: k-slices of 4 (k <= 4) or 8 columns,
+    outermost; zero-padded rows and columns; in each (bs, kc) row tile the
+    16-byte slot s at s ^ ((s >> 3) & 7), which puts the 4-row reads of
+    eight consecutive 4-column chunks (a quarter-warp's B1 reads) on eight
+    different bank groups."""
+    rng = np.random.default_rng(k)
+    shape = (n, k) if members is None else (members, n, k)
+    B = torch.from_numpy(rng.random(shape, dtype=np.float32))
+    n_pad = -(-n // bs) * bs
+    kc = bcsr_fused.slice_width(k)
+    assert kc == (4 if k <= 4 else 8)
+    tiles = bcsr_fused.operand_tiles(B, bs, n_pad, kc)
+    slices = -(-k // kc)
+    assert tiles.shape == (slices, members or 1, n_pad, kc)
+    assert tiles.is_contiguous()
+    slots = bs * kc // 4
+    s = torch.arange(slots)
+    phys = s ^ ((s >> 3) & 7)
+    flat = tiles.reshape(slices, members or 1, n_pad // bs, slots, 4)
+    logical = torch.empty_like(flat)
+    logical[..., s, :] = flat[..., phys, :]
+    want = torch.zeros((members or 1, n_pad, slices * kc))
+    want[:, :n, :k] = B if members is not None else B[None]
+    got = logical.reshape(slices, members or 1, n_pad, kc)
+    assert torch.equal(torch.cat(list(got), dim=-1), want)
+    for j in range(4):
+        for h in range(kc // 4):
+            chunk_reads = [int(phys[(4 * q + j) * (kc // 4) + h]) % 8
+                           for q in range(min(8, bs // 4))]
+            assert len(set(chunk_reads)) == len(chunk_reads)
 
 
 def test_wrapper_rejects_mismatched_member_counts():
