@@ -27,12 +27,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      for bcsr_spmm, the ``torch.sparse_bsr_tensor @ B`` yardstick with CUDA
      events.
      score_topk: n in {1, 5, 1000, 3000}, b in {1, 32, 128}, k in {3, 32},
-     topk in {1, 10, 100, 1024}, held as a top-k (``topk_check``), and
+     topk in {1, 10, 32, 33, 100, 257, 1024} (every list width the kernel
+     builds, and its boundaries), held as a top-k (``topk_check``), and
      exact-tie cases (integer factors, rows of A repeated; n = 500, and
-     n = 40000, where chunks hold several tiles) whose indices must equal
-     the plain version's.  Timed at the serving-scale shape
-     b = 128, n = 4194304, k = 32, topk = 32 beside the plain version and
-     the ``torch.topk(V @ A.T, topk)`` yardstick.
+     n = 40000, where chunks hold several tiles; topk up to 100) whose
+     indices must equal the plain version's.  Timed at the serving-scale
+     shape b = 128, n = 4194304, k = 32, topk = 32 (the seeded path: a
+     first launch over n / 16 rows, then the full one) beside the plain
+     version and the ``torch.topk(V @ A.T, topk)`` yardstick, with each
+     stage's device time per call from ``torch.profiler``; the same at
+     the serve path's shape (b = 32, n = 131072, k = 3, topk = 10) on
+     random factors.
      fused_xa_xtb: n1 != n2 with n in {1, 37, 1000} (no tile multiple),
      m = 1 (the sliced schedule's call, a slice view of X), k in {1, 3, 5,
      16, 64}, r in {1, 4}, B2 broadcast over m (stride 0), n2 odd and
@@ -46,9 +51,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      {1, 4}, S per member or shared (stride 0), padded cells whose masked
      columns must stay exact zeros, and k = 65 refused; then held and timed
      beside its plain version at the BCSR sweep's shape (r = 4, n =
-     131072, k = 5) and the dense sweeps' (r = 4, n = 16384, k = 5), with
-     its device time per launch from ``torch.profiler``; the kernels line
-     reports the dense shape.
+     131072, k = 5) and the dense sweeps' (r = 4, n = 16384, k = 5), per
+     call for both shapes first, then its device time per launch from
+     ``torch.profiler``; the kernels line reports the dense shape.
   3. Run the RESCALk sweep through the CLI's own entry point
      (``repro_torch.launch.rescalk_run.main``) at full size on a seeded
      planted COO file: n = 131072 entities, m = 8 relations, bs = 128, the
@@ -72,9 +77,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Again with --impl ref: identical stats(), and every answer of both
      runs passes ``topk_check``.  Then
      score_topk is timed at the serve path's own shape (b = 32, the
-     bundle's A) beside its plain version and the yardstick, and the
-     stream is served once more under ``torch.profiler`` (the device's
-     idle share and its time by kernel).
+     bundle's A) beside its plain version and the yardstick, with each
+     stage's device time per call, and the stream is served once more
+     under ``torch.profiler`` (the device's idle share and its time by
+     kernel).
   6. The dense grid sweep on a 1 x 1 ``torch.distributed`` grid over a
      one-rank NCCL group (``launch.mesh.make_grid``): ``rescalk(X, cfg,
      grid=grid)`` on X from the port's ``synthetic_rescal`` built on the
@@ -177,6 +183,9 @@ BCSR_KS = (4, 5, 8)
 SERVE = dict(queries="random:4096:1.1", batch=32, topk=10, requests=16,
              mode="mixed", seed=0)
 TOPK_SCALE = dict(b=128, n=4194304, k=32, topk=32)
+# score_topk at the serve path's shape on random factors (phase 5 times it
+# on the bundle's)
+TOPK_SERVE = dict(b=32, n=131072, k=3, topk=10)
 # the dense grid sweep (phase 6), and fused_xa_xtb's timing shape
 GRID = dict(n=16384, m=8, k_true=4, noise=0.01, seed=0, k_min=2, k_max=5,
             r=4, iters=300, regress_iters=100, sliced_iters=20, sliced_k=4)
@@ -370,10 +379,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, name: str, reps: int) -> float:
+def device_ms(fn, name, reps: int):
     """Mean device milliseconds per call of the kernels whose name holds
     ``name``, from ``torch.profiler`` over ``reps`` calls (0.0 when the
-    profiler records no device time)."""
+    profiler records no device time); a tuple of names gives a tuple of
+    times from the one session."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -382,9 +392,11 @@ def device_ms(fn, name: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if name in e.key)
-    return total / 1e3 / reps
+    events = prof.key_averages()
+    names = (name,) if isinstance(name, str) else name
+    ms = tuple(sum(e.device_time_total for e in events if n in e.key)
+               / 1e3 / reps for n in names)
+    return ms[0] if isinstance(name, str) else ms
 
 
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
@@ -697,7 +709,7 @@ def phase_mu(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     eps = 1e-16
-    row = None
+    cases = []
     for cfg in MU_SCALES:
         r, n, k = cfg["r"], cfg["n"], cfg["k"]
         A = torch.rand((r, n, k), generator=gen, device=dev)
@@ -707,23 +719,29 @@ def phase_mu(dev) -> dict:
         torch.cuda.synchronize()
         err = compare(f"mu_update_a [r={r} n={n} k={k}]", got,
                       ref.ref_mu_update_a(A, Num, S, eps))
-        ms = cuda_ms(lambda: mu.mu_update_a(A, Num, S, eps), reps=200)
-        plain = cuda_ms(lambda: ref.ref_mu_update_a(A, Num, S, eps),
-                        reps=200)
-        dev_ms = device_ms(lambda: mu.mu_update_a(A, Num, S, eps),
+        cases.append((cfg, (A, Num, S), err))
+    # times per call for every shape first, then the profiled device times
+    times = [(cuda_ms(lambda: mu.mu_update_a(*x, eps), reps=200),
+              cuda_ms(lambda: ref.ref_mu_update_a(*x, eps), reps=200))
+             for _, x, _ in cases]
+    row = None
+    for (cfg, x, err), (ms, plain) in zip(cases, times):
+        r, n, k = cfg["r"], cfg["n"], cfg["k"]
+        dev_ms = device_ms(lambda: mu.mu_update_a(*x, eps),
                            "mu_update_a_kernel", reps=50)
-        b_ms, by = bound(4 * (3 * A.numel() + S.numel()),
-                         (2 * k + 2) * A.numel())
+        b_ms, by = bound(4 * (3 * x[0].numel() + x[2].numel()),
+                         (2 * k + 2) * x[0].numel())
         log(f"[mu] mu_update_a at r={r} n={n} k={k}: kernel {ms:.4f} ms "
             f"per call ({dev_ms:.4f} ms on the device per launch, "
-            f"torch.profiler), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-            f"({by}), max |diff| {err:.3e}")
+            f"torch.profiler; {100 * b_ms / dev_ms:.1f}% of the bound), "
+            f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by}), max |diff| "
+            f"{err:.3e}")
         row = dict(name="mu_update_a", route="cuda",
                    source="src/repro_torch/kernels/csrc/mu_update_a.cu",
                    replaces="src/repro/kernels/mu_ratio.py:43",
                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
                    bound_ms=b_ms, bound_by=by, library_ms=None)
-        del A, Num, S, got
+    del cases, x
     torch.cuda.empty_cache()
     return row
 
@@ -775,20 +793,31 @@ def topk_check(name: str, V64, A64, s, i, ref_s) -> float:
 
 def time_topk(V, A, topk: int, reps: int, plain_reps: int) -> dict:
     """score_topk kernel, plain version and yardstick times on (V, A), with
-    the bound from this call's bytes and operations."""
+    the bound from this call's bytes and operations and the device time of
+    each of the kernel's two launches (stage 1 and stage 2)."""
     import torch
     from repro_torch.kernels import ref, score_topk
     b, k = V.shape
     n = A.shape[0]
-    ms = cuda_ms(lambda: score_topk.score_topk(V, A, topk=topk), reps=reps)
+
+    def run():
+        return score_topk.score_topk(V, A, topk=topk)
+
+    ms = cuda_ms(run, reps=reps)
+    stage1, stage2 = device_ms(run, ("stopk::chunk_kernel",
+                                     "stopk::merge_kernel"), reps=20)
     plain = cuda_ms(lambda: ref.ref_score_topk_stream(V, A, topk),
                     reps=plain_reps, warmup=1)
     lib = cuda_ms(lambda: torch.topk(V @ A.T, topk, dim=1), reps=reps)
     nbytes = 4 * (n * k + b * k) + 8 * b * topk
     bound_ms, by = bound(nbytes, 2 * b * n * k)
-    log(f"[score_topk] b={b} n={n} k={k} topk={topk}: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, torch.topk(V @ A.T) {lib:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({by})")
+    busy = stage1 + stage2
+    log(f"[score_topk] b={b} n={n} k={k} topk={topk}: kernel {ms:.4f} ms "
+        f"per call ({stage1:.4f} + {stage2:.4f} = {busy:.4f} ms on the "
+        f"device, stage 1 + stage 2, torch.profiler), plain {plain:.4f} "
+        f"ms, torch.topk(V @ A.T) {lib:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({by}; {100 * bound_ms / ms:.1f}% of it per call, "
+        f"{100 * bound_ms / busy if busy else 0.0:.1f}% on the device)")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
                 bound_by=by)
 
@@ -801,10 +830,12 @@ def phase_topk(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     cases = [(n, topk) for n, topk in ((1, 1), (1, 10), (5, 10), (1000, 1),
-                                       (1000, 10), (1000, 100))]
+                                       (1000, 10), (1000, 32), (1000, 33),
+                                       (1000, 100))]
     for b in (1, 32, 128):
         for k in (3, 32):
-            for n, topk in cases + ([(3000, 1024)] if b == 32 else []):
+            for n, topk in cases + ([(3000, 257), (3000, 1024)] if b == 32
+                                    else []):
                 V = torch.rand((b, k), generator=gen, device=dev)
                 A = torch.rand((n, k), generator=gen, device=dev)
                 s, i = score_topk.score_topk(V, A, topk=topk)
@@ -817,7 +848,7 @@ def phase_topk(dev) -> dict:
     # A repeat every 250 rows.  At n = 500 each chunk is one tile; at
     # n = 40000 chunks hold several, so ties are also broken between a
     # full running list and a later tile's candidates
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = score_topk.sm_count(dev)
     base = torch.randint(0, 3, (250, 8), generator=gen, device=dev)
     for b, n in ((32, 500), (32, 40000), (128, 40000)):
         A = base[torch.arange(n, device=dev) % 250].float().contiguous()
@@ -825,7 +856,7 @@ def phase_topk(dev) -> dict:
         p = score_topk.plan(b, n, 8, 100, sms)
         require(n == 500 or p.chunk_rows > 256,
                 f"score_topk: the tie case b={b} n={n} has one-tile chunks")
-        for topk in (1, 10, 100):
+        for topk in (1, 10, 32, 33, 100):
             s, i = score_topk.score_topk(V, A, topk=topk)
             rs, ri = ref.ref_score_topk_stream(V, A, topk)
             require(torch.equal(s, rs) and torch.equal(i, ri),
@@ -847,6 +878,10 @@ def phase_topk(dev) -> dict:
     time_topk(V, A, cfg["topk"], reps=10, plain_reps=2)
     del V, A, s, i, rs
     torch.cuda.empty_cache()
+    cfg = TOPK_SERVE
+    V = torch.rand((cfg["b"], cfg["k"]), generator=gen, device=dev)
+    A = torch.rand((cfg["n"], cfg["k"]), generator=gen, device=dev)
+    time_topk(V, A, cfg["topk"], reps=50, plain_reps=5)
     return dict(name="score_topk", route="cuda",
                 source="src/repro_torch/kernels/csrc/score_topk.cu",
                 replaces="src/repro/kernels/score_topk.py:112",

@@ -46,9 +46,7 @@ SIGNATURES = {
     "repro_fused_xa_xtb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
                            _L, _L, _I, _P],
     "repro_mu_update_a": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _F, _P],
-    "repro_score_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P],
-    "repro_score_topk_plan": [_I, _I, _I, _I, _I, _P],
+    "repro_score_topk": [_P] * 8 + [_I] * 9 + [_P],
 }
 
 

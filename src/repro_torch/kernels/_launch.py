@@ -10,6 +10,13 @@ MAX_K = 64
 MAX_SLICES = 65535     # gridDim.y
 
 
+def stream_handle(device_index: int) -> int:
+    """The device's current stream as a cudaStream_t integer: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object (~8 us per launch on the H100's host)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 def rows_contiguous(x: torch.Tensor) -> bool:
     """The last two axes are row-major (strides of size-1 axes do not
     matter)."""

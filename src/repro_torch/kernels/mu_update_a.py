@@ -10,11 +10,22 @@ Source: ``csrc/mu_update_a.cu``.
 
 Bound on an H100: memory.  Each output reads one value of A and of Num
 and writes one value, at 2k + 2 flop per 12 bytes; the floor is 12 bytes
-per element over 3.35 TB/s (S is k*k floats per member).  Design: one
-thread per output element, each member's S staged in shared memory, the
-k-term dot in ascending j with ``fmaf``, then IEEE ``A * Num / (den +
-eps)`` in that order, as the Pallas kernel.  No panel grid: any n, tails
-included; offsets are 64-bit.
+per element over 3.35 TB/s (S is k*k floats per member besides).  Design
+(the source's header has it in full): one thread per row of A; a warp
+copies its 32 rows of A and Num, 32 k contiguous floats each, into
+shared memory by ``cp.async`` (16-byte chunks where aligned), the next
+tile's copies in flight while it computes this one; each member's S is
+staged once per CTA and read as float4 broadcasts; the thread keeps its
+row's k denominators in registers, each the k-term dot in ascending j
+with ``fmaf``, then IEEE ``A * Num / (den + eps)`` in that order, as the
+Pallas kernel; the results leave by coalesced stores.  A grid-stride
+grid sized to the card; any n, tails included.
+
+The host path is short, since a call costs its host work more than the
+card's (microseconds at the sweeps' shapes): ``checked`` validates
+shapes, strides and dtype once per signature (a refusal raises on every
+call), and the device context is entered only when the tensors are not
+on the current device.
 
 The member axis is written out: A and Num ([r,] n, k), S ([r,] k, k); an
 S without the member axis (or with member stride 0) is shared by all
@@ -27,10 +38,13 @@ kernel or raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
-from ._launch import MAX_K, MAX_SLICES, member_stride, rows_contiguous
+from ._launch import (MAX_K, MAX_SLICES, member_stride, rows_contiguous,
+                      stream_handle)
 from .ref import ref_mu_update_a
 
 _launches = 0
@@ -82,14 +96,30 @@ class Call:
         self.strides = (member_stride(A, 2), member_stride(Num, 2),
                         member_stride(S, 2))
         self.shape = tuple(A.shape)
-        self.device = A.device
 
-    def require_cuda(self, *tensors: torch.Tensor) -> None:
-        if self.device.type != "cuda" or any(x.device != self.device
-                                             for x in tensors):
+    @staticmethod
+    def require_cuda(A: torch.Tensor, *tensors: torch.Tensor) -> None:
+        dev = A.device
+        if dev.type != "cuda" or any(x.device != dev for x in tensors):
             raise ValueError(
                 f"mu_update_a: every tensor must be on one CUDA device, "
-                f"got {sorted({str(x.device) for x in tensors})}")
+                f"got {sorted({str(x.device) for x in (A,) + tensors})}")
+
+
+@functools.lru_cache(maxsize=64)
+def _checked(*sigs) -> Call:
+    return Call(*(torch.empty_strided(shape, stride, dtype=dtype,
+                                      device="meta")
+                  for shape, stride, dtype in sigs))
+
+
+def checked(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor) -> Call:
+    """``Call(A, Num, S)``, built once per (shape, stride, dtype)
+    signature of the three; a signature the kernel refuses is not cached,
+    so it raises on every call."""
+    return _checked((A.shape, A.stride(), A.dtype),
+                    (Num.shape, Num.stride(), Num.dtype),
+                    (S.shape, S.stride(), S.dtype))
 
 
 def mu_update_a(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor,
@@ -98,18 +128,24 @@ def mu_update_a(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor,
     eps) ([r,] n, k), without forming A @ S.  An empty A returns an empty
     result without a launch."""
     global _launches
-    if all(x.device.type == "cpu" for x in (A, Num, S)):
+    dev = A.device
+    if dev.type == "cpu" and Num.device.type == "cpu" \
+            and S.device.type == "cpu":
         return ref_mu_update_a(A, Num, S, eps)
-    call = Call(A, Num, S)
-    call.require_cuda(A, Num, S)
-    out = torch.empty(call.shape, dtype=torch.float32, device=call.device)
+    call = checked(A, Num, S)
+    if dev.type != "cuda" or Num.device != dev or S.device != dev:
+        Call.require_cuda(A, Num, S)
+    out = torch.empty(call.shape, dtype=torch.float32, device=dev)
     if call.n == 0 or call.members == 0:
         return out
-    with torch.cuda.device(call.device):
-        rc = _build.library().repro_mu_update_a(
-            A.data_ptr(), Num.data_ptr(), S.data_ptr(), out.data_ptr(),
-            call.members, call.n, call.k, *call.strides, float(eps),
-            torch.cuda.current_stream().cuda_stream)
+    args = (A.data_ptr(), Num.data_ptr(), S.data_ptr(), out.data_ptr(),
+            call.members, call.n, call.k, *call.strides, float(eps))
+    launch = _build.library().repro_mu_update_a
+    if dev.index == torch.cuda.current_device():
+        rc = launch(*args, stream_handle(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = launch(*args, stream_handle(dev.index))
     _build.check(rc, "mu_update_a")
     _launches += 1
     return out

@@ -217,23 +217,85 @@ def test_score_topk_matches_plain_version_on_card(cuda, b, n, k, topk):
     (32, 131072, 3, 10), (128, 4194304, 32, 32), (1, 1, 3, 10),
     (5, 1000, 64, 1024), (300, 70000, 17, 100), (32, 40000, 8, 100)])
 def test_score_topk_plan_covers_the_work(cuda, b, n, k, topk):
-    """The library's plan: Q queries per CTA within the batch, whole
-    chunks that cover n, and about two stage-1 CTAs per SM."""
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    """The plan on this card: every query in one (block, group), chunks of
+    whole tiles that cover n, at most one stage-1 CTA per SM."""
+    sms = score_topk.sm_count(cuda)
     p = score_topk.plan(b, n, k, topk, sms)
-    assert 1 <= p.q <= b
+    assert (p.q_blocks - 1) * p.groups * p.queries < b \
+        <= p.q_blocks * p.groups * p.queries
     assert (p.n_chunks - 1) * p.chunk_rows < n <= p.n_chunks * p.chunk_rows
-    assert p.n_chunks <= 2 * sms
+    assert p.q_blocks * p.n_chunks <= max(sms, p.q_blocks)
 
 
 def test_score_topk_limits_agree_with_the_library(cuda):
-    """The wrapper's MAX_K and MAX_TOPK are the library's: it plans at
-    both and refuses one past either."""
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    score_topk.plan(5, 1000, score_topk.MAX_K, score_topk.MAX_TOPK, sms)
-    for k, topk in ((score_topk.MAX_K + 1, 10), (8, score_topk.MAX_TOPK + 1)):
-        with pytest.raises(RuntimeError, match="score_topk plan"):
-            score_topk.plan(5, 1000, k, topk, sms)
+    """The wrapper's MAX_K and MAX_TOPK are the library's: it launches at
+    both and refuses one past either, and a plan that does not fit the
+    topk."""
+    V = torch.rand((5, score_topk.MAX_K), device=cuda)
+    A = torch.rand((1000, score_topk.MAX_K), device=cuda)
+    s, i = score_topk.score_topk(V, A, topk=score_topk.MAX_TOPK)
+    torch.cuda.synchronize()
+    assert bool((i[:, 1000:] == -1).all())
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    buf = torch.empty(1 << 20, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for k, topk, e in ((score_topk.MAX_K + 1, 10, 1),
+                       (8, score_topk.MAX_TOPK + 1, 64), (8, 33, 1)):
+        rc = lib.repro_score_topk(V.data_ptr(), A.data_ptr(), 0, 0,
+                                  buf.data_ptr(), buf.data_ptr(),
+                                  buf.data_ptr(), buf.data_ptr(), 5, 1000, k,
+                                  topk, e, 8, 1, 1024, 1, stream)
+        assert rc != 0
+
+
+# every k of the kernel's two scoring paths (float4 rows, k % 4 == 0, and
+# scalar rows), b and n off the query group and the 256-row tile, topk at
+# every list width E and across its boundaries (32 / 33, 1024)
+TOPK_EDGE = [(1, 1, 10), (37, 37, 33), (37, 3000, 100), (5, 3000, 1024),
+             (37, 131079, 32), (1, 131079, 1), (33, 3000, 1),
+             (9, 20000, 257)]
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 5, 8, 16, 32, 64])
+def test_score_topk_edges_on_card(cuda, k):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    for b, n, topk in TOPK_EDGE:
+        V = torch.rand((b, k), generator=gen, device=cuda)
+        A = torch.rand((n, k), generator=gen, device=cuda)
+        ops.reset_launch_counts()
+        got = score_topk.score_topk(V, A, topk=topk)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["score_topk"] == 1
+        topk_close(got, tref.ref_score_topk_stream(V, A, topk), V, A)
+
+
+@pytest.mark.parametrize("k,topk", [(5, 33), (32, 32)])
+def test_score_topk_seeded_pass_on_card(cuda, k, topk):
+    """From SEED_ROWS rows on, a first launch over a prefix of A seeds the
+    thresholds: two launches, the same top-k."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    n = score_topk.SEED_ROWS + 37
+    V = torch.rand((37, k), generator=gen, device=cuda)
+    A = torch.rand((n, k), generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    got = score_topk.score_topk(V, A, topk=topk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["score_topk"] == 2
+    topk_close(got, tref.ref_score_topk_stream(V, A, topk), V, A)
+
+
+def test_score_topk_takes_a_misaligned_view_on_card(cuda):
+    """A contiguous A whose start is not 16-byte aligned (a row offset of
+    a k = 3 table): the wrapper copies it for the ring."""
+    V = torch.rand((4, 3), device=cuda)
+    base = torch.rand((3001, 3), device=cuda)
+    A = base[1:]
+    assert A.is_contiguous() and A.data_ptr() % 16
+    topk_close(score_topk.score_topk(V, A, topk=10),
+               tref.ref_score_topk_stream(V, A, 10), V, A)
 
 
 def tie_case(gen, b, n, device):
@@ -253,13 +315,30 @@ def test_score_topk_exact_ties_on_card(cuda, b, n):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(n + b)
     V, A = tie_case(gen, b, n, cuda)
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    sms = score_topk.sm_count(cuda)
     if n == 40000:
         assert score_topk.plan(b, n, 8, 100, sms).chunk_rows > 256
     for topk in (1, 10, 100):
         s, i = score_topk.score_topk(V, A, topk=topk)
         rs, ri = tref.ref_score_topk_stream(V, A, topk)
         assert torch.equal(s, rs) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("topk,n", [(32, 131079), (33, 131079),
+                                    (1024, 131079), (33, (1 << 20) + 7)])
+def test_score_topk_exact_ties_across_chunks_on_card(cuda, topk, n):
+    """Ties that straddle every chunk and CTA (the 300 distinct rows
+    repeat through n), with the seeded pass at n > 2^20: scores and
+    indices bit-equal to the plain version's, at the list widths'
+    boundaries."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(topk)
+    V, A = tie_case(gen, 37, n, cuda)
+    assert score_topk.plan(37, n, 8, topk,
+                           score_topk.sm_count(cuda)).n_chunks > 1
+    s, i = score_topk.score_topk(V, A, topk=topk)
+    rs, ri = tref.ref_score_topk_stream(V, A, topk)
+    assert torch.equal(s, rs) and torch.equal(i, ri)
 
 
 def test_serve_engine_on_card_matches_cpu(cuda):
@@ -383,6 +462,51 @@ def test_mu_update_a_matches_plain_version_on_card(cuda, n, k, r, shared):
     if n:
         assert rel_err(got, ref) <= 1e-6 and torch.equal(got, got2)
     assert got.shape == ref.shape
+
+
+# every KMAX build (4, 8, 16, 32, 64) at its edges and inside it; n empty,
+# one row, off the 32-row tile, and 131073
+MU_KS = [1, 3, 4, 5, 8, 9, 16, 17, 32, 33, 63, 64]
+
+
+@pytest.mark.parametrize("k", MU_KS)
+def test_mu_update_a_edges_on_card(cuda, k):
+    """Every n, S per member and shared (member stride 0), an expanded
+    Num, against the plain version: relative Frobenius error <= 1e-6."""
+    from repro_torch.kernels import mu_update_a as mu
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    for n in (0, 1, 37, 1000, 131073):
+        A = torch.rand((4, n, k), generator=gen, device=cuda)
+        Num = torch.rand((4, n, k), generator=gen, device=cuda)
+        for S in (torch.rand((4, k, k), generator=gen, device=cuda),
+                  torch.rand((k, k), generator=gen, device=cuda)
+                  .expand(4, k, k)):
+            got = mu.mu_update_a(A, Num, S, 1e-16)
+            ref = tref.ref_mu_update_a(A, Num, S, 1e-16)
+            assert got.shape == ref.shape
+            if n:
+                assert rel_err(got, ref) <= 1e-6
+        if n:
+            one = Num[:1].expand(4, n, k)
+            assert rel_err(mu.mu_update_a(A, one, S, 1e-16),
+                           tref.ref_mu_update_a(A, one, S, 1e-16)) <= 1e-6
+
+
+def test_mu_update_a_keeps_padded_columns_zero_on_card(cuda):
+    """Padded cells of the cross-k grid: columns past each cell's rank are
+    zero in A, Num and S, and stay exact zeros."""
+    from repro_torch.kernels import mu_update_a as mu
+    ks, k_max, n = (2, 3, 4, 5), 5, 1000
+    mask = (torch.arange(k_max, device=cuda)[None, :]
+            < torch.tensor(ks, device=cuda)[:, None]).float()
+    A = torch.rand((4, n, k_max), device=cuda) * mask[:, None, :]
+    Num = torch.rand(A.shape, device=cuda) * mask[:, None, :]
+    S = torch.rand((4, k_max, k_max), device=cuda) \
+        * (mask[:, :, None] * mask[:, None, :])
+    got = mu.mu_update_a(A, Num, S, 1e-16)
+    assert not (got * (1 - mask[:, None, :])).any()
+    assert rel_err(got, tref.ref_mu_update_a(A, Num, S, 1e-16)) <= 1e-6
 
 
 def test_mu_update_a_refuses_rank_above_64_on_card(cuda):

@@ -155,8 +155,7 @@ def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
                                       "repro_flash_attention_sm90",
                                       "repro_fused_xa_xtb",
                                       "repro_mu_update_a",
-                                      "repro_score_topk",
-                                      "repro_score_topk_plan"}
+                                      "repro_score_topk"}
     for src in _build.CSRC.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -368,6 +367,99 @@ def test_score_topk_checks_reject_what_the_kernel_cannot_take(kwargs, error,
     V = torch.rand(4, k, dtype=A.dtype)
     with pytest.raises(error, match=match):
         score_topk.check(V, A, kwargs.get("topk", 10))
+
+
+# (b, n, k, topk, sms): the serve shape, the large-graph shape, edge
+# batches and rows (1, 37, 3000, 131072 + 7), every list width E across
+# its boundaries (topk 32 / 33, 1024), small cards
+PLAN_CASES = [(32, 131072, 3, 10, 132), (128, 4194304, 32, 32, 132),
+              (1, 1, 3, 10, 132), (5, 1000, 64, 1024, 132),
+              (300, 70000, 17, 100, 132), (32, 40000, 8, 100, 132),
+              (37, 3000, 5, 33, 132), (33, 131079, 1, 32, 132),
+              (1, 37, 64, 1, 8), (129, 300, 16, 256, 1),
+              (64, 5000, 4, 257, 114), (8, 200000, 32, 64, 132)]
+
+
+@pytest.mark.parametrize("b,n,k,topk,sms", PLAN_CASES)
+def test_score_topk_plan_covers_every_row_and_query_once(b, n, k, topk, sms):
+    """The stage-1 grid (query blocks x chunks, each CTA's warps split
+    into query groups and row warps taking every row_warps-th tile) puts
+    every (row, query) pair in exactly one partial list, with the list
+    width, the CTA count and the tile shape the kernel takes."""
+    from repro_torch.kernels import score_topk as st
+    p = st.plan(b, n, k, topk, sms)
+    e = p.lists_e
+    assert e in (1, 2, 4, 8, 16, 32) and 32 * e >= topk
+    assert e == 1 or 16 * e < topk
+    assert p.groups in (1, 2, 4, 8)
+    assert p.row_warps == min(st.WARPS // p.groups, st.STAGES)
+    assert p.chunk_rows % st.TILE == 0 and p.chunk_rows >= st.TILE
+    assert (p.n_chunks - 1) * p.chunk_rows < n <= p.n_chunks * p.chunk_rows
+    assert p.q_blocks * p.n_chunks <= max(sms, p.q_blocks)
+    if p.n_chunks > 1:      # every row warp walks MIN_TILES tiles or more
+        assert p.chunk_rows // st.TILE >= p.row_warps * st.MIN_TILES
+    # queries: (block, group, slot) -> query, each query once
+    qs = [(qb * p.groups + g) * p.queries + q for qb in range(p.q_blocks)
+          for g in range(p.groups) for q in range(p.queries)]
+    assert len(qs) == len(set(qs))
+    assert {q for q in qs if q < b} == set(range(b))
+    # rows: chunk c, tile t of it -> list c * row_warps + t % row_warps
+    if n <= 300000:
+        rows = np.arange(n)
+        chunk, within = rows // p.chunk_rows, rows % p.chunk_rows
+        lists = chunk * p.row_warps + (within // st.TILE) % p.row_warps
+        assert lists.min() >= 0 and lists.max() < p.lists
+        assert np.bincount(chunk).sum() == n
+
+
+def test_score_topk_plan_refuses_what_the_kernel_cannot_take():
+    from repro_torch.kernels import score_topk as st
+    for args in ((0, 10, 3, 10), (4, 0, 3, 10), (4, 10, 65, 10),
+                 (4, 10, 3, 1025), (4, 10, 3, 0)):
+        with pytest.raises(ValueError, match="score_topk plan"):
+            st.plan(*args, 132)
+
+
+def test_score_topk_refuses_a_device_that_is_not_cuda():
+    """Tensors that are not on the CPU go to the kernel, which takes only
+    CUDA ones: a meta tensor reaches the device check and raises."""
+    from repro_torch.kernels import score_topk as st
+    V, A = torch.rand(4, 8, device="meta"), torch.rand(50, 8, device="meta")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        st.score_topk(V, A, topk=10)
+    assert st.launch_count() == 0
+
+
+def test_mu_update_a_cached_validation_raises_on_every_bad_call():
+    """``checked`` builds a call once per (shape, stride, dtype)
+    signature; the refusals are not cached, so each bad call raises, also
+    after a good call of the same shape was cached."""
+    from repro_torch.kernels import mu_update_a as tmu
+    A, Num, S = torch.rand(2, 37, 3), torch.rand(2, 37, 3), torch.rand(2, 3, 3)
+    good = tmu.checked(A, Num, S)
+    assert tmu.checked(A.clone(), Num.clone(), S.clone()) is good
+    assert (good.members, good.n, good.k) == (2, 37, 3)
+    shared = tmu.checked(A, Num, S[0].expand(2, 3, 3))
+    assert shared is not good and shared.strides == (111, 111, 0)
+    bad = [(TypeError, "float32", (A.double(), Num, S)),
+           (ValueError, "same shape", (A, Num[:, :5], S)),
+           (ValueError, "member axis", (A[0], Num[0], S)),
+           (ValueError, "member axis", (A, Num, torch.rand(3, 3, 3))),
+           (ValueError, "rank k=65", (torch.ones(4, 65), torch.ones(4, 65),
+                                      torch.ones(65, 65))),
+           (ValueError, "row-major", (A.transpose(-1, -2).contiguous()
+                                      .transpose(-1, -2), Num, S))]
+    for _ in range(2):
+        for error, match, args in bad:
+            with pytest.raises(error, match=match):
+                tmu.checked(*args)
+        assert tmu.checked(A, Num, S) is good
+    meta = [x.to("meta") for x in (A, Num, S)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        tmu.mu_update_a(*meta, 1e-16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tmu.mu_update_a(A.to("meta"), Num, S, 1e-16)
+    assert tmu.launch_count() == 0
 
 
 # ---------------------------------------------------------------------------
