@@ -139,6 +139,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``torch.profiler`` (device idle share, time by kernel, attention's
      share of the prefill).  The cut
      against ``repro``'s prefill_32k shape (B = 32 x 32768): B = 4 x 4096.
+  9. Telemetry (run after phase 5, in the same temporary directory):
+     phase 3's sweep again through ``rescalk_run.main``, on phase 3's
+     file at full width (n = 131072, m = 8, bs = 128, k = 2..5, r = 4,
+     the fused kernels), untraced and then with ``--trace DIR
+     --sanitize``; the one cut is 60 MU iterations (TRACE_ITERS).
+     ``scripts/check_trace.py DIR --report R --expect-metrics
+     --expect-memory`` must exit 0 (a subprocess);
+     memory.json's peak_device_bytes (the allocator's peak is reset just
+     before the traced run) must be at least the resident
+     operand, every per-rank entry measured with peak >= each of its
+     parts, and every unit a positive device peak; metrics.npz's
+     rel_error trajectory holds 4 ranks x 60 iterations x 4 members
+     points; bcsr_xa_xta, bcsr_spmm and mu_update_a launched (counters
+     zeroed just before), the report's mu_update_a count one per MU
+     iteration; the same k_opt as the untraced run, per-k values within
+     1e-4 (at 60 iterations the selection can differ from phase 3's).
+     The span summary, the cost table (achieved GFLOP/s per unit against
+     the paper's model) and the traced ms per MU iteration beside the
+     untraced run's (and phase 3's beside RECORDED_BCSR_MS) are
+     printed, then one k = 5 MU iteration at the sweep's shape untraced
+     and traced (CUDA events) and the traced one's device time by kernel
+     (torch.profiler).  Then phase 5's stream through
+     ``serve.main``, untraced and then with ``--trace DIR2``:
+     check_trace.py exits 0, one serve/request span per request, one
+     serve/score span and one score_topk launch per device batch, the
+     same stats() as phase 5; the spans' times, each request's latency
+     and the q/s of both runs are printed beside phase 5's; then
+     TRACE_ROUNDS rounds of the stream untraced, traced to a file, traced
+     in memory and untraced (each with phase 5's stats()), their request
+     p50s, and the host time of one trace record, written to a file and
+     in memory.
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -223,6 +254,13 @@ PEAK_BF16_FLOP_PER_S = 989e12
 # (n, n) surrogate per member make them run smaller
 DENSE = dict(n=16384, m=8, k_true=4, k_min=2, k_max=5, r=4, iters=300,
              grid_chunk=4, small_n=4096)
+# phase 9: the traced BCSR sweep's one cut (FULL runs 300), and phase 3's
+# untraced time per MU iteration that PERF.md records for this script on
+# NVIDIA H100 80GB HBM3 at 700.00 W (the untraced path must not move)
+TRACE_ITERS = 60
+RECORDED_BCSR_MS = 11.56
+TRACE_PROFILE_REPS = 10   # MU iterations per timing of one traced step
+TRACE_ROUNDS = 3          # serve rounds: untraced, to a file, in memory
 
 
 def log(msg: str) -> None:
@@ -920,21 +958,25 @@ def write_planted_npz(path: Path, cfg: dict) -> int:
     return row.shape[0]
 
 
-def run_sweep(npz: Path, report: Path, impl: str, cfg: dict):
+def ms_per_iteration(rep, iters: int) -> float:
+    """Ensemble unit seconds per MU iteration (all r members at once)."""
+    return 1e3 * rep.total_seconds / (len(rep.units) * iters)
+
+
+def run_sweep(npz: Path, report: Path, impl: str, cfg: dict, *extra: str):
     from repro_torch.launch import rescalk_run
     argv = ["--data", str(npz), "--bs", str(cfg["bs"]),
             "--k-min", str(cfg["k_min"]), "--k-max", str(cfg["k_max"]),
             "--r", str(cfg["r"]), "--iters", str(cfg["iters"]),
             "--report", str(report), "--use-fused-kernel",
-            "--fused-impl", impl]
+            "--fused-impl", impl, *extra]
     log(f"[sweep] rescalk_run {' '.join(argv)}")
     t0 = time.perf_counter()
     res, rep = rescalk_run.main(argv)
     units = " ".join(f"k={u.k}:{u.seconds:.3f}s" for u in rep.units)
     log(f"[sweep] impl={impl}: {time.perf_counter() - t0:.1f}s wall; "
         f"ensemble units {units}; per MU iteration "
-        f"{1e3 * rep.total_seconds / (len(rep.units) * cfg['iters']):.2f} "
-        f"ms")
+        f"{ms_per_iteration(rep, cfg['iters']):.2f} ms")
     return res, rep
 
 
@@ -958,8 +1000,9 @@ def check_sweep(res, report: Path, cfg: dict) -> None:
                 f"member errors, k={k}")
 
 
-def phase_sweeps(kernel_rows: list[dict], tmp: Path) -> Path:
-    """Phases 3 and 4; returns the bundle the kernel sweep wrote."""
+def phase_sweeps(kernel_rows: list[dict], tmp: Path):
+    """Phases 3 and 4; returns the bundle the kernel sweep wrote, and
+    that sweep's result and report."""
     import numpy as np
     from repro_torch.kernels import ops
     cfg = FULL
@@ -1002,21 +1045,21 @@ def phase_sweeps(kernel_rows: list[dict], tmp: Path) -> Path:
             f"{np.round(b, 6).tolist()} max |diff| {worst:.2e}")
         require(worst <= SWEEP_TOL, f"{name} differs by {worst:.2e}")
     log(f"[sweep] k_opt = {res.k_opt} on both paths")
-    return bundle
+    return bundle, res, rep
 
 
 # ---------------------------------------------------------------------------
 # Phase 5: serve the sweep's bundle through the CLI
 # ---------------------------------------------------------------------------
 
-def run_serve(bundle: Path, impl: str):
+def run_serve(bundle: Path, impl: str, *extra: str):
     import numpy as np
     from repro_torch.launch import serve
     cfg = SERVE
     argv = ["--factors", str(bundle), "--queries", cfg["queries"],
             "--batch", str(cfg["batch"]), "--topk", str(cfg["topk"]),
             "--requests", str(cfg["requests"]), "--mode", cfg["mode"],
-            "--seed", str(cfg["seed"]), "--impl", impl]
+            "--seed", str(cfg["seed"]), "--impl", impl, *extra]
     log(f"[serve] serve {' '.join(argv)}")
     out = serve.main(argv)
     lat = out.latencies
@@ -1045,7 +1088,7 @@ def query_vectors(A, R, queries):
     return torch.einsum("bi,bij->bj", A[anchors], Rq).contiguous()
 
 
-def phase_serve(bundle: Path, row: dict, dev) -> None:
+def phase_serve(bundle: Path, row: dict, dev):
     import numpy as np
     import torch
     from repro_torch.kernels import ops, ref, score_topk
@@ -1097,6 +1140,7 @@ def phase_serve(bundle: Path, row: dict, dev) -> None:
                                     A.double(), s, i, rs)
     row.update(time_topk(V, A, cfg["topk"], reps=50, plain_reps=5))
     profile_serve(fb, queries)
+    return got
 
 
 def profiled(fn):
@@ -1696,6 +1740,236 @@ def phase_lm(dev, smi: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: telemetry, the traced sweep and the traced serve stream
+# ---------------------------------------------------------------------------
+
+def check_trace(*args) -> str:
+    """scripts/check_trace.py on a trace directory, as a subprocess; its
+    OK line, or a PhaseError with its output."""
+    out = subprocess.run([sys.executable,
+                          str(ROOT / "scripts" / "check_trace.py"),
+                          *map(str, args)], capture_output=True, text=True,
+                         timeout=300)
+    require(out.returncode == 0, f"check_trace.py {' '.join(map(str, args))}"
+            f" exited {out.returncode}: {out.stdout[-2000:]}"
+            f"{out.stderr[-2000:]}")
+    return out.stdout.strip().splitlines()[-1]
+
+
+def trace_events(trace_dir: Path) -> list[dict]:
+    return [json.loads(line) for line in
+            (trace_dir / "trace.jsonl").read_text().splitlines()]
+
+
+def phase_telemetry(tmp: Path, sweep, served) -> None:
+    """Phase 9: phase 3's sweep at TRACE_ITERS MU iterations, untraced and
+    then with --trace and --sanitize, and phase 5's stream with --trace;
+    ``sweep`` is phase 3's (result, report), ``served`` phase 5's kernel
+    run."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace as obs
+    cfg = dict(FULL, iters=TRACE_ITERS)
+    res3, rep3 = sweep
+    # the traced sweep's result is held to the untraced one at the same
+    # iterations (the selection at 60 iterations need not be phase 3's)
+    base, base_rep = run_sweep(tmp / "planted.npz", tmp / "untraced.json",
+                               "auto", cfg)
+    tdir, report = tmp / "trace_sweep", tmp / "traced.json"
+    # memory.json's device peak is the allocator's since this reset: the
+    # traced run's own, not this process's since phase 1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res, rep = run_sweep(tmp / "planted.npz", report, "auto", cfg,
+                         "--trace", str(tdir), "--sanitize")
+    launches = ops.launch_counts()
+    log(f"[telemetry] kernel launches in the traced run: {launches}; the "
+        f"report's (the sweep alone): {rep.meta['kernel_launches']}")
+    for name in ("bcsr_xa_xta", "bcsr_spmm", "mu_update_a"):
+        require(launches[name] > 0, f"{name} was not launched in the "
+                f"traced sweep")
+    n_ks = cfg["k_max"] - cfg["k_min"] + 1
+    require(rep.meta["kernel_launches"]["mu_update_a"]
+            == n_ks * cfg["iters"], "the report's mu_update_a count is not "
+            "one per MU iteration")
+    check_sweep(res, report, cfg)
+    ok = check_trace(tdir, "--report", report, "--expect-metrics",
+                     "--expect-memory")
+    log(f"[telemetry] {ok}")
+    led = json.loads((tdir / "memory.json").read_text())
+    peak = led["runtime"]["peak_device_bytes"]
+    stored = led["ledger"]["resident_bytes"]
+    require(peak is not None and peak >= stored,
+            f"peak_device_bytes {peak} below the resident operand {stored}")
+    per_k = led["per_k"]
+    require(sorted(per_k) == [str(k) for k in res.ks],
+            f"per_k covers {sorted(per_k)}")
+    for k, e in per_k.items():
+        require(bool(e) and e["peak"] >= max(e["argument"], e["output"],
+                                             e["temp"]),
+                f"per_k[{k}] {e}")
+    require(all(u.peak_device_bytes and u.peak_device_bytes > 0
+                for u in rep.units), "a unit has no device peak")
+    want = (n_ks * cfg["iters"] * cfg["r"],)
+    with np.load(tdir / "metrics.npz") as d:
+        rel = d["core.sparse.sparse_mu_step.rel_error"]
+        require(rel.shape == want and bool(np.isfinite(rel).all()),
+                f"rel_error trajectory {rel.shape}, want {want}")
+        mu = d["core.sparse.sparse_mu_step.mu_ratio"]
+        log(f"[telemetry] metrics.npz: {sorted(d.files)}; rel_error "
+            f"{rel.shape}, first {rel[:4].round(6).tolist()} last "
+            f"{rel[-4:].round(6).tolist()}; mu_ratio last "
+            f"{mu[-4:].round(6).tolist()}")
+    require(res.k_opt == base.k_opt, f"traced k_opt {res.k_opt}, untraced "
+            f"{base.k_opt}")
+    for name in ("s_min", "s_mean", "rel_err"):
+        worst = float(np.abs(getattr(res, name) - getattr(base, name)).max())
+        require(worst <= SWEEP_TOL, f"traced {name} differs from the "
+                f"untraced run's by {worst:.2e}")
+    log(f"[telemetry] k_opt {res.k_opt} traced and untraced at "
+        f"{cfg['iters']} MU iterations (phase 3, {FULL['iters']}: "
+        f"{res3.k_opt}); per-k values within {SWEEP_TOL}")
+    log(f"[telemetry] memory.json: peak_device_bytes {peak} "
+        f"({peak / 1e9:.2f} GB), peak_host_bytes "
+        f"{led['runtime']['peak_host_bytes']}, per_k "
+        + "; ".join(f"k={k}: arg {e['argument']} out {e['output']} temp "
+                    f"{e['temp']} peak {e['peak']}"
+                    for k, e in sorted(per_k.items())))
+    log("[telemetry] summary.txt:\n" + (tdir / "summary.txt").read_text())
+    traced = ms_per_iteration(rep, cfg["iters"])
+    plain = ms_per_iteration(base_rep, cfg["iters"])
+    plain3 = ms_per_iteration(rep3, FULL["iters"])
+    log(f"[telemetry] per MU iteration at {cfg['iters']} iterations: "
+        f"traced {traced:.2f} ms, untraced {plain:.2f} ms: overhead "
+        f"{100 * (traced / plain - 1):.1f}%; phase 3 untraced at "
+        f"{FULL['iters']}: {plain3:.2f} ms, against the recorded "
+        f"{RECORDED_BCSR_MS} ms: "
+        f"{100 * (plain3 / RECORDED_BCSR_MS - 1):+.1f}%")
+    profile_traced_step(torch.device("cuda"))
+
+    # the stream untraced, then traced, in this phase's conditions (after
+    # the sweeps above), beside phase 5's untraced run
+    sdir = tmp / "trace_serve"
+    plain = run_serve(tmp / "cuda.bundle", "auto")
+    ops.reset_launch_counts()
+    got = run_serve(tmp / "cuda.bundle", "auto", "--trace", str(sdir))
+    require(ops.launch_counts()["score_topk"] == got.stats["batches"],
+            "score_topk launches differ from the device batches")
+    log(f"[telemetry] {check_trace(sdir)}")
+    events = trace_events(sdir)
+    begins = [e["name"] for e in events if e["ph"] == "B"]
+    require(begins.count("serve/request") == SERVE["requests"],
+            f"{begins.count('serve/request')} serve/request spans")
+    require(begins.count("serve/score") == got.stats["batches"],
+            f"{begins.count('serve/score')} serve/score spans for "
+            f"{got.stats['batches']} batches")
+    require(got.stats == served.stats == plain.stats,
+            f"traced stats {got.stats}, untraced {plain.stats}, phase 5's "
+            f"{served.stats}")
+    for name in ("serve/request", "serve/score"):
+        durs = np.array([e["dur"] / 1e3 for e in events
+                         if e["ph"] == "E" and e["name"] == name])
+        log(f"[telemetry] {name} spans: {len(durs)}, p50 "
+            f"{np.percentile(durs, 50):.3f} ms, max {durs.max():.3f} ms, "
+            f"total {durs.sum():.3f} ms")
+    for out, tag in ((plain, "untraced"), (got, "traced")):
+        log(f"[telemetry] serve {tag}: {len(out.results) / out.seconds:.1f} "
+            f"q/s; request ms "
+            f"{[round(float(x) * 1e3, 3) for x in out.latencies]}")
+    log(f"[telemetry] serve: traced {len(got.results) / got.seconds:.1f} "
+        f"q/s, untraced {len(plain.results) / plain.seconds:.1f} q/s, "
+        f"phase 5 untraced {len(served.results) / served.seconds:.1f} "
+        f"q/s; {SERVE['requests']} request and {got.stats['batches']} "
+        f"score spans")
+    # rounds of four: the records' cost apart from the spread between
+    # streams (requests 2-16; the first pays the engine's set-up)
+    p50 = {"untraced": [], "traced to a file": [], "traced in memory": []}
+    for rnd in range(TRACE_ROUNDS):
+        for tag in ("untraced", "traced to a file", "traced in memory",
+                    "untraced"):
+            tracer = (None if tag == "untraced" else obs.Tracer(
+                str(tmp / f"trace_round{rnd}") if "file" in tag else None))
+            prev = obs.install(tracer)
+            try:
+                out = run_serve(tmp / "cuda.bundle", "auto")
+            finally:
+                obs.install(prev)
+                if tracer is not None:
+                    tracer.close()
+            require(out.stats == plain.stats, f"{tag} stats {out.stats}")
+            p50[tag].append(1e3 * float(np.median(out.latencies[1:])))
+    log("[telemetry] serve rounds, request p50 of requests 2-"
+        f"{SERVE['requests']} (ms), median over runs: "
+        + "; ".join(f"{tag} {np.median(v):.3f} (runs "
+                    f"{[round(x, 3) for x in v]})" for tag, v in p50.items()))
+    on_disk, in_memory = record_us(tmp / "trace_cost"), record_us(None)
+    log(f"[telemetry] one trace record costs {on_disk:.1f} us written to "
+        f"trace.jsonl here, {in_memory:.1f} us in memory only")
+
+
+def profile_traced_step(dev) -> None:
+    """One k = 5 MU iteration at the BCSR sweep's shape (r = 4 members,
+    random stored values), untraced and as ``--trace --sanitize`` runs it
+    (metrics recorded into a buffer, the factors checked): ms per
+    iteration by CUDA events, then the traced iteration's device time by
+    kernel from torch.profiler."""
+    import torch
+    from repro_torch.core.sparse import sparse_mu_step
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.obs import metrics
+    n, m, bs, r, k = FULL["n"], FULL["m"], FULL["bs"], FULL["r"], 5
+    _, rows, cols = main_pattern(n, bs, FULL["off_density"], FULL["seed"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    sp = pattern_bcsr(rows.tolist(), cols.tolist(), n, bs, m, r, gen, dev)
+    A = torch.rand((r, n, k), generator=gen, device=dev) + 0.05
+    R = torch.rand((r, m, k, k), generator=gen, device=dev) + 0.05
+    policy = KernelPolicy(use_fused=True, impl="auto")
+
+    def step(traced: bool):
+        sparse_mu_step(sp, A, R, policy=policy, sanitize=traced,
+                       trace_metrics=traced)
+
+    prev = metrics.install_buffer(metrics.MetricsBuffer())
+    try:
+        plain = cuda_ms(lambda: step(False), reps=TRACE_PROFILE_REPS)
+        traced = cuda_ms(lambda: step(True), reps=TRACE_PROFILE_REPS)
+        wall, busy, events = profiled(
+            lambda: [step(True) for _ in range(TRACE_PROFILE_REPS)])
+    finally:
+        metrics.install_buffer(prev)
+    reps = TRACE_PROFILE_REPS
+    log(f"[telemetry] one k={k} MU iteration at the sweep's shape (r={r}, "
+        f"nnzb={len(rows)}): untraced {plain:.3f} ms, traced + sanitized "
+        f"{traced:.3f} ms (CUDA events, {reps} iterations); traced, device "
+        f"busy {busy / reps * 1e3:.3f} ms of {wall / reps * 1e3:.3f} ms "
+        f"wall (torch.profiler)")
+    for e in events[:10]:
+        log(f"[telemetry]   {e.device_time_total / 1e3 / reps:8.3f} ms "
+            f"{100 * e.device_time_total / 1e6 / busy:5.1f}%  "
+            f"x{e.count // reps:<3d} {e.key[:80]}")
+    del sp, A, R
+    torch.cuda.empty_cache()
+
+
+def record_us(out_dir: Path | None, spans: int = 2000) -> float:
+    """Host microseconds per trace record: ``spans`` empty spans (two
+    records each) through a Tracer writing to ``out_dir`` (each record is
+    written and flushed at once), or keeping them in memory."""
+    from repro_torch.obs import trace as obs
+    tracer = obs.Tracer(None if out_dir is None else str(out_dir))
+    t0 = time.perf_counter()
+    for _ in range(spans):
+        with tracer.span("serve/score", batch=32, live=32):
+            pass
+    seconds = time.perf_counter() - t0
+    tracer.close()
+    return 1e6 * seconds / (2 * spans)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1719,8 +1993,10 @@ def main() -> int:
                                  phase_topk(dev)]
     by_name = {row["name"]: row for row in rows}
     with tempfile.TemporaryDirectory() as tmp:
-        bundle = phase_sweeps(rows, Path(tmp))
-        phase_serve(bundle, by_name["score_topk"], dev)
+        bundle, res3, rep3 = phase_sweeps(rows, Path(tmp))
+        served = phase_serve(bundle, by_name["score_topk"], dev)
+        torch.cuda.empty_cache()
+        phase_telemetry(Path(tmp), (res3, rep3), served)
         torch.cuda.empty_cache()
         grid_res = phase_grid(by_name["fused_xa_xtb"], Path(tmp), dev)
         phase_dense(by_name, grid_res, Path(tmp))

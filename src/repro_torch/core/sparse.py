@@ -250,8 +250,9 @@ def zeros_product(sp: BCSR, B: torch.Tensor) -> torch.Tensor:
 
 
 def sqnorm(sp: BCSR) -> torch.Tensor:
-    """||X||_F^2 (per member when the data is member-stacked)."""
-    return (sp.data * sp.data).sum(dim=(-4, -3, -2, -1))
+    """||X||_F^2 (per member when the data is member-stacked), in one
+    pass over the stored blocks with no temporary of their size."""
+    return torch.linalg.vector_norm(sp.data, dim=(-4, -3, -2, -1)).square()
 
 
 # ---------------------------------------------------------------------------

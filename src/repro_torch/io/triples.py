@@ -8,6 +8,7 @@ pre-numbered COO file (arrays ``row``/``rel``/``col`` and optional
 ``val``).  ``ingest_tsv``/``ingest_npz`` accumulate the chunks and merge
 duplicate coordinates by summation, as ``repro``'s ``COOBuilder`` does, so
 the COO and the vocab equal ``repro``'s.  Host numpy, O(nnz) memory.
+Traced as ``ingest/tsv`` and ``ingest/npz`` spans (``obs.trace``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import dataclasses
 from typing import Iterator, Sequence
 
 import numpy as np
+
+from repro_torch.obs import trace as obs
 
 DEFAULT_CHUNK = 1 << 16
 
@@ -168,11 +171,13 @@ def ingest_tsv(path: str, *, chunk: int = DEFAULT_CHUNK
             h, r, t = vocab.encode(heads, rels, tails)
             yield h, r, t, vals
 
-    return coo_from_chunks(chunks()), vocab
+    with obs.span("ingest/tsv", path=path, chunk=chunk):
+        return coo_from_chunks(chunks()), vocab
 
 
 def ingest_npz(path: str, *, n: int | None = None, m: int | None = None,
                chunk: int = DEFAULT_CHUNK) -> COOTensor:
     """Chunked NPZ COO ingest (ids already assigned upstream); ``n`` and
     ``m`` declare the dimensions, as ``coo_from_chunks`` takes them."""
-    return coo_from_chunks(read_coo_npz(path, chunk=chunk), n=n, m=m)
+    with obs.span("ingest/npz", path=path, chunk=chunk):
+        return coo_from_chunks(read_coo_npz(path, chunk=chunk), n=n, m=m)

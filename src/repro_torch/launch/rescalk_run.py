@@ -18,8 +18,12 @@ members batched, as a loop, or as the cross-k grid in chunks of
         --data X.npz --bs 128 --k-min 2 --k-max 5 --r 4 --use-fused-kernel \\
         --report /tmp/r.json          # the bundle goes to /tmp/r.bundle
 
-Flags of ``repro``'s CLI that are not ported yet are not defined here
-(ROADMAP.md lists them).
+``--trace DIR`` records the run (spans, per-iteration metrics, the byte
+ledger) and writes ``trace.jsonl``, ``trace_chrome.json``, ``metrics.npz``,
+``summary.txt`` and ``memory.json`` to DIR, the artifact set
+``scripts/check_trace.py`` validates; ``--sanitize`` checks the factors
+after every MU step.  Flags of ``repro``'s CLI that are not ported yet
+are not defined here (ROADMAP.md lists them).
 """
 from __future__ import annotations
 
@@ -35,6 +39,10 @@ from repro_torch.data.synthetic import synthetic_rescal
 from repro_torch.io import (coo_to_bcsr, ingest_npz, ingest_tsv, manifest_of,
                             operand_dims)
 from repro_torch.kernels.policy import IMPLS, KernelPolicy
+from repro_torch.obs import costs as obs_costs
+from repro_torch.obs import memory as obs_memory
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs
 from repro_torch.selection import (CRITERIA, INITS, RescalkConfig,
                                    SweepScheduler)
 from repro_torch.selection.scheduler import SWEEP_MODES
@@ -83,6 +91,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="kernel impl for --use-fused-kernel (auto: the "
                          "CUDA kernel on the card, the plain version on "
                          "the CPU)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="runtime factor sanitizer after every MU step "
+                         "(finite / non-negative / masked-zero checks; "
+                         "analysis.sanitizer)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write trace artifacts to DIR (trace.jsonl, "
+                         "trace_chrome.json, metrics.npz, summary.txt, "
+                         "memory.json) and record per-iteration "
+                         "convergence metrics (cfg.trace_metrics; obs)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap
 
@@ -126,20 +143,37 @@ def feature_correlations(A_true, A_median) -> list[float]:
             for c in range(A.shape[1])]
 
 
-def run(args):
-    """Load, sweep and print; returns (RescalkResult, SelectionReport)."""
+def load(args):
+    """Check the flags and load the operand on the run's device:
+    (X, A_true | None, vocab | None)."""
     dev = _device.resolve(args.device)
     if args.grid_chunk is not None and args.mode != "grid":
         raise SystemExit("--grid-chunk requires --mode grid")
-    X, A_true, vocab = load_operand(args, dev)
+    return load_operand(args, dev)
+
+
+def run(args):
+    """Load, sweep and print; returns (RescalkResult, SelectionReport)."""
+    return sweep(args, *load(args))
+
+
+def _config(args) -> RescalkConfig:
+    return RescalkConfig(k_min=args.k_min, k_max=args.k_max,
+                         n_perturbations=args.r, rescal_iters=args.iters,
+                         schedule=args.schedule, init=args.init,
+                         kernel=KernelPolicy(use_fused=args.use_fused_kernel,
+                                             impl=args.fused_impl),
+                         sanitize=args.sanitize,
+                         trace_metrics=args.trace is not None)
+
+
+def sweep(args, X, A_true, vocab):
+    """Sweep a loaded operand and print; returns (RescalkResult,
+    SelectionReport)."""
     m, n = operand_dims(X)
     print(f"operand m={m} n={n}, schedule={args.schedule}, "
           f"mode={args.mode}, criterion={args.criterion}")
-    cfg = RescalkConfig(k_min=args.k_min, k_max=args.k_max,
-                        n_perturbations=args.r, rescal_iters=args.iters,
-                        schedule=args.schedule, init=args.init,
-                        kernel=KernelPolicy(use_fused=args.use_fused_kernel,
-                                            impl=args.fused_impl))
+    cfg = _config(args)
     sched = SweepScheduler(cfg, mode=args.mode, grid_chunk=args.grid_chunk,
                            criterion=args.criterion,
                            report_path=args.report, verbose=True)
@@ -187,9 +221,93 @@ def _persist_bundle(args, X, res, vocab, report) -> None:
         report.save(args.report)
 
 
+def _memory_ledger(tracer, report, operand, ks, args):
+    """The sweep's byte ledger (obs.memory.MemoryLedger): manifest
+    accounting, runtime watermarks, then per-rank peaks.  The allocator's
+    peak is read before ``measure_mu_memory`` resets it; the fallback count
+    is the tracer's ``kernel/fallback`` instants, the stream
+    check_trace.py recounts."""
+    man = manifest_of(operand)
+    n_fb = sum(1 for e in tracer.events
+               if e.get("ph") == "i" and e.get("name") == "kernel/fallback")
+    sampler = tracer.memory_sampler
+    peak_host = (sampler.peak_bytes if sampler is not None else
+                 obs_memory.read_host_memory().get("hwm_bytes"))
+    peak_device = obs_memory.device_watermark(operand.device)
+    cfg = _config(args)
+    return obs_memory.MemoryLedger.from_manifest(
+        man,
+        peak_host_bytes=peak_host,
+        peak_device_bytes=peak_device,
+        per_k=obs_memory.measure_mu_memory(operand, ks, policy=cfg.kernel,
+                                           schedule=cfg.schedule),
+        accounted_sweep_bytes=obs_memory.accounted_ensemble_bytes(
+            man, n_members=args.r, k_max=args.k_max),
+        kernel_fallbacks=n_fb,
+        meta={"n_units": 0 if report is None else len(report.units),
+              "n_samples": 0 if sampler is None else len(sampler.samples)})
+
+
+def _write_trace_artifacts(trace_dir, tracer, buf, report, operand, args):
+    """Flush the run's trace into its on-disk artifact set (the contract
+    README "Observability" documents and scripts/check_trace.py
+    validates).  The report was saved before this runs, so the ledger's
+    measurement launches stay out of its ``kernel_launches``."""
+    tracer.export_chrome(os.path.join(trace_dir, "trace_chrome.json"))
+    buf.save_npz(os.path.join(trace_dir, "metrics.npz"))
+    parts = [tracer.summarize(), "", buf.summarize()]
+    artifacts = "trace.jsonl trace_chrome.json metrics.npz summary.txt"
+    if operand is not None:
+        ks = sorted({k for rec in (report.units if report else [])
+                     for k in obs_costs.unit_ks(rec)})
+        if ks:
+            rows = obs_costs.cost_table(report.units, operand,
+                                        iters=args.iters)
+            parts += ["", obs_costs.format_cost_table(rows)]
+        ledger = _memory_ledger(tracer, report, operand, ks, args)
+        ledger.save(os.path.join(trace_dir, "memory.json"))
+        parts += ["", ledger.summarize()]
+        artifacts += " memory.json"
+        print(f"[obs] memory: {ledger.summary_line()}")
+    with open(os.path.join(trace_dir, "summary.txt"), "w") as f:
+        f.write("\n".join(parts) + "\n")
+    print(f"[obs] trace artifacts in {trace_dir}: {artifacts}")
+    print(f"[obs] {len(tracer.events)} events, {len(buf)} metric records"
+          + (f" ({buf.dropped} dropped)" if buf.dropped else ""))
+
+
+def run_traced(args):
+    """``run`` with the tracer, the metrics buffer and the host-memory
+    sampler installed; the artifacts are written even when the run
+    fails."""
+    os.makedirs(args.trace, exist_ok=True)
+    tracer = obs.Tracer(args.trace, meta={"argv": vars(args)})
+    buf = obs_metrics.MetricsBuffer()
+    prev_tracer = obs.install(tracer)
+    prev_buf = obs_metrics.install_buffer(buf)
+    # started after install, so its mem/sample instants land in this trace
+    tracer.memory_sampler = obs_memory.HostMemorySampler().start()
+    operand = report = None
+    try:
+        X, A_true, vocab = load(args)
+        operand = X
+        res, report = sweep(args, X, A_true, vocab)
+    finally:
+        tracer.memory_sampler.stop()
+        try:
+            _write_trace_artifacts(args.trace, tracer, buf, report,
+                                   operand, args)
+        finally:
+            obs_metrics.install_buffer(prev_buf)
+            obs.install(prev_tracer)
+            tracer.close()
+    return res, report
+
+
 def main(argv=None):
     _device.strict_fp32()
-    return run(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    return run(args) if args.trace is None else run_traced(args)
 
 
 if __name__ == "__main__":

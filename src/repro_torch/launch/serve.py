@@ -16,12 +16,14 @@ PyTorch version on the CPU.  Query sources (--queries):
 --mode sro|sor forces every query's direction (mixed by default for
 random streams; TSV lines carry their own).  Requests are micro-batched
 to --batch rows and scored by the ``score_topk`` kernel; the reply prints
-per-request latency percentiles and throughput.  ``repro``'s --trace is
-not ported yet.
+per-request latency percentiles and throughput.  With --trace DIR the
+request/score/cache spans and instants land in ``trace.jsonl`` and
+``trace_chrome.json`` there, which ``scripts/check_trace.py`` validates.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import NamedTuple
 
@@ -29,6 +31,7 @@ import numpy as np
 
 from repro_torch import device as _device
 from repro_torch.kernels.policy import IMPLS, KernelPolicy
+from repro_torch.obs import trace as obs
 from repro_torch.serve import (FactorBundle, QueryResult, ServeConfig,
                                ServeEngine, parse_queries_tsv,
                                random_queries)
@@ -66,6 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--show", type=int, default=3,
                     help="print the top-k for this many queries")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write serve trace artifacts to DIR "
+                         "(scripts/check_trace.py validates)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap
 
@@ -139,9 +145,25 @@ def run(args) -> ServeRun:
                     seconds=t_all)
 
 
+def run_traced(args) -> ServeRun:
+    """``run`` with a tracer installed; its artifacts are written even
+    when the run fails."""
+    os.makedirs(args.trace, exist_ok=True)
+    tracer = obs.Tracer(args.trace, meta={"argv": vars(args)})
+    prev = obs.install(tracer)
+    try:
+        return run(args)
+    finally:
+        tracer.export_chrome(os.path.join(args.trace, "trace_chrome.json"))
+        obs.install(prev)
+        tracer.close()
+        print(f"[obs] serve trace artifacts in {args.trace}")
+
+
 def main(argv=None) -> ServeRun:
     _device.strict_fp32()
-    return run(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    return run(args) if args.trace is None else run_traced(args)
 
 
 if __name__ == "__main__":

@@ -75,17 +75,21 @@ def _perturbed(X, k: int, members: Sequence[int], cfg, draws: DrawSource):
 
 def _factorize(X_q, st: RescalState, cfg) -> RescalState:
     """cfg.rescal_iters MU iterations of cfg.schedule under cfg.kernel on
-    the perturbed operand, then the normalization."""
+    the perturbed operand (with cfg.sanitize's checks and cfg.trace_metrics'
+    records), then the normalization."""
     policy = cfg.kernel
     if isinstance(X_q, BCSR):
         A, R = st.A, st.R
         for _ in range(cfg.rescal_iters):
-            A, R = sparse_mu_step(X_q, A, R, EPS_DEFAULT, policy=policy)
+            A, R = sparse_mu_step(X_q, A, R, EPS_DEFAULT, policy=policy,
+                                  sanitize=cfg.sanitize,
+                                  trace_metrics=cfg.trace_metrics)
         st = RescalState(A=A, R=R, step=cfg.rescal_iters)
     else:
         step = MU_SCHEDULES[cfg.schedule]
         for _ in range(cfg.rescal_iters):
-            st = step(X_q, st, EPS_DEFAULT, policy=policy)
+            st = step(X_q, st, EPS_DEFAULT, cfg.sanitize, cfg.trace_metrics,
+                      policy=policy)
     return normalize(st)
 
 
@@ -161,11 +165,14 @@ def run_sweep_batched(X, cells, cfg, draws: DrawSource) -> EnsembleResult:
         A, R = st.A, st.R
         for _ in range(cfg.rescal_iters):
             A, R = masked_sparse_mu_step(sp_q, A, R, mask, EPS_DEFAULT,
-                                         policy=policy)
+                                         policy=policy,
+                                         sanitize=cfg.sanitize,
+                                         trace_metrics=cfg.trace_metrics)
         st = RescalState(A=A, R=R, step=cfg.rescal_iters)
     else:
         for _ in range(cfg.rescal_iters):
             st = masked_mu_step(buf, st, mask, EPS_DEFAULT, cfg.schedule,
+                                cfg.sanitize, cfg.trace_metrics,
                                 policy=policy)
     del buf
     st = masked_normalize(st, mask)
@@ -185,7 +192,9 @@ def run_grid_ensemble(grid: Grid, Xl: torch.Tensor, k: int, cfg,
             "the grid ensemble supports init='random' only (distributed "
             "NNDSVD is a ROADMAP open item); drop grid= for nndsvd")
     members = grid.pod_members(cfg.n_perturbations)
-    dcfg = DistRescalConfig(schedule=cfg.schedule, kernel=cfg.kernel)
+    dcfg = DistRescalConfig(schedule=cfg.schedule, kernel=cfg.kernel,
+                            sanitize=cfg.sanitize,
+                            trace_metrics=cfg.trace_metrics)
     it = get_mu_iter(cfg.schedule)
     X_q = torch.empty((len(members),) + tuple(Xl.shape), dtype=Xl.dtype,
                       device=Xl.device)

@@ -3,9 +3,10 @@
 Field names are those of ``repro``'s ``SelectionReport``/``UnitRecord``,
 so tools that read one read the other (``repro``'s
 ``SelectionReport.load`` reads the port's reports).  The fields of layers
-the port has not reached yet (retry, checkpoints, memory watermarks) keep
-their defaults; ``kernel_launches`` is the port's own addition to
-``meta``.
+the port has not reached yet (retry, checkpoints) keep their defaults;
+``peak_host_bytes`` / ``peak_device_bytes`` are the watermarks the
+scheduler reads at the end of each unit (the device one ``None`` on the
+CPU); ``kernel_launches`` is the port's own addition to ``meta``.
 """
 from __future__ import annotations
 

@@ -21,9 +21,15 @@ A^T X A and the error's ||X||^2 from the engine's collectives — the
 numbers ``repro`` computes on its global array.  The process grid runs
 batched mode only.
 
+Traced (``obs.trace``): ``sched/plan`` around the plan, one
+``sched/execute`` span per unit (closed after the unit's device
+synchronisation, so it times the device work) and one ``sched/reduce``
+span per rank.  Each unit's record carries the host high-water mark and
+the CUDA allocator's peak read at its end.
+
 Not ported yet: member groups over several pods as separate units, the
 cross-k grid on the process grid, checkpoint/resume, retry, fault
-injection, tracing and straggler monitoring (ROADMAP.md).
+injection and straggler monitoring (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -41,6 +47,8 @@ from repro_torch.core.sparse import BCSR, sparse_regress_R, sparse_rel_error
 from repro_torch.dist.engine import local_regress_R, local_rel_error
 from repro_torch.dist.sharding import POD_AXIS, ROW_AXIS, Grid
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs
+from repro_torch.obs.memory import device_watermark, read_host_memory
 
 from . import criteria
 from .draws import DrawSource, TorchDraws
@@ -162,13 +170,18 @@ def reduce_k_grid(grid: Grid, Xl: torch.Tensor, cfg: RescalkConfig, k: int,
     return _k_result(k, clus, sil, R_reg, err, errors.cpu().numpy())
 
 
-def _record(unit, seconds: float) -> UnitRecord:
+def _record(unit, seconds: float, dev: torch.device) -> UnitRecord:
+    """A unit's record, with the watermarks read at its end: the host's
+    high-water mark and the CUDA allocator's peak (None on the CPU)."""
+    peaks = dict(peak_host_bytes=read_host_memory().get("hwm_bytes"),
+                 peak_device_bytes=device_watermark(dev))
     if isinstance(unit, GridChunk):
         return UnitRecord(uid=unit.uid, k=-1, members=[], seconds=seconds,
                           reused=False, retries=0, attempts=1,
-                          cells=[list(c) for c in unit.cells])
+                          cells=[list(c) for c in unit.cells], **peaks)
     return UnitRecord(uid=unit.uid, k=unit.k, members=list(unit.members),
-                      seconds=seconds, reused=False, retries=0, attempts=1)
+                      seconds=seconds, reused=False, retries=0, attempts=1,
+                      **peaks)
 
 
 class SweepScheduler:
@@ -208,7 +221,8 @@ class SweepScheduler:
         self.grid = grid
         self.report_path = report_path
         self.verbose = verbose
-        self.units = plan_sweep(cfg, mode=mode, grid_chunk=grid_chunk)
+        with obs.span("sched/plan", mode=mode):
+            self.units = plan_sweep(cfg, mode=mode, grid_chunk=grid_chunk)
         self.report: SelectionReport | None = None
 
     def _check_operand(self, X) -> torch.device:
@@ -264,20 +278,26 @@ class SweepScheduler:
         per_k: dict[int, KResult] = {}
         records: list[UnitRecord] = []
         for unit in self.units:
-            t0 = time.perf_counter()
-            res = self._execute(X, unit, draws)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            records.append(_record(unit, time.perf_counter() - t0))
+            with obs.span("sched/execute", uid=unit.uid, attempt=1):
+                t0 = time.perf_counter()
+                res = self._execute(X, unit, draws)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                dt = time.perf_counter() - t0
+            records.append(_record(unit, dt, dev))
+            done = {}
             if grid is not None:
-                done = {unit.k: reduce_k_grid(grid, X, cfg, unit.k, res,
-                                              draws)}
+                with obs.span("sched/reduce", k=unit.k):
+                    done[unit.k] = reduce_k_grid(grid, X, cfg, unit.k, res,
+                                                 draws)
             else:
                 for k, q, A, R, err in self._rows(unit, res):
                     pending[k].append((q, A, R, err))
-                done = {k: self._reduce(X, k, pending.pop(k), draws)
-                        for k in cfg.ks if k in pending
-                        and len(pending[k]) == cfg.n_perturbations}
+                for k in cfg.ks:
+                    if len(pending.get(k, ())) == cfg.n_perturbations:
+                        with obs.span("sched/reduce", k=k):
+                            done[k] = self._reduce(X, k, pending.pop(k),
+                                                   draws)
             del res
             per_k.update(done)
             for k, r in done.items():

@@ -6,10 +6,10 @@ port runs.  ``kernel`` is a ``kernels.KernelPolicy``; ``schedule`` is the
 dense MU schedule, one of ``core.rescal.MU_SCHEDULES`` (the BCSR sweep
 runs only the batched one, as ``repro``'s does, and refuses another);
 ``init`` is one of ``INITS`` ("nndsvd" on dense operands outside the
-cross-k grid only, as in ``repro``).  Not ported yet: ``repro``'s
-deprecated aliases (``use_fused_kernel``/``fused_impl``), ``sanitize``
-and ``trace_metrics`` (the MU steps take both flags; no config or CLI
-sets them yet).
+cross-k grid only, as in ``repro``); ``sanitize`` and ``trace_metrics``
+reach every MU step of the sweep (the runtime factor checks, and the
+per-iteration metrics of ``obs.metrics``).  Not ported: ``repro``'s
+deprecated aliases (``use_fused_kernel``/``fused_impl``).
 """
 from __future__ import annotations
 
@@ -35,6 +35,14 @@ class RescalkConfig:
     seed: int = 0
     sil_threshold: float = 0.75        # stability bar for k selection
     kernel: KernelPolicy = KernelPolicy()
+    # runtime factor sanitizer (analysis.sanitizer): finite / non-negative
+    # / masked-columns-zero checks after every MU step; each check waits
+    # for the device, so it is off by default
+    sanitize: bool = False
+    # per-iteration telemetry (obs.metrics): rel_error / factor-norm /
+    # mu-ratio trajectories recorded by every MU step; off by default, and
+    # then no step computes or records them
+    trace_metrics: bool = False
 
     def __post_init__(self):
         from repro_torch.core.rescal import check_schedule

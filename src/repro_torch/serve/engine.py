@@ -17,7 +17,12 @@ Request path, as ``repro``'s:
 Overload sheds, as in ``repro``: uncached keys past ``admit``, and chunks
 that would start after ``deadline``, get (-inf, -1) with ``shed=True``.
 ``reload`` validates a new bundle's digest before it swaps anything.
-``repro``'s trace spans and its fault probe are not ported yet.
+
+Traced (``obs.trace``) as ``repro``'s engine is: a ``serve/request`` span
+per request, a ``serve/score`` span per device batch (closed after the
+scores reach the host), ``serve/shed`` and ``serve/cache`` instants per
+request, and a ``serve/reload`` span and instant per reload.  ``repro``'s
+fault probe is not ported yet.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.kernels import ops
 from repro_torch.kernels.policy import KernelPolicy
+from repro_torch.obs import trace as obs
 
 from .bundle import FactorBundle
 
@@ -118,10 +124,11 @@ class ServeEngine:
         for j, (mode, anchor, rel) in enumerate(keys):
             anchors[j], rels[j], is_sro[j] = anchor, rel, mode == "sro"
         dev = self.device
-        s, i = self._score(torch.from_numpy(anchors).to(dev),
-                           torch.from_numpy(rels).to(dev),
-                           torch.from_numpy(is_sro).to(dev))
-        s, i = s.cpu().numpy(), i.cpu().numpy()     # waits for the device
+        with obs.span("serve/score", batch=b, live=len(keys)):
+            s, i = self._score(torch.from_numpy(anchors).to(dev),
+                               torch.from_numpy(rels).to(dev),
+                               torch.from_numpy(is_sro).to(dev))
+            s, i = s.cpu().numpy(), i.cpu().numpy()  # waits for the device
         self.batches += 1
         return [(s[j], i[j]) for j in range(len(keys))]
 
@@ -134,45 +141,52 @@ class ServeEngine:
         keys past cfg.admit, and chunks that would start after
         cfg.deadline has elapsed, are shed with the (-inf, -1) sentinel
         and ``shed=True``."""
-        t0 = time.perf_counter()
-        results: list[QueryResult | None] = [None] * len(queries)
-        pending: OrderedDict[tuple, list[int]] = OrderedDict()
-        for i, q in enumerate(queries):
-            if q.mode not in MODES:
-                raise ValueError(f"query mode must be one of {MODES}, "
-                                 f"got {q.mode!r}")
-            if not (0 <= q.anchor < self.n and 0 <= q.rel < self.m):
-                raise ValueError(f"query out of range for (n={self.n}, "
-                                 f"m={self.m}): {q}")
-            key = (q.mode, int(q.anchor), int(q.rel))
-            hit = self._cache_get(key)
-            if hit is not None:
-                self.hits += 1
-                results[i] = QueryResult(hit[0], hit[1], True)
-            else:
-                self.misses += 1
-                pending.setdefault(key, []).append(i)
-        uniq = list(pending)
-        shed_keys: list[tuple] = []
-        admit = self.cfg.admit
-        if admit is not None and len(uniq) > admit:
-            uniq, shed_keys = uniq[:admit], uniq[admit:]
-        for c0 in range(0, len(uniq), self.cfg.batch):
-            if (self.cfg.deadline is not None
-                    and time.perf_counter() - t0 > self.cfg.deadline):
-                shed_keys.extend(uniq[c0:])
-                break
-            chunk = uniq[c0:c0 + self.cfg.batch]
-            for key, out in zip(chunk, self._score_chunk(chunk)):
-                self._cache_put(key, out)
-                for i in pending[key]:
-                    results[i] = QueryResult(out[0], out[1], False)
-        if shed_keys:
-            sent = self._shed_sentinel()
-            for key in shed_keys:
-                for i in pending[key]:
-                    results[i] = QueryResult(sent[0], sent[1], False, True)
-                    self.sheds += 1
+        with obs.span("serve/request", n=len(queries)):
+            t0 = time.perf_counter()
+            results: list[QueryResult | None] = [None] * len(queries)
+            pending: OrderedDict[tuple, list[int]] = OrderedDict()
+            for i, q in enumerate(queries):
+                if q.mode not in MODES:
+                    raise ValueError(f"query mode must be one of {MODES}, "
+                                     f"got {q.mode!r}")
+                if not (0 <= q.anchor < self.n and 0 <= q.rel < self.m):
+                    raise ValueError(f"query out of range for (n={self.n}, "
+                                     f"m={self.m}): {q}")
+                key = (q.mode, int(q.anchor), int(q.rel))
+                hit = self._cache_get(key)
+                if hit is not None:
+                    self.hits += 1
+                    results[i] = QueryResult(hit[0], hit[1], True)
+                else:
+                    self.misses += 1
+                    pending.setdefault(key, []).append(i)
+            uniq = list(pending)
+            shed_keys: list[tuple] = []
+            admit = self.cfg.admit
+            if admit is not None and len(uniq) > admit:
+                uniq, shed_keys = uniq[:admit], uniq[admit:]
+            for c0 in range(0, len(uniq), self.cfg.batch):
+                if (self.cfg.deadline is not None
+                        and time.perf_counter() - t0 > self.cfg.deadline):
+                    shed_keys.extend(uniq[c0:])
+                    break
+                chunk = uniq[c0:c0 + self.cfg.batch]
+                for key, out in zip(chunk, self._score_chunk(chunk)):
+                    self._cache_put(key, out)
+                    for i in pending[key]:
+                        results[i] = QueryResult(out[0], out[1], False)
+            if shed_keys:
+                sent = self._shed_sentinel()
+                n_shed = 0
+                for key in shed_keys:
+                    for i in pending[key]:
+                        results[i] = QueryResult(sent[0], sent[1], False, True)
+                        n_shed += 1
+                self.sheds += n_shed
+                obs.event("serve/shed", queries=n_shed, keys=len(shed_keys),
+                          elapsed=round(time.perf_counter() - t0, 6))
+            obs.event("serve/cache", hits=self.hits, misses=self.misses,
+                      evictions=self.evictions, size=len(self._cache))
         return results      # type: ignore[return-value]
 
     # -- hot reload --------------------------------------------------------
@@ -182,14 +196,18 @@ class ServeEngine:
         the digest (``FactorBundle.load`` raises BundleError) and the
         factors reach the device before anything changes, so a bad bundle
         leaves the engine serving the old factors."""
-        new = FactorBundle.load(bundle_dir)                 # may raise
-        A = torch.as_tensor(new.A, device=self.device)
-        R = torch.as_tensor(new.R, device=self.device)
-        # commit point: nothing before this changed the engine
-        self.bundle, self.A, self.R = new, A, R
-        self.n, self.k, self.m = new.n, new.k, new.m
-        self._cache.clear()
-        self.reloads += 1
+        with obs.span("serve/reload", path=bundle_dir):
+            new = FactorBundle.load(bundle_dir)             # may raise
+            A = torch.as_tensor(new.A, device=self.device)
+            R = torch.as_tensor(new.R, device=self.device)
+            # commit point: nothing before this changed the engine
+            self.bundle, self.A, self.R = new, A, R
+            self.n, self.k, self.m = new.n, new.k, new.m
+            self._cache.clear()
+            self.reloads += 1
+            if obs.current() is not None:   # digest() hashes A and R
+                obs.event("serve/reload", digest=new.digest(), n=new.n,
+                          k=new.k, m=new.m)
         return new
 
     def stats(self) -> dict:

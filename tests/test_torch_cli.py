@@ -61,7 +61,7 @@ def test_cli_flags_match_repro_meanings():
     theirs = repro_parser()
     mine = {a.dest: a for a in ours._actions}
     for dest in ("bs", "k_min", "k_max", "r", "iters", "criterion",
-                 "report", "use_fused_kernel"):
+                 "report", "use_fused_kernel", "trace", "sanitize"):
         theirs_action = next(a for a in theirs._actions if a.dest == dest)
         assert mine[dest].default == theirs_action.default, dest
     assert mine["device"].default == "cuda"

@@ -649,3 +649,56 @@ def test_prefill_on_card_launches_once_per_layer(cuda):
     assert rel_err(logits, ref_logits) <= 1e-4
     for name in ("k", "v"):
         assert rel_err(cache[name], ref_cache[name]) <= 1e-4
+
+
+def test_traced_sweep_on_card_passes_check_trace(cuda, tmp_path):
+    """``rescalk_run --trace --sanitize`` on the card: the artifacts pass
+    scripts/check_trace.py, the ledger holds the allocator's peak and one
+    measured iteration per rank, and the ledger's measurement launches
+    (one per kernel per rank) stay out of the report's counts."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    from repro_torch.launch import rescalk_run
+    rng = np.random.default_rng(0)
+    n, bs, m, per = 256, 32, 2, 60
+    blocks = [(i, i) for i in range(n // bs)] + [(0, 5), (3, 1)]
+    row = np.concatenate([bi * bs + rng.integers(0, bs, per)
+                          for bi, _ in blocks])
+    col = np.concatenate([bj * bs + rng.integers(0, bs, per)
+                          for _, bj in blocks])
+    np.savez(tmp_path / "x.npz", row=row, col=col,
+             rel=rng.integers(0, m, row.size),
+             val=rng.uniform(0.5, 1.5, row.size).astype(np.float32))
+    ks, iters = (2, 3), 20
+    ops.reset_launch_counts()
+    _, rep = rescalk_run.main([
+        "--data", str(tmp_path / "x.npz"), "--bs", str(bs), "--k-min", "2",
+        "--k-max", "3", "--r", "3", "--iters", str(iters),
+        "--use-fused-kernel", "--sanitize", "--trace", str(tmp_path / "tr"),
+        "--report", str(tmp_path / "r.json")])
+    total = ops.launch_counts()
+    script = Path(__file__).resolve().parent.parent / "scripts" / \
+        "check_trace.py"
+    out = subprocess.run([sys.executable, str(script), str(tmp_path / "tr"),
+                          "--report", str(tmp_path / "r.json"),
+                          "--expect-metrics", "--expect-memory"],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout
+    led = json.loads((tmp_path / "tr" / "memory.json").read_text())
+    assert led["runtime"]["peak_device_bytes"] > 0
+    assert sorted(led["per_k"]) == [str(k) for k in ks]
+    for e in led["per_k"].values():
+        assert e["peak"] >= max(e["argument"], e["output"], e["temp"]) > 0
+    assert all(u.peak_device_bytes > 0 for u in rep.units)
+    launches = rep.meta["kernel_launches"]
+    assert launches["mu_update_a"] == launches["bcsr_xa_xta"] == \
+        len(ks) * iters
+    # every traced iteration's rel_error, then 3 per rank in the reduction
+    assert launches["bcsr_spmm"] == len(ks) * (iters + 3)
+    for name in ("mu_update_a", "bcsr_xa_xta"):
+        assert total[name] == launches[name] + len(ks)
+    with np.load(tmp_path / "tr" / "metrics.npz") as d:
+        assert d["core.sparse.sparse_mu_step.rel_error"].shape == \
+            (len(ks) * iters * 3,)

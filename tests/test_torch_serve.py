@@ -440,10 +440,10 @@ def test_serve_flags_match_repro_meanings():
     from repro.launch.serve import build_parser as repro_parser
     mine = {a.dest: a for a in tserve.build_parser()._actions}
     theirs = {a.dest: a for a in repro_parser()._actions}
-    assert set(theirs) - set(mine) == {"trace"}
+    assert set(theirs) - set(mine) == set()
     assert set(mine) - set(theirs) == {"device"}
     for dest, action in theirs.items():
-        if dest not in ("help", "trace", "impl"):
+        if dest not in ("help", "impl"):
             assert mine[dest].default == action.default, dest
             assert mine[dest].choices == action.choices, dest
     assert mine["impl"].choices == ("auto", "cuda", "ref")
