@@ -170,6 +170,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      in memory and untraced (each with phase 5's stats()), their request
      p50s, and the host time of one trace record, written to a file and
      in memory.
+ 10. The sharded and virtual sparse operand (after phase 7, in the same
+     temporary directory; the card's name and power limit printed
+     first).  (a) The virtual BCSR sweep through
+     ``rescalk_run.main`` at full width: ``--data virtual:bcsr:n=131072,
+     m=8,k=4,bs=128,density=0.005,seed=0 --k-min 2 --k-max 6 --r 4
+     --iters 300 --use-fused-kernel`` (nb = 1024, ~6100-6300 stored
+     blocks, ~3.2 GB resident, 512 GiB logical); the manifest's logical
+     and resident bytes held to the spec's; the counters, zeroed just
+     before: both BCSR kernels launched, mu_update_a once per MU
+     iteration (1500); the same run with --fused-impl ref: the same
+     k_opt, per-k within 1e-4.  The selected k against the planted 4,
+     the per-k table, ms per MU iteration beside phase 3's, and the
+     device peak are printed; rank recovery is a finding, not a
+     requirement.  (b) The same operand (``virtual_sharded_bcsr``,
+     generation seconds printed) on a 1 x 1 NCCL grid: ``rescalk(cell,
+     cfg, grid=grid)`` fused, bcsr_xa_xta and mu_update_a once per MU
+     iteration, collectives > 0, the same k_opt as (a) and per-k within
+     1e-4 of it; then ``dist_rescal`` on the shard with the sliced
+     schedule for 20 iterations (m launches per iteration), kernel and
+     ref, A and R within 1e-4 of the largest |value|.  (c) Phase 3's
+     file through ``partition_coo(grid=2)`` on the card (balance, shard
+     nnzb, z_max, resident bytes and seconds printed); ``to_bcsr()``
+     holds phase 3's stored-block count and sum; each front-padded shard
+     through bcsr_xa_xta and bcsr_spmm at k = 4 and 5 against their
+     plain versions (phase 2's tolerances), timed with and without its
+     padding; then ``manifest_of`` of the skewed spec
+     ``virtual:bcsr:n=131072,m=8,k=4,bs=128,grid=2,density=0.005,
+     skew=1.2,seed=0`` (index only), its shard nnzb and identity-layout
+     imbalance.  (d) ``virtual:bcsr:n=4096,m=3,k=4,bs=128,density=0.05,
+     seed=0`` through the CLI (k = 2..6, r = 4, 300 iterations, fused):
+     k_opt must be the planted 4.  Phase 2's edge cases include
+     front-padded patterns (300 repeated (0, 0) blocks before the real
+     ones).
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -261,6 +294,22 @@ TRACE_ITERS = 60
 RECORDED_BCSR_MS = 11.56
 TRACE_PROFILE_REPS = 10   # MU iterations per timing of one traced step
 TRACE_ROUNDS = 3          # serve rounds: untraced, to a file, in memory
+
+
+# phase 10: the virtual BCSR sweep at full width ((a) and (b); nb = 1024,
+# ~6262 stored blocks, 3.28 GB, 512 GiB logical), the skewed grid-2 spec
+# whose manifest (c) prints, and the small spec whose planted rank (d)
+# must come back
+VIRTUAL = dict(spec="virtual:bcsr:n=131072,m=8,k=4,bs=128,density=0.005,"
+                    "seed=0", n=131072, m=8, bs=128, k_true=4, k_min=2,
+               k_max=6, r=4, iters=300, sliced_k=4, sliced_iters=20)
+VIRTUAL_SKEW = ("virtual:bcsr:n=131072,m=8,k=4,bs=128,grid=2,density=0.005,"
+                "skew=1.2,seed=0")
+VIRTUAL_SMALL = dict(spec="virtual:bcsr:n=4096,m=3,k=4,bs=128,density=0.05,"
+                          "seed=0", n=4096, k_true=4, k_min=2, k_max=6, r=4,
+                     iters=300)
+PARTITION_GRID = 2          # (c): phase 3's file on a 2 x 2 layout
+PADDING_KS = (4, 5)         # (c): the shards through both BCSR kernels
 
 
 def log(msg: str) -> None:
@@ -355,6 +404,10 @@ def check_edges(dev) -> None:
     # nb = 47: block row 0 holds 44 blocks, rows 1-2 and 4-45 none, block
     # cols 44 and 45 none (uneven work per block row)
     uneven = ([0] * 44 + [3, 3, 46], list(range(44)) + [0, 5, 46])
+    # a grid shard's front padding: 300 repeated (0, 0) blocks before the
+    # real ones, block row 0 one long unit (values nonzero here, so the
+    # repeats' sums are checked too)
+    padded = ([0] * 300 + [0, 0, 2, 2, 4], [0] * 300 + [0, 3, 1, 2, 3])
     cases = [  # (n, bs, pattern, k, data members, operand members)
         (600, 128, gappy, 3, None, None),      # bs does not divide n
         (600, 128, gappy, 16, 4, 4),           # r = 4, k = 16
@@ -372,6 +425,8 @@ def check_edges(dev) -> None:
         (600, 128, gappy, 12, 4, 4),           # k = 12: a half-full k-slice
         (600, 128, gappy, 33, 4, 4),           # k = 33: five k-slices
         (200, 32, gappy, 64, None, 4),         # k = 64, shared data
+        (600, 128, padded, 5, 4, 4),           # front-padded shard
+        (600, 128, padded, 8, None, 4),        # the same, shared data
     ]
     for n, bs, (rows, cols), k, dr, br in cases:
         sp = pattern_bcsr(rows, cols, n, bs, 3, dr, gen, dev)
@@ -1970,6 +2025,264 @@ def record_us(out_dir: Path | None, spans: int = 2000) -> float:
     return 1e6 * seconds / (2 * spans)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the virtual and sharded sparse operand
+# ---------------------------------------------------------------------------
+
+def run_virtual_cli(tmp: Path, name: str, cfg: dict, impl: str):
+    """One sweep through ``rescalk_run.main`` on a virtual spec; returns
+    (result, report, launches of this run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import rescalk_run
+    argv = ["--data", cfg["spec"], "--k-min", str(cfg["k_min"]),
+            "--k-max", str(cfg["k_max"]), "--r", str(cfg["r"]),
+            "--iters", str(cfg["iters"]), "--use-fused-kernel",
+            "--fused-impl", impl, "--report", str(tmp / f"{name}.json")]
+    log(f"[virtual] rescalk_run {' '.join(argv)}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, rep = rescalk_run.main(argv)
+    launches = ops.launch_counts()
+    log(f"[virtual] {name}: {time.perf_counter() - t0:.1f}s wall; per MU "
+        f"iteration {ms_per_iteration(rep, cfg['iters']):.2f} ms; launches "
+        f"{launches}")
+    check_sweep(res, tmp / f"{name}.json", cfg)
+    return res, rep, launches
+
+
+def per_k_table(res) -> str:
+    return "; ".join(f"k={int(k)} s_min={a:.4f} s_mean={b:.4f} "
+                     f"rel_err={c:.4f}" for k, a, b, c in
+                     zip(res.ks, res.s_min, res.s_mean, res.rel_err))
+
+
+def time_shard(sp, A, reps: int = 20) -> tuple[float, float]:
+    """bcsr_xa_xta and bcsr_spmm on one shard: ms per call."""
+    from repro_torch.kernels import bcsr_fused, bcsr_spmm
+    return (cuda_ms(lambda: bcsr_fused.bcsr_xa_xta(sp, A, A), reps=reps),
+            cuda_ms(lambda: bcsr_spmm.bcsr_spmm(sp, A), reps=reps))
+
+
+def check_partition(tmp: Path, dev) -> None:
+    """(c): phase 3's file balanced onto a 2 x 2 layout; every shard,
+    front-padded, through both BCSR kernels against their plain versions,
+    and timed with and without its padding; then the manifest of the
+    skewed grid-2 spec."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sparse import BCSR
+    from repro_torch.io import (VirtualSpec, coo_to_bcsr, ingest_npz,
+                                manifest_of, partition_coo)
+    from repro_torch.kernels import bcsr_fused, bcsr_spmm, ref
+    coo = ingest_npz(str(tmp / "planted.npz"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh = partition_coo(coo, bs=FULL["bs"], grid=PARTITION_GRID, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"[virtual] partition_coo of phase 3's file (nnz {coo.nnz}) onto "
+        f"grid={PARTITION_GRID}: {secs:.2f}s; balance {sh.balance:.4f}; "
+        f"shard nnzb {sh.nnzb.reshape(-1).tolist()}; z_max {sh.z_max}; "
+        f"resident {sh.resident_bytes / 1e9:.3f} GB")
+    whole = coo_to_bcsr(coo, bs=FULL["bs"], device=dev)
+    merged = sh.to_bcsr()
+    del coo
+    require(merged.nnzb == whole.nnzb == sh.nnzb_total,
+            f"to_bcsr has {merged.nnzb} blocks, phase 3's BCSR "
+            f"{whole.nnzb}")
+    s_m = float(torch.sum(merged.data, dtype=torch.float64))
+    s_w = float(torch.sum(whole.data, dtype=torch.float64))
+    require(abs(s_m - s_w) <= 1e-9 * abs(s_w),
+            f"to_bcsr's sum {s_m!r} differs from phase 3's {s_w!r}")
+    log(f"[virtual] to_bcsr: {merged.nnzb} stored blocks (phase 3's "
+        f"{whole.nnzb}), sum {s_m:.6f} (phase 3's {s_w:.6f})")
+    del merged, whole
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    for i in range(sh.g):
+        for j in range(sh.g):
+            sp = sh.shard(i, j)
+            pad = sh.z_max - int(sh.nnzb[i, j])
+            # the same shard without its padding (a contiguous copy)
+            real = BCSR(data=sp.data[:, pad:].contiguous(),
+                        block_rows=sp.block_rows[pad:],
+                        block_cols=sp.block_cols[pad:], n=sp.n)
+            for k in PADDING_KS:
+                A = torch.rand((sp.n, k), generator=gen, device=dev)
+                xa, xt = bcsr_fused.bcsr_xa_xta(sp, A, A)
+                sa = bcsr_spmm.bcsr_spmm(sp, A)
+                torch.cuda.synchronize()
+                ra, rt = ref.ref_bcsr_xa_xta(sp, A, A)
+                tag = f"shard ({i}, {j}), {pad} padding blocks, k={k}"
+                compare(f"bcsr_xa_xta XA [{tag}]", xa, ra)
+                compare(f"bcsr_xa_xta XTB [{tag}]", xt, rt)
+                compare(f"bcsr_spmm [{tag}]", sa, ra)
+                del xa, xt, sa, ra, rt
+                f_ms, s_ms = time_shard(sp, A)
+                f_real, s_real = time_shard(real, A)
+                log(f"[virtual] {tag}: bcsr_xa_xta {f_ms:.4f} ms "
+                    f"({f_real:.4f} without the padding), bcsr_spmm "
+                    f"{s_ms:.4f} ms ({s_real:.4f}); both held to their "
+                    f"plain versions")
+            del sp, real
+    del sh
+    torch.cuda.empty_cache()
+    spec = VirtualSpec.parse(VIRTUAL_SKEW)
+    t0 = time.perf_counter()
+    man = manifest_of(spec)
+    nnzb = np.array(man.nnzb)
+    log(f"[virtual] manifest_of({VIRTUAL_SKEW}) in "
+        f"{time.perf_counter() - t0:.2f}s (index only): shard nnzb "
+        f"{nnzb.tolist()}, identity-layout imbalance "
+        f"{nnzb.max() * nnzb.size / nnzb.sum():.4f}, logical "
+        f"{man.logical_bytes / 2**30:.2f} GiB, resident "
+        f"{man.resident_bytes / 1e9:.3f} GB")
+
+
+def phase_virtual(tmp: Path, rep3, dev, smi: str) -> None:
+    """Phase 10 (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.rescalk import rescalk
+    from repro_torch.dist.engine import DistRescalConfig, dist_rescal
+    from repro_torch.io import VirtualSpec, manifest_of, virtual_sharded_bcsr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.selection import RescalkConfig
+    cfg = VIRTUAL
+    log(f"[virtual] on {smi}")
+    spec = VirtualSpec.parse(cfg["spec"])
+    man = manifest_of(spec)
+    nnzb = int(man.nnzb[0])
+    per_block = cfg["m"] * cfg["bs"] ** 2 * 4
+    log(f"[virtual] {cfg['spec']}: {nnzb} stored blocks, logical "
+        f"{man.logical_bytes} B ({man.logical_bytes / 2**30:.2f} GiB), "
+        f"resident {man.resident_bytes} B ({man.resident_bytes / 1e9:.3f} "
+        f"GB), {man.compression:.1f}x")
+    require(man.logical_bytes == cfg["m"] * cfg["n"] ** 2 * 4,
+            "logical bytes")
+    require(man.resident_bytes == nnzb * (per_block + 8), "resident bytes")
+    require(5900 <= nnzb <= 6600, f"{nnzb} stored blocks, expected ~6262")
+
+    # (a) the sweep through the CLI, kernels then plain
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, rep, launches = run_virtual_cli(tmp, "virtual_cuda", cfg, "auto")
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = (cfg["k_max"] - cfg["k_min"] + 1) * cfg["iters"]
+    for name in ("bcsr_xa_xta", "bcsr_spmm"):
+        require(launches[name] > 0, f"{name} was not launched")
+    require(launches["mu_update_a"] == want,
+            f"mu_update_a launched {launches['mu_update_a']} times, want "
+            f"{want}")
+    ms_a = ms_per_iteration(rep, cfg["iters"])
+    log(f"[virtual] (a) k_opt {res.k_opt} against the planted "
+        f"{cfg['k_true']}; {per_k_table(res)}")
+    log(f"[virtual] (a) per MU iteration {ms_a:.2f} ms (phase 3: "
+        f"{ms_per_iteration(rep3, FULL['iters']):.2f} ms); device peak "
+        f"{peak / 1e9:.2f} GB")
+    ref, rep_ref, launches_ref = run_virtual_cli(tmp, "virtual_ref", cfg,
+                                                 "ref")
+    require(not any(launches_ref.values()), "the ref sweep launched a kernel")
+    require(res.k_opt == ref.k_opt,
+            f"k_opt differs: kernel {res.k_opt}, ref {ref.k_opt}")
+    for name in ("s_min", "s_mean", "rel_err"):
+        worst = float(np.abs(getattr(res, name) - getattr(ref, name)).max())
+        log(f"[virtual] (a) {name}: kernel vs ref max |diff| {worst:.2e}")
+        require(worst <= SWEEP_TOL, f"{name} differs by {worst:.2e}")
+    log(f"[virtual] (a) ref per MU iteration "
+        f"{ms_per_iteration(rep_ref, cfg['iters']):.2f} ms")
+
+    # (b) the same operand on a 1 x 1 NCCL grid
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = virtual_sharded_bcsr(spec, device=dev)
+    torch.cuda.synchronize()
+    log(f"[virtual] virtual_sharded_bcsr: {sharded.nnzb_total} blocks, "
+        f"{sharded.data.numel() * 4 / 1e9:.3f} GB generated in "
+        f"{time.perf_counter() - t0:.2f}s")
+    grid = make_grid(data=1, model=1, device=dev)
+    try:
+        cell = sharded.cell(0, 0)
+        rc = RescalkConfig(k_min=cfg["k_min"], k_max=cfg["k_max"],
+                           n_perturbations=cfg["r"],
+                           rescal_iters=cfg["iters"],
+                           kernel=KernelPolicy(use_fused=True))
+        ops.reset_launch_counts()
+        c0 = grid.collectives
+        t0 = time.perf_counter()
+        gres = rescalk(cell, rc, grid=grid,
+                       report_path=str(tmp / "virtual_grid.json"))
+        glaunch = ops.launch_counts()
+        units = json.loads((tmp / "virtual_grid.json").read_text())["units"]
+        ms_b = 1e3 * sum(u["seconds"] for u in units) / (
+            len(units) * cfg["iters"])
+        log(f"[virtual] (b) 1 x 1 grid sweep: "
+            f"{time.perf_counter() - t0:.1f}s wall, per MU iteration "
+            f"{ms_b:.2f} ms, launches {glaunch}, collectives "
+            f"{grid.collectives - c0}")
+        for name in ("bcsr_xa_xta", "mu_update_a"):
+            require(glaunch[name] == want, f"grid: {name} launched "
+                    f"{glaunch[name]} times, want {want}")
+        require(grid.collectives > c0, "the grid issued no collective")
+        require(gres.k_opt == res.k_opt,
+                f"grid k_opt {gres.k_opt}, single device {res.k_opt}")
+        for name in ("s_min", "s_mean", "rel_err"):
+            worst = float(np.abs(getattr(gres, name)
+                                 - getattr(res, name)).max())
+            log(f"[virtual] (b) {name}: grid vs single device max |diff| "
+                f"{worst:.2e}")
+            require(worst <= SWEEP_TOL, f"grid {name} differs by "
+                                        f"{worst:.2e}")
+        out = {}
+        for impl in ("auto", "ref"):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, err = dist_rescal(
+                cell.sp, cfg["sliced_k"], grid, generator=gen,
+                iters=cfg["sliced_iters"],
+                cfg=DistRescalConfig(schedule="sliced", kernel=KernelPolicy(
+                    use_fused=True, impl=impl)))
+            torch.cuda.synchronize()
+            out[impl] = st
+            n_l = ops.launch_counts()["bcsr_xa_xta"]
+            log(f"[virtual] (b) dist_rescal sliced impl={impl}: "
+                f"{cfg['sliced_iters']} iterations in "
+                f"{time.perf_counter() - t0:.2f}s, rel_err {float(err):.6f}, "
+                f"bcsr_xa_xta launches {n_l}")
+            if impl == "auto":
+                require(n_l == cfg["m"] * cfg["sliced_iters"],
+                        "the sliced schedule did not launch m times per "
+                        "iteration")
+        for name in ("A", "R"):
+            a, b = getattr(out["auto"], name), getattr(out["ref"], name)
+            rel = float((a - b).abs().max() / b.abs().max())
+            log(f"[virtual] (b) dist_rescal sliced {name}: max |diff| / max "
+                f"|ref| {rel:.2e}")
+            require(bool(torch.isfinite(a).all()) and rel <= SWEEP_TOL,
+                    f"dist_rescal sliced {name} differs by {rel:.2e}")
+        del cell, out
+    finally:
+        grid.destroy()
+    del sharded
+    torch.cuda.empty_cache()
+
+    # (c) the balancer and front-padded shards at full size
+    check_partition(tmp, dev)
+
+    # (d) the planted rank at a small size
+    small = VIRTUAL_SMALL
+    sres, _, _ = run_virtual_cli(tmp, "virtual_small", small, "auto")
+    log(f"[virtual] (d) {small['spec']}: k_opt {sres.k_opt} (planted "
+        f"{small['k_true']}); {per_k_table(sres)}")
+    require(sres.k_opt == small["k_true"],
+            f"the small virtual spec selected k={sres.k_opt}, planted "
+            f"{small['k_true']}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2000,6 +2313,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         grid_res = phase_grid(by_name["fused_xa_xtb"], Path(tmp), dev)
         phase_dense(by_name, grid_res, Path(tmp))
+        torch.cuda.empty_cache()
+        phase_virtual(Path(tmp), rep3, dev, smi)
     torch.cuda.empty_cache()
     rows.append(phase_lm(dev, smi))
     for row in rows:

@@ -7,6 +7,8 @@ port's counterpart on a torch device (a bundle stays numpy).  What they
 carry across:
 
   * a BCSR's ``data``/``block_rows``/``block_cols``/``n`` (``bcsr``);
+  * a ``BlockPartition`` (``block_partition``) and a ``ShardedBCSR``
+    with its partition (``sharded_bcsr``);
   * a dense X, ``RescalState`` factors A and R (``tensor``,
     ``rescal_state``);
   * one grid cell's share of the global dense X, A and R and of the
@@ -32,6 +34,7 @@ from repro_torch import device as _device
 from repro_torch.core.rescal import RescalState
 from repro_torch.core.sparse import BCSR
 from repro_torch.dist.sharding import Grid
+from repro_torch.io.partition import BlockPartition, ShardedBCSR
 from repro_torch.models.transformer import dtype_of
 from repro_torch.selection.scheduler import GridChunk
 from repro_torch.selection.types import KResult
@@ -51,6 +54,26 @@ def bcsr(sp_like, device=None) -> BCSR:
                 block_rows=tensor(sp_like.block_rows, device, torch.int32),
                 block_cols=tensor(sp_like.block_cols, device, torch.int32),
                 n=int(sp_like.n))
+
+
+def block_partition(part_like) -> BlockPartition:
+    """A BlockPartition from ``repro``'s (its ints and numpy arrays)."""
+    return BlockPartition(
+        n=int(part_like.n), bs=int(part_like.bs), grid=int(part_like.grid),
+        nb=int(part_like.nb), nb_loc=int(part_like.nb_loc),
+        perm=np.array(part_like.perm, np.int64),
+        pos=np.array(part_like.pos, np.int64))
+
+
+def sharded_bcsr(sh_like, device=None) -> ShardedBCSR:
+    """A ShardedBCSR from ``repro``'s: ``part``, the stacked ``data``
+    (g, g, m, z_max, bs, bs), ``rows``/``cols`` and ``nnzb``, on
+    ``device``."""
+    return ShardedBCSR(part=block_partition(sh_like.part),
+                       data=tensor(sh_like.data, device),
+                       rows=tensor(sh_like.rows, device, torch.int32),
+                       cols=tensor(sh_like.cols, device, torch.int32),
+                       nnzb=np.array(sh_like.nnzb, np.int64))
 
 
 def rescal_state(A, R, *, step: int = 0, device=None) -> RescalState:

@@ -3,11 +3,12 @@
 ``selection.SweepScheduler``.
 
 ``rescalk(X, cfg)`` runs the sweep on one device, on a dense (m, n, n)
-tensor or a BCSR, in the ``mode`` of ``repro``'s (batched, loop, or the
-cross-k grid in chunks of ``grid_chunk`` cells); ``rescalk(X, cfg,
-grid=grid)`` runs the dense sweep on the 2D process grid, the counterpart
-of ``repro``'s ``rescalk(X, cfg, mesh=mesh)``: every cell calls it with
-its block X^(i,j), and every cell gets the same result.  ``repro``'s
+tensor, a BCSR or a ShardedBCSR (merged once), in the ``mode`` of
+``repro``'s (batched, loop, or the cross-k grid in chunks of
+``grid_chunk`` cells); ``rescalk(X, cfg, grid=grid)`` runs the sweep on
+the 2D process grid, the counterpart of ``repro``'s ``rescalk(X, cfg,
+mesh=mesh)``: every cell calls it with its dense block X^(i,j) or its
+``CellShard`` of a ShardedBCSR, and every cell gets the same result.  ``repro``'s
 custom ``member_runner`` loop and ``ckpt_dir`` are not ported.
 """
 from __future__ import annotations
@@ -22,8 +23,9 @@ def rescalk(X, cfg: RescalkConfig, *, mode: str = "batched",
             grid_chunk: int | None = None, grid=None, draws=None,
             criterion: str = "threshold",
             report_path: str | None = None) -> RescalkResult:
-    """The sweep on X: a dense tensor or a ``core.sparse.BCSR`` without
-    ``grid``, this cell's dense block with it.  ``draws`` defaults to
+    """The sweep on X: a dense tensor, a ``core.sparse.BCSR`` or a
+    ``ShardedBCSR`` without ``grid``; this cell's dense block or
+    ``CellShard`` with it.  ``draws`` defaults to
     ``TorchDraws(cfg.seed)`` on X's device."""
     return SweepScheduler(cfg, mode=mode, grid_chunk=grid_chunk,
                           criterion=criterion, draws=draws, grid=grid,

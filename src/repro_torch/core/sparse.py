@@ -10,7 +10,8 @@ Layout, shared across the m relation slices:
 
 Blocks are stored in row-major order (checked when a BCSR is built), so
 each block-row's blocks are contiguous — the CUDA kernels walk them with
-``row_ptr``.  ``data`` may carry a leading member axis, (r, m, nnzb, bs,
+``row_ptr``.  A block may repeat: a grid shard (``io.partition``) is
+front-padded with zero blocks at (0, 0), whose products add nothing.  ``data`` may carry a leading member axis, (r, m, nnzb, bs,
 bs): the r perturbed copies of one ensemble share the pattern, and every
 product below then also takes a member-batched operand (r, n, k).  That
 axis is ``repro``'s ``vmap`` written out.
@@ -77,9 +78,9 @@ class BCSR:
             if lo < 0 or hi >= nb:
                 raise ValueError(f"block coordinates outside [0, {nb})")
             order = rows * nb + cols
-            if self.nnzb > 1 and not bool((order[1:] > order[:-1]).all()):
-                raise ValueError("stored blocks must be in strictly "
-                                 "row-major order (sorted by (row, col))")
+            if self.nnzb > 1 and not bool((order[1:] >= order[:-1]).all()):
+                raise ValueError("stored blocks must be in row-major order "
+                                 "(sorted by (row, col))")
         counts = torch.bincount(rows, minlength=nb)
         row_ptr = torch.zeros(nb + 1, dtype=torch.int32,
                               device=self.data.device)
@@ -87,10 +88,22 @@ class BCSR:
         object.__setattr__(self, "row_ptr", row_ptr)
 
     def with_data(self, data: torch.Tensor) -> "BCSR":
-        """The same pattern with other stored values (a perturbed copy or
-        a member-stacked ensemble)."""
-        return BCSR(data=data, block_rows=self.block_rows,
-                    block_cols=self.block_cols, n=self.n)
+        """The same pattern with other stored values (a perturbed copy, a
+        member-stacked ensemble, or a view of some relation slices).  The
+        pattern was checked when this tensor was built and is not checked
+        again: no device sync."""
+        if data.dim() not in (4, 5) or data.shape[-3:] != self.data.shape[-3:] \
+                or data.device != self.data.device:
+            raise ValueError(f"data {tuple(data.shape)} on {data.device} "
+                             f"does not fit the pattern of "
+                             f"{tuple(self.data.shape)} on "
+                             f"{self.data.device}")
+        new = object.__new__(BCSR)
+        for name, value in (("data", data), ("block_rows", self.block_rows),
+                            ("block_cols", self.block_cols), ("n", self.n),
+                            ("row_ptr", self.row_ptr)):
+            object.__setattr__(new, name, value)
+        return new
 
     @property
     def m(self) -> int:

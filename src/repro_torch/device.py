@@ -5,6 +5,7 @@ that wants the CPU says so; nothing here drops to the CPU on its own.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -29,3 +30,14 @@ def strict_fp32() -> None:
     cancelling identity (core/rescal.py) needs true fp32 products."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def seeded_generator(*words: int, device="cpu") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from integer words
+    through numpy's ``SeedSequence``: one independent stream per tuple of
+    words (seed, stream, member, shard, ...), the port's counterpart of
+    ``jax.random``'s ``fold_in``."""
+    state = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
+    g = torch.Generator(device=device)
+    g.manual_seed(int(state >> np.uint64(1)))
+    return g

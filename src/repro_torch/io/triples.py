@@ -5,9 +5,10 @@
 (``head \t relation \t tail [\t weight]``), which ``Vocab`` numbers in
 order of first appearance; ``read_coo_npz`` yields bounded chunks of a
 pre-numbered COO file (arrays ``row``/``rel``/``col`` and optional
-``val``).  ``ingest_tsv``/``ingest_npz`` accumulate the chunks and merge
-duplicate coordinates by summation, as ``repro``'s ``COOBuilder`` does, so
-the COO and the vocab equal ``repro``'s.  Host numpy, O(nnz) memory.
+``val``).  ``ingest_tsv``/``ingest_npz`` (and ``COOBuilder``) accumulate
+the chunks and merge duplicate coordinates by summation, as ``repro``'s
+does, so the COO and the vocab equal ``repro``'s.  Host numpy, O(nnz)
+memory.
 Traced as ``ingest/tsv`` and ``ingest/npz`` spans (``obs.trace``).
 """
 from __future__ import annotations
@@ -157,6 +158,26 @@ def coo_from_chunks(chunks, *, n: int | None = None,
     vals = np.add.reduceat(vals, starts).astype(np.float32)
     return COOTensor(rels=rels[starts], rows=rows[starts],
                      cols=cols[starts], vals=vals, n=n, m=m)
+
+
+class COOBuilder:
+    """Streaming COO accumulator (``repro``'s): ``add`` appends one id
+    chunk, ``finalize`` sorts and sums duplicates (``coo_from_chunks``).
+    ``repro``'s ingest fault seam is not ported."""
+
+    def __init__(self):
+        self._chunks: list[tuple] = []
+
+    def add(self, rels, rows, cols, vals) -> "COOBuilder":
+        self._chunks.append((np.asarray(rows, np.int64),
+                             np.asarray(rels, np.int64),
+                             np.asarray(cols, np.int64),
+                             np.asarray(vals, np.float32)))
+        return self
+
+    def finalize(self, *, n: int | None = None,
+                 m: int | None = None) -> COOTensor:
+        return coo_from_chunks(self._chunks, n=n, m=m)
 
 
 def ingest_tsv(path: str, *, chunk: int = DEFAULT_CHUNK

@@ -40,9 +40,13 @@ class Launch:
         if sp.data.dtype != torch.float32 or any(
                 B.dtype != torch.float32 for B in operands):
             raise TypeError(f"{kernel}: data and operands must be float32")
-        if not sp.data.is_contiguous() or sp.data.data_ptr() % 16:
-            raise ValueError(f"{kernel}: data must be contiguous and "
-                             f"16-byte aligned")
+        # each member's (m, nnzb, bs, bs) contiguous; the member axis may
+        # be strided (one relation slice of a member stack)
+        inner = sp.data[0] if sp.batch_shape else sp.data
+        if not inner.is_contiguous() or sp.data.data_ptr() % 16 or (
+                sp.batch_shape and sp.data.stride(0) % 4):
+            raise ValueError(f"{kernel}: data must be contiguous per member "
+                             f"and 16-byte aligned")
         if not (sp.row_ptr.is_contiguous()
                 and sp.block_cols.is_contiguous()):
             raise ValueError(f"{kernel}: row_ptr and block_cols must be "
@@ -75,8 +79,8 @@ class Launch:
         self.T = self.members * sp.m
         if self.T > MAX_SLICES:
             raise ValueError(f"{kernel}: {self.T} slices exceed {MAX_SLICES}")
-        blk = sp.nnzb * bs * bs
-        self.data_member_stride = sp.m * blk if d_r is not None else 0
+        self.data_member_stride = sp.data.stride(0) if d_r is not None \
+            else 0
         self.b_member_stride = sp.n_pad * k if b_r is not None else 0
         tensors = (sp.data, sp.row_ptr, sp.block_cols) + operands
         dev = sp.data.device

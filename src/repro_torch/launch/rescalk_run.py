@@ -1,8 +1,10 @@
 """RESCALk model-selection CLI of the port (port of
 ``repro/launch/rescalk_run.py``): the sweep on the synthetic dense tensor
-of ``--n/--m/--k-true`` (the default, built on the run's device), or a
-BCSR sweep on a TSV triple list or an NPZ COO file (``--data``); it
-persists the selected factors as a FactorBundle.
+of ``--n/--m/--k-true`` (the default, built on the run's device), a BCSR
+sweep on a TSV triple list or an NPZ COO file, or a virtual dataset
+generated on the device (``--data virtual:{dense|bcsr}:k=v,...``, the
+``io.virtual`` spec grammar); it persists the selected factors as a
+FactorBundle.
 
 Runs on the H100 by default; ``--device cpu`` runs the plain PyTorch path
 on the CPU.  ``--use-fused-kernel`` routes the MU products and the A
@@ -18,6 +20,15 @@ members batched, as a loop, or as the cross-k grid in chunks of
         --data X.npz --bs 128 --k-min 2 --k-max 5 --r 4 --use-fused-kernel \\
         --report /tmp/r.json          # the bundle goes to /tmp/r.bundle
 
+    PYTHONPATH=src python -m repro_torch.launch.rescalk_run --data \\
+        virtual:bcsr:n=131072,m=8,k=4,bs=128,density=0.005,seed=0 \\
+        --k-min 2 --k-max 6 --r 4 --use-fused-kernel
+
+A virtual bcsr spec is generated as a ShardedBCSR (the identity layout of
+its ``grid``), merged into one BCSR on the run's device (a view when
+grid = 1); a virtual dense spec as the full (m, n, n) tensor.  The
+``[io]`` line prints its logical bytes against the resident ones.
+
 ``--trace DIR`` records the run (spans, per-iteration metrics, the byte
 ledger) and writes ``trace.jsonl``, ``trace_chrome.json``, ``metrics.npz``,
 ``summary.txt`` and ``memory.json`` to DIR, the artifact set
@@ -32,12 +43,14 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import device as _device
 from repro_torch.core.rescal import MU_SCHEDULES
 from repro_torch.data.synthetic import synthetic_rescal
-from repro_torch.io import (coo_to_bcsr, ingest_npz, ingest_tsv, manifest_of,
-                            operand_dims)
+from repro_torch.io import (ShardedBCSR, VirtualSpec, coo_to_bcsr,
+                            ingest_npz, ingest_tsv, manifest_of, operand_dims,
+                            virtual_dense_full, virtual_sharded_bcsr)
 from repro_torch.kernels.policy import IMPLS, KernelPolicy
 from repro_torch.obs import costs as obs_costs
 from repro_torch.obs import memory as obs_memory
@@ -56,9 +69,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--k-true", type=int, default=5)
     ap.add_argument("--data", default=None,
                     help="a .tsv triple list (head, relation, tail, "
-                         "optional weight) or an .npz COO file (arrays "
-                         "row/rel/col and optional val); default: the "
-                         "synthetic dense tensor of --n/--m/--k-true")
+                         "optional weight), an .npz COO file (arrays "
+                         "row/rel/col and optional val), or a virtual "
+                         "dataset spec virtual:{dense|bcsr}:n=..,m=..,k=.."
+                         "[,bs=,grid=,density=,skew=,noise=,seed=,"
+                         "correlated=,dtype=] generated on the device; "
+                         "default: the synthetic dense tensor of "
+                         "--n/--m/--k-true")
     ap.add_argument("--bs", type=int, default=128,
                     help="BCSR block size")
     ap.add_argument("--k-min", type=int, default=2)
@@ -115,6 +132,8 @@ def load_operand(args, dev):
               f" {X.numel() * X.element_size() / 2**20:.1f} MiB on {dev}")
         return X, A_true, None
     t0 = time.perf_counter()
+    if args.data.startswith("virtual:"):
+        return load_virtual(args.data, dev), None, None
     vocab = None
     if args.data.endswith(".tsv"):
         coo, vocab = ingest_tsv(args.data)
@@ -124,7 +143,8 @@ def load_operand(args, dev):
         coo = ingest_npz(args.data)
         print(f"[io] {args.data}: n={coo.n} m={coo.m} nnz={coo.nnz}")
     else:
-        raise SystemExit(f"--data must be .tsv or .npz, got {args.data!r}")
+        raise SystemExit(f"--data must be .tsv, .npz or virtual:..., got "
+                         f"{args.data!r}")
     sp = coo_to_bcsr(coo, bs=args.bs, device=dev)
     del coo
     resident = sp.data.numel() * sp.data.element_size()
@@ -132,6 +152,29 @@ def load_operand(args, dev):
           f"{resident / 2**20:.1f} MiB on {dev} "
           f"({time.perf_counter() - t0:.1f}s)")
     return sp, None, vocab
+
+
+def load_virtual(data: str, dev):
+    """A virtual spec's operand on ``dev``: the dense tensor, or the
+    ShardedBCSR (merged into its one BCSR when grid = 1; the scheduler
+    merges a larger grid's once)."""
+    spec = VirtualSpec.parse(data)
+    man = manifest_of(spec)
+    print(f"[io] {man.kind} logical {man.logical_bytes / 2**30:.2f} GiB -> "
+          f"resident {man.resident_bytes / 2**30:.3f} GiB "
+          f"({man.compression:.0f}x)")
+    t0 = time.perf_counter()
+    if spec.kind == "dense":
+        X = virtual_dense_full(spec, device=dev)
+    else:
+        X = virtual_sharded_bcsr(spec, device=dev)
+        if spec.grid == 1:
+            X = X.to_bcsr()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    print(f"[io] {spec.spec_string()}: generated on {dev} in "
+          f"{time.perf_counter() - t0:.2f}s")
+    return X
 
 
 def feature_correlations(A_true, A_median) -> list[float]:
@@ -221,7 +264,7 @@ def _persist_bundle(args, X, res, vocab, report) -> None:
         report.save(args.report)
 
 
-def _memory_ledger(tracer, report, operand, ks, args):
+def _memory_ledger(tracer, report, operand, op, ks, args):
     """The sweep's byte ledger (obs.memory.MemoryLedger): manifest
     accounting, runtime watermarks, then per-rank peaks.  The allocator's
     peak is read before ``measure_mu_memory`` resets it; the fallback count
@@ -233,13 +276,13 @@ def _memory_ledger(tracer, report, operand, ks, args):
     sampler = tracer.memory_sampler
     peak_host = (sampler.peak_bytes if sampler is not None else
                  obs_memory.read_host_memory().get("hwm_bytes"))
-    peak_device = obs_memory.device_watermark(operand.device)
+    peak_device = obs_memory.device_watermark(op.device)
     cfg = _config(args)
     return obs_memory.MemoryLedger.from_manifest(
         man,
         peak_host_bytes=peak_host,
         peak_device_bytes=peak_device,
-        per_k=obs_memory.measure_mu_memory(operand, ks, policy=cfg.kernel,
+        per_k=obs_memory.measure_mu_memory(op, ks, policy=cfg.kernel,
                                            schedule=cfg.schedule),
         accounted_sweep_bytes=obs_memory.accounted_ensemble_bytes(
             man, n_members=args.r, k_max=args.k_max),
@@ -258,13 +301,17 @@ def _write_trace_artifacts(trace_dir, tracer, buf, report, operand, args):
     parts = [tracer.summarize(), "", buf.summarize()]
     artifacts = "trace.jsonl trace_chrome.json metrics.npz summary.txt"
     if operand is not None:
+        # the per-rank measurements and the cost model run on the one
+        # BCSR a sharded operand merges into, as repro's do
+        op = operand.to_bcsr() if isinstance(operand, ShardedBCSR) \
+            else operand
         ks = sorted({k for rec in (report.units if report else [])
                      for k in obs_costs.unit_ks(rec)})
         if ks:
-            rows = obs_costs.cost_table(report.units, operand,
+            rows = obs_costs.cost_table(report.units, op,
                                         iters=args.iters)
             parts += ["", obs_costs.format_cost_table(rows)]
-        ledger = _memory_ledger(tracer, report, operand, ks, args)
+        ledger = _memory_ledger(tracer, report, operand, op, ks, args)
         ledger.save(os.path.join(trace_dir, "memory.json"))
         parts += ["", ledger.summarize()]
         artifacts += " memory.json"

@@ -21,16 +21,19 @@ when one is given; and the initial factors A0 (n, k) and R0 (m, k, k)
 (uniform in [0.05, 1)).  Per rank k it gives the regression's initial R0
 (m, k, k).
 
-``TorchDraws`` draws a dense member exactly as ``grid_member`` draws the
-one cell of a 1 x 1 grid, so the single-device dense sweep and the 1 x 1
-grid sweep compute on the same numbers.
+``TorchDraws`` draws a member's noise from (seed, k, q, cell) and its
+initial factors from (seed, k, q); a single-device member is cell 0, so
+the single-device sweep and the 1 x 1 grid sweep compute on the same
+numbers, dense or BCSR.
 
-On the dense grid (``grid_member``, the counterpart of ``repro``'s
+On the grid (``grid_member``, the counterpart of ``repro``'s
 ``perturb_shard``, ``core/perturb.py:24``) the noise of a member's local
-block X^(i,j) depends on (seed, k, q, the cell's linear grid index), so
-every cell draws its own; the initial A (n, k) and R are drawn globally
-from (seed, k, q), equal on every cell, and the caller slices A to its
-rows, as ``repro``'s ``make_mesh_ensemble`` does.
+block X^(i,j), or of its BCSR shard's stored blocks, depends on (seed, k,
+q, the cell's linear grid index), so every cell draws its own (a shard's
+zero padding blocks stay zero under any noise); the initial A (n, k) and
+R are drawn globally from (seed, k, q) — at n_pad for a sharded operand
+— equal on every cell, and the caller slices A to its rows, as
+``repro``'s ``make_mesh_ensemble`` and ``make_mesh_ensemble_bcsr`` do.
 """
 from __future__ import annotations
 
@@ -65,47 +68,41 @@ class DrawSource(Protocol):
         """Initial R (m, k, k) of rank k's regression."""
 
     def grid_member(self, k: int, q: int, grid, out: torch.Tensor,
-                    delta: float) -> tuple[torch.Tensor, torch.Tensor]:
-        """Write member q's noise for this cell's block into ``out``
-        (m, n/g, n/g) and return its global (A0 (n, k), R0 (m, k, k))."""
+                    delta: float, n: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Write member q's noise for this cell's values into ``out`` — a
+        dense block (m, n/g, n/g), or a BCSR shard's stored blocks (m,
+        z_max, bs, bs) — and return its global (A0 (n, k), R0 (m, k,
+        k)); ``n`` is the global entity count (n_pad of a sharded
+        operand), by default the dense block's side times the grid's."""
 
 
 class TorchDraws:
-    """Seeded torch draws, one generator per (seed, k, q)."""
+    """Seeded torch draws, one generator per (seed, k, q[, cell])."""
 
     def __init__(self, seed: int = 0, device=None):
         self.seed = int(seed)
         self.device = _device.resolve(device)
 
     def _generator(self, *words: int) -> torch.Generator:
-        state = np.random.SeedSequence(list(words)).generate_state(
-            1, np.uint64)[0]
-        g = torch.Generator(device=self.device)
-        g.manual_seed(int(state >> np.uint64(1)))
-        return g
+        return _device.seeded_generator(*words, device=self.device)
 
     def member(self, k: int, q: int, operand, delta: float,
                out: torch.Tensor | None = None):
         vals = perturbed_values(operand)
         noise = out if out is not None else torch.empty(
             vals.shape, dtype=vals.dtype, device=self.device)
-        if not isinstance(operand, BCSR):
-            return (noise,) + self._dense(k, q, 0, noise, operand.shape[-1],
-                                          delta)
-        g = self._generator(self.seed, k, q)
-        noise.uniform_(1.0 - delta, 1.0 + delta, generator=g)
-        st = init_factors(operand.n, operand.m, k, generator=g,
-                          dtype=vals.dtype)
-        return noise, st.A, st.R
+        n = operand.n if isinstance(operand, BCSR) else operand.shape[-1]
+        return (noise,) + self._draw(k, q, 0, noise, n, delta)
 
-    def _dense(self, k: int, q: int, cell: int, out: torch.Tensor, n: int,
-               delta: float):
-        """A dense member's draws: the noise of grid cell ``cell`` into
-        ``out`` (m, rows, cols) from (seed, k, q, cell), and the global A0
-        (n, k), R0 from (seed, k, q)."""
+    def _draw(self, k: int, q: int, cell: int, out: torch.Tensor, n: int,
+              delta: float):
+        """A member's draws: the noise of grid cell ``cell`` into ``out``
+        from (seed, k, q, cell), and the global A0 (n, k), R0 (m, k, k)
+        from (seed, k, q)."""
         out.uniform_(1.0 - delta, 1.0 + delta,
                      generator=self._generator(self.seed, k, q, cell))
-        st = init_factors(n, out.shape[-3], k,
+        st = init_factors(n, out.shape[-4 if out.dim() == 4 else -3], k,
                           generator=self._generator(self.seed, k, q),
                           dtype=out.dtype)
         return st.A, st.R
@@ -116,9 +113,10 @@ class TorchDraws:
         return R0.uniform_(0.05, 1.0, generator=g)
 
     def grid_member(self, k: int, q: int, grid, out: torch.Tensor,
-                    delta: float):
-        return self._dense(k, q, grid.linear_index, out,
-                           out.shape[-2] * grid.rows, delta)
+                    delta: float, n: int | None = None):
+        if n is None:
+            n = out.shape[-2] * grid.rows
+        return self._draw(k, q, grid.linear_index, out, n, delta)
 
 
 class ArrayDraws:
@@ -151,14 +149,18 @@ class ArrayDraws:
         return self._tensor(self.regress[k])
 
     def grid_member(self, k: int, q: int, grid, out: torch.Tensor,
-                    delta: float):
-        """``members[(k, q)]`` holds the global blocked noise (m, n, n) —
-        ``repro``'s ``perturb_shard`` draws, block by block — and A0, R0;
-        this cell's block of the noise is copied into ``out``."""
+                    delta: float, n: int | None = None):
+        """``members[(k, q)]`` holds the global noise and A0, R0: a dense
+        operand's blocked noise (m, n, n) — ``repro``'s ``perturb_shard``
+        draws, block by block — or a sharded BCSR's stacked shard noise
+        (g, g, m, z_max, bs, bs) (``repro``'s ``perturb_sharded_blocked``);
+        this cell's part is copied into ``out``."""
         if (k, q) not in self.members:
             raise KeyError(f"no draws for member (k={k}, q={q})")
         noise, A0, R0 = self.members[(k, q)]
-        block = grid.x_block(torch.as_tensor(np.asarray(noise, np.float32)))
+        noise = torch.as_tensor(np.asarray(noise, np.float32))
+        block = noise[grid.i, grid.j] if noise.dim() == 6 else \
+            grid.x_block(noise)
         if tuple(block.shape) != tuple(out.shape):
             raise ValueError(f"noise block {tuple(block.shape)} does not "
                              f"match the local block {tuple(out.shape)}")

@@ -1,7 +1,9 @@
 """Perturbation ensembles (port of ``repro/selection/ensemble.py:132,234,
-421,508,720,793,823``): a dense or BCSR operand on one device, batched or
-as a sequential loop; the cross-k grid of padded cells; and a dense
-operand on the 2D process grid (the mesh program ``make_mesh_ensemble``).
+338,421,508,720,793,823``): a dense or BCSR operand on one device (a
+``ShardedBCSR`` merged into one BCSR), batched or as a sequential loop;
+the cross-k grid of padded cells; and a dense block or a BCSR shard on
+the 2D process grid (the mesh programs ``make_mesh_ensemble`` and
+``make_mesh_ensemble_bcsr``).
 
 ``repro`` vmaps the member pipeline (perturb -> init -> MU -> normalize ->
 rel_error) over the r members of a work unit.  Here the member axis is
@@ -31,8 +33,10 @@ from repro_torch.core.rescal import (EPS_DEFAULT, MU_SCHEDULES, RescalState,
 from repro_torch.core.sparse import (BCSR, masked_sparse_mu_step,
                                      sparse_mu_step, sparse_rel_error)
 from repro_torch.dist.engine import (DistRescalConfig, get_mu_iter,
-                                     local_normalize, local_rel_error)
+                                     local_normalize, local_rel_error,
+                                     operand_kind)
 from repro_torch.dist.sharding import Grid
+from repro_torch.io.partition import CellShard, ShardedBCSR
 
 from .draws import DrawSource, perturbed_values
 
@@ -44,6 +48,13 @@ class EnsembleResult(NamedTuple):
     A: torch.Tensor        # (r, n, k)
     R: torch.Tensor        # (r, m, k, k)
     errors: torch.Tensor   # (r,) rel. error vs the UNperturbed X
+
+
+def single_device(X):
+    """A ShardedBCSR as the one BCSR a single device runs on (its shards
+    merged, the permuted padded entity space); any other operand as it
+    is."""
+    return X.to_bcsr() if isinstance(X, ShardedBCSR) else X
 
 
 def _require_random_init(cfg, what: str) -> None:
@@ -104,7 +115,9 @@ def run_ensemble(X, k: int, cfg, draws: DrawSource, *,
                  members: Sequence[int] | None = None,
                  mode: str = "batched") -> EnsembleResult:
     """Run members of candidate rank k on X (on its device): a dense (m,
-    n, n) tensor or an unperturbed ``core.sparse.BCSR``.  ``cfg`` is a
+    n, n) tensor, an unperturbed ``core.sparse.BCSR``, or a
+    ``ShardedBCSR`` (merged here; the scheduler merges once per sweep
+    instead).  ``cfg`` is a
     ``RescalkConfig``; ``members`` a subset of the member ids (default
     all).  ``mode`` "batched" runs them as one member-stacked MU loop,
     "loop" one after another (one perturbed copy resident at a time)."""
@@ -112,6 +125,7 @@ def run_ensemble(X, k: int, cfg, draws: DrawSource, *,
         raise ValueError(f"unknown ensemble mode {mode!r}")
     members = tuple(members) if members is not None else \
         tuple(range(cfg.n_perturbations))
+    X = single_device(X)
     if isinstance(X, BCSR):
         if X.batch_shape:
             raise ValueError("run_ensemble takes the unperturbed tensor")
@@ -153,6 +167,7 @@ def run_sweep_batched(X, cells, cfg, draws: DrawSource) -> EnsembleResult:
     padded; the masked columns are exact zeros."""
     cells = tuple(cells)
     _require_random_init(cfg, "the cross-k grid program")
+    X = single_device(X)
     k_max = max(cfg.ks)
     policy = cfg.kernel
     vals = perturbed_values(X)
@@ -179,35 +194,64 @@ def run_sweep_batched(X, cells, cfg, draws: DrawSource) -> EnsembleResult:
     return EnsembleResult(A=st.A, R=st.R, errors=_errors(X, st, policy))
 
 
-def run_grid_ensemble(grid: Grid, Xl: torch.Tensor, k: int, cfg,
+def _grid_operand(grid: Grid, Xl):
+    """The local operand of this cell and the global entity count: a
+    dense block X^(i,j), or a ``CellShard``, checked against the grid as
+    ``repro``'s ``make_mesh_ensemble_bcsr`` checks its mesh."""
+    if not isinstance(Xl, CellShard):
+        return Xl, Xl.shape[-1] * grid.rows
+    g = grid.rows
+    if Xl.part.grid != g:
+        # the shard would silently stand for a different tensor: every
+        # cell must hold its own shard of a layout made for this grid
+        raise ValueError(f"operand was partitioned for a {Xl.part.grid}x"
+                         f"{Xl.part.grid} grid but the process grid is "
+                         f"{g}x{grid.cols}; re-partition for this grid")
+    if (Xl.i, Xl.j) != (grid.i, grid.j):
+        raise ValueError(f"cell ({grid.i}, {grid.j}) was handed shard "
+                         f"({Xl.i}, {Xl.j})")
+    if Xl.n_pad % g:
+        raise ValueError(f"the grid side {g} must divide "
+                         f"n_pad={Xl.n_pad}")
+    return Xl.sp, Xl.n_pad
+
+
+def run_grid_ensemble(grid: Grid, Xl, k: int, cfg,
                       draws: DrawSource) -> EnsembleResult:
-    """This pod's members of candidate rank k on the dense grid: perturb
-    this cell's block -> init -> MU (``dist.engine``, ``cfg.schedule``,
+    """This pod's members of candidate rank k on the grid: perturb this
+    cell's values -> init -> MU (``dist.engine``, ``cfg.schedule``,
     ``cfg.kernel``) -> ``local_normalize`` -> ``local_rel_error`` against
-    the unperturbed block.  ``Xl`` is X^(i,j) (m, n/g, n/g).  Returns the
-    pod's members (``grid.pod_members``): A^(i) (r/pods, n/g, k), R and
-    errors, equal on every cell of the pod but A."""
+    the unperturbed operand.  ``Xl`` is X^(i,j) (m, n/g, n/g), or this
+    cell's ``CellShard`` of a ShardedBCSR (each cell holding only its
+    shard; its stored blocks are perturbed, its zero padding blocks stay
+    zero, and the factors live in the permuted space of n_pad rows).
+    Returns the pod's members (``grid.pod_members``): A^(i) (r/pods, n/g,
+    k), R and errors, equal on every cell of the pod but A."""
     if cfg.init != "random":
         raise NotImplementedError(
             "the grid ensemble supports init='random' only (distributed "
             "NNDSVD is a ROADMAP open item); drop grid= for nndsvd")
+    local, n = _grid_operand(grid, Xl)
     members = grid.pod_members(cfg.n_perturbations)
     dcfg = DistRescalConfig(schedule=cfg.schedule, kernel=cfg.kernel,
                             sanitize=cfg.sanitize,
                             trace_metrics=cfg.trace_metrics)
-    it = get_mu_iter(cfg.schedule)
-    X_q = torch.empty((len(members),) + tuple(Xl.shape), dtype=Xl.dtype,
-                      device=Xl.device)
+    it = get_mu_iter(operand_kind(local), cfg.schedule)
+    vals = perturbed_values(local)
+    buf = torch.empty((len(members),) + tuple(vals.shape), dtype=vals.dtype,
+                      device=vals.device)
     A0, R0 = [], []
     for slot, q in enumerate(members):
-        A_q, R_q = draws.grid_member(k, q, grid, X_q[slot],
-                                     cfg.perturbation_delta)
-        X_q[slot].mul_(Xl)
+        A_q, R_q = draws.grid_member(k, q, grid, buf[slot],
+                                     cfg.perturbation_delta, n=n)
+        buf[slot].mul_(vals)
         A0.append(grid.row_block(A_q))
         R0.append(R_q)
+    X_q = local.with_data(buf) if isinstance(local, BCSR) else buf
     Ai, R = torch.stack(A0), torch.stack(R0)
     for _ in range(cfg.rescal_iters):
         Ai, R = it(grid, X_q, Ai, R, dcfg)
-    del X_q
+    del X_q, buf
     Ai, R = local_normalize(grid, Ai, R)
-    return EnsembleResult(A=Ai, R=R, errors=local_rel_error(grid, Xl, Ai, R))
+    return EnsembleResult(A=Ai, R=R, errors=local_rel_error(
+        grid, local, Ai, R, policy=cfg.kernel))

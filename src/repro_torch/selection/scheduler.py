@@ -1,6 +1,7 @@
 """The sweep scheduler (port of ``repro/selection/scheduler.py:87,116,157,
-482``): plans the (k, q) grid and drives it over a dense or BCSR operand
-on one device, or over a dense operand on the 2D process grid.
+482``): plans the (k, q) grid and drives it over a dense, BCSR or
+sharded BCSR operand on one device, or over a dense block or a BCSR
+shard on the 2D process grid.
 
 ``plan_sweep`` lays the (k, q) grid out as work units, as ``repro``'s
 does: in "batched" mode one unit per candidate rank k holding all r
@@ -12,14 +13,17 @@ units (selection/ensemble.py), runs the per-k reduction (custom
 clustering -> silhouettes -> R regression -> reconstruction error) as
 soon as all of a rank's members are in, and the criterion picks k_opt.
 
-With ``grid=`` (``dist/sharding.py``) the operand is this cell's dense
-block X^(i,j) (m, n/g, n/g) and every cell of the grid calls ``run``: the
-units run ``run_grid_ensemble`` (members split over pods), and
-``reduce_k_grid`` gathers the members' factors over the row and pod axes,
-clusters them identically on every cell, and takes the regression's
-A^T X A and the error's ||X||^2 from the engine's collectives — the
-numbers ``repro`` computes on its global array.  The process grid runs
-batched mode only.
+On one device a ``ShardedBCSR`` is merged into one BCSR once per sweep
+(``ensemble.single_device``), as ``repro``'s scheduler merges it, in
+every mode.  With ``grid=`` (``dist/sharding.py``) the operand is this
+cell's dense block X^(i,j) (m, n/g, n/g) or its ``io.partition.
+CellShard``, and every cell of the grid calls ``run``: the units run
+``run_grid_ensemble`` (members split over pods), and ``reduce_k_grid``
+gathers the members' factors over the row and pod axes, clusters them
+identically on every cell, and takes the regression's A^T X A and the
+error's ||X||^2 from the engine's collectives (``bcsr_spmm`` on a shard
+under a fused policy) — the numbers ``repro`` computes on its global
+array.  The process grid runs batched mode only.
 
 Traced (``obs.trace``): ``sched/plan`` around the plan, one
 ``sched/execute`` span per unit (closed after the unit's device
@@ -46,6 +50,7 @@ from repro_torch.core.silhouette import silhouettes
 from repro_torch.core.sparse import BCSR, sparse_regress_R, sparse_rel_error
 from repro_torch.dist.engine import local_regress_R, local_rel_error
 from repro_torch.dist.sharding import POD_AXIS, ROW_AXIS, Grid
+from repro_torch.io.partition import CellShard, ShardedBCSR
 from repro_torch.kernels import ops
 from repro_torch.obs import trace as obs
 from repro_torch.obs.memory import device_watermark, read_host_memory
@@ -53,7 +58,7 @@ from repro_torch.obs.memory import device_watermark, read_host_memory
 from . import criteria
 from .draws import DrawSource, TorchDraws
 from .ensemble import (EnsembleResult, run_ensemble, run_grid_ensemble,
-                       run_sweep_batched)
+                       run_sweep_batched, single_device)
 from .report import SelectionReport, UnitRecord
 from .types import KResult, RescalkConfig, RescalkResult
 
@@ -149,13 +154,16 @@ def reduce_k(X, cfg: RescalkConfig, k: int, A_ens: torch.Tensor,
     return _k_result(k, clus, sil, R_reg, err, member_errors)
 
 
-def reduce_k_grid(grid: Grid, Xl: torch.Tensor, cfg: RescalkConfig, k: int,
+def reduce_k_grid(grid: Grid, Xl, cfg: RescalkConfig, k: int,
                   res: EnsembleResult, draws: DrawSource) -> KResult:
-    """``reduce_k`` on the dense grid, called by every cell with its
+    """``reduce_k`` on the grid, called by every cell with its
     ``run_grid_ensemble`` result: the members' A row blocks are gathered
     over the row axis and the members over the pod axis, the clustering
     and silhouettes run identically on every cell, and the regression and
-    its error use the engine's collectives on X^(i,j)."""
+    its error use the engine's collectives on X^(i,j) or on the cell's
+    BCSR shard (``CellShard``; A in the permuted space of n_pad rows)."""
+    local = Xl.sp if isinstance(Xl, CellShard) else Xl
+    m = local.m if isinstance(Xl, CellShard) else Xl.shape[-3]
     A_ens = grid.all_gather(grid.all_gather(res.A, ROW_AXIS, dim=-2),
                             POD_AXIS, dim=0)
     R_ens = grid.all_gather(res.R, POD_AXIS, dim=0)
@@ -163,10 +171,9 @@ def reduce_k_grid(grid: Grid, Xl: torch.Tensor, cfg: RescalkConfig, k: int,
     clus = custom_cluster(A_ens, R_ens)
     sil = silhouettes(clus.A_aligned)
     Ai = grid.row_block(clus.A_median)
-    R_reg = local_regress_R(grid, Xl, Ai,
-                            draws.regress_R0(k, Xl.shape[-3]),
-                            iters=cfg.regress_iters)
-    err = float(local_rel_error(grid, Xl, Ai, R_reg))
+    R_reg = local_regress_R(grid, local, Ai, draws.regress_R0(k, m),
+                            iters=cfg.regress_iters, policy=cfg.kernel)
+    err = float(local_rel_error(grid, local, Ai, R_reg, policy=cfg.kernel))
     return _k_result(k, clus, sil, R_reg, err, errors.cpu().numpy())
 
 
@@ -194,8 +201,8 @@ class SweepScheduler:
     draws      : the draw source; default ``TorchDraws(cfg.seed)`` on the
                  operand's device
     grid       : a ``dist.sharding.Grid``: ``run`` then takes this cell's
-                 dense block X^(i,j), and every cell of the grid calls it
-                 (batched mode only)
+                 dense block X^(i,j) or its ``CellShard``, and every cell
+                 of the grid calls it (batched mode only)
     report_path: write the SelectionReport JSON here after the sweep (on
                  the grid, cell 0 writes it)
     """
@@ -227,17 +234,20 @@ class SweepScheduler:
 
     def _check_operand(self, X) -> torch.device:
         if self.grid is not None:
+            if isinstance(X, CellShard):
+                return X.device
             if not torch.is_tensor(X) or X.dim() != 3:
                 raise TypeError("on a grid the sweep runs on this cell's "
-                                "dense block X^(i,j) (m, n/g, n/g)")
-        elif isinstance(X, BCSR):
+                                "dense block X^(i,j) (m, n/g, n/g) or its "
+                                "CellShard of a ShardedBCSR")
+        elif isinstance(X, (BCSR, ShardedBCSR)):
             if self.cfg.schedule != "batched":
                 raise ValueError(f"the BCSR sweep runs the batched schedule "
                                  f"only, got schedule={self.cfg.schedule!r}")
         elif not torch.is_tensor(X) or X.dim() != 3 \
                 or X.shape[1] != X.shape[2]:
-            raise TypeError("the sweep runs on a BCSR or a dense (m, n, n) "
-                            "tensor")
+            raise TypeError("the sweep runs on a BCSR, a ShardedBCSR or a "
+                            "dense (m, n, n) tensor")
         return X.device
 
     def _execute(self, X, unit, draws) -> EnsembleResult:
@@ -270,6 +280,8 @@ class SweepScheduler:
         cfg = self.cfg
         grid = self.grid
         dev = self._check_operand(X)
+        if grid is None:
+            X = single_device(X)          # a ShardedBCSR, merged once
         draws = self.draws if self.draws is not None else \
             TorchDraws(cfg.seed, dev)
         launches0 = ops.launch_counts()

@@ -47,12 +47,55 @@ def test_cli_end_to_end_on_cpu(tmp_path, capsys):
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
+@pytest.mark.parametrize("spec,kind", [
+    ("virtual:bcsr:n=256,m=2,k=3,bs=32,density=0.25,seed=2", "bcsr"),
+    ("virtual:bcsr:n=256,m=2,k=3,bs=32,density=0.25,grid=2,seed=2",
+     "bcsr-sharded"),
+    ("virtual:dense:n=48,m=2,k=3,grid=2,seed=1", "dense"),
+])
+def test_cli_virtual_spec_end_to_end_on_cpu(tmp_path, capsys, spec, kind):
+    """--data virtual:...: repro's [io] line (the same manifest: the
+    pattern is repro's), the sweep, the report and the bundle, whose
+    manifest is the operand's (a grid = 1 spec collapses to one BCSR)."""
+    from repro import io as jio
+    from repro_torch.serve import FactorBundle
+    report = tmp_path / "r.json"
+    res, rep = rescalk_run.main(
+        ["--data", spec, "--k-min", "2", "--k-max", "3", "--r", "2",
+         "--iters", "20", "--use-fused-kernel", "--report", str(report),
+         "--device", "cpu"])
+    out = capsys.readouterr().out
+    man = jio.manifest_of(jio.VirtualSpec.parse(spec))
+    assert (f"[io] {man.kind} logical {man.logical_bytes / 2**30:.2f} GiB "
+            f"-> resident {man.resident_bytes / 2**30:.3f} GiB "
+            f"({man.compression:.0f}x)") in out
+    assert "generated on cpu" in out
+    assert f"selected k_opt = {res.k_opt}" in out
+    saved = json.loads(report.read_text())
+    assert saved["k_opt"] == res.k_opt and saved["ks"] == [2, 3]
+    bundle = FactorBundle.load(saved["meta"]["bundle"])
+    assert bundle.manifest["kind"] == kind
+    assert bundle.n == 256 if kind != "dense" else bundle.n == 48
+    assert np.isfinite(res.rel_err).all()
+
+
+def test_cli_refuses_unknown_data(tmp_path):
+    with pytest.raises(SystemExit, match="virtual:"):
+        rescalk_run.main(["--data", str(tmp_path / "x.csv"),
+                          "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown virtual spec field"):
+        rescalk_run.main(["--data", "virtual:bcsr:n=64,m=1,k=2,zap=1",
+                          "--device", "cpu"])
+
+
 def test_cli_defaults_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default runs there")
     data = write_npz(tmp_path / "x.npz")
     with pytest.raises(RuntimeError, match="--device cpu"):
         rescalk_run.main(["--data", str(data), "--bs", "32"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        rescalk_run.main(["--data", "virtual:bcsr:n=256,m=2,k=3,bs=32"])
 
 
 def test_cli_flags_match_repro_meanings():
@@ -93,7 +136,7 @@ print(json.dumps({"modules": len(names), "bad": bad,
                          cwd=tmp_path)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout)
-    assert got["modules"] >= 71
+    assert got["modules"] >= 74
     assert got["bad"] == []
     assert got["built"] == 0
     assert got["groups"] is False

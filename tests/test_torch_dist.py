@@ -7,12 +7,21 @@ numpy; ``repro``'s references are computed in the pytest process.  The
 workers import this module to find their functions, so ``jax`` and
 ``repro`` are imported inside the tests only, never at the top.
 
+The BCSR half runs on the same spawned grids: each cell takes its
+``CellShard`` of a ShardedBCSR that ``repro``'s ``partition_dense`` laid
+out (balanced, front-padded), and is held against ``repro``'s
+single-device ``sparse_mu_step`` / ``sparse_rel_error`` on the merged
+BCSR (the permuted, padded entity space), and the grid ensemble against
+``run_ensemble_bcsr_sharded_reference`` on ``repro``'s draws.
+
 Tolerances: one MU iteration against repro at rtol 1e-5 (fp32 sums in
 another order); 30 iterations at rtol 5e-4 / atol 1e-5, repro's own
 mesh-vs-host tolerance (tests/test_multidevice.py); errors at rtol 1e-4;
 sweep curves within 1e-4 per k.
 """
+import dataclasses
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -37,6 +46,11 @@ SWEEP = dict(k_min=2, k_max=4, n_perturbations=4, rescal_iters=40,
 POD_CFG = dict(k_min=3, k_max=3, n_perturbations=4, rescal_iters=30,
                seed=5)
 POD_RUNS = [("batched", True), ("sliced", False)]
+BN, BBS = 40, 8                    # the BCSR problem: n = 40, bs = 8
+BCSR_CFG = dict(k_min=3, k_max=3, n_perturbations=4, rescal_iters=30,
+                seed=5)
+BCSR_SWEEP = dict(k_min=2, k_max=3, n_perturbations=2, rescal_iters=20,
+                  regress_iters=20, seed=3)
 
 
 def problem(seed=0, n=N, m=M, k=K):
@@ -177,6 +191,72 @@ def cell_pods(grid: Grid, X, A0s, R0s, members, regress) -> dict:
     return out
 
 
+def cell_bcsr(grid: Grid, packed, A0p, R0, members) -> dict:
+    """The BCSR engine on this cell's shard: every (schedule, fused)
+    variant for 1 and 30 iterations, the error, dist_rescal, and the grid
+    ensemble on repro's draws (fused and plain)."""
+    from repro_torch.dist.engine import local_rel_error_bcsr
+    sharded = convert.sharded_bcsr(packed, device="cpu")
+    cell = sharded.cell(grid.i, grid.j)
+    Ai = grid.row_block(torch.from_numpy(A0p))
+    R = torch.from_numpy(R0)
+    out = {}
+    for schedule, fused in VARIANTS:
+        for iters in ITERS:
+            step = make_mu_step(grid, dcfg(schedule, fused), iters=iters)
+            Aq, Rq = step(cell.sp, Ai, R)
+            out[(schedule, fused, iters)] = (Aq.numpy(), Rq.numpy())
+    out["error"] = float(local_rel_error_bcsr(grid, cell.sp, Ai, R))
+    st, err = dist_rescal(cell.sp, K, grid,
+                          init=RescalState(A=torch.from_numpy(A0p), R=R,
+                                           step=0),
+                          iters=30, cfg=dcfg("sliced", True))
+    out["dist_rescal"] = (st.A.numpy(), st.R.numpy(), float(err))
+    draws = ArrayDraws(members, {}, device="cpu")
+    for schedule, fused in POD_RUNS:
+        cfg = RescalkConfig(schedule=schedule,
+                            kernel=KernelPolicy(use_fused=fused), **BCSR_CFG)
+        res = run_grid_ensemble(grid, cell, BCSR_CFG["k_min"], cfg, draws)
+        out[("ensemble", schedule)] = (res.A.numpy(), res.R.numpy(),
+                                       res.errors.numpy())
+    wrong = convert.sharded_bcsr(packed, device="cpu").cell(
+        (grid.i + 1) % grid.rows, grid.j)
+    for bad in (wrong, dataclasses.replace(cell, part=dataclasses.replace(
+            cell.part, grid=cell.part.grid + 1))):
+        try:
+            run_grid_ensemble(grid, bad, 3, RescalkConfig(**BCSR_CFG),
+                              draws)
+        except ValueError as e:
+            out.setdefault("refused", []).append(str(e))
+    return out
+
+
+def cell_bcsr_sweep(grid: Grid, packed, members, regress) -> dict:
+    """The BCSR sweep on this cell's shard (rescalk with grid=)."""
+    draws = ArrayDraws(members, regress, device="cpu")
+    cell = convert.sharded_bcsr(packed, device="cpu").cell(grid.i, grid.j)
+    ops.reset_launch_counts()
+    res = rescalk(cell, RescalkConfig(kernel=KernelPolicy(use_fused=True),
+                                      **BCSR_SWEEP), grid=grid, draws=draws)
+    return {"k_opt": res.k_opt, "s_min": res.s_min, "s_mean": res.s_mean,
+            "rel_err": res.rel_err, "launches": ops.launch_counts(),
+            "A": {k: r.A_median for k, r in res.per_k.items()}}
+
+
+def cell_bcsr_pods(grid: Grid, packed, A0s, R0s) -> dict:
+    """The pod step on a shared BCSR shard: members split over pods."""
+    cell = convert.sharded_bcsr(packed, device="cpu").cell(grid.i, grid.j)
+    mine = list(grid.pod_members(len(A0s)))
+    Ai = grid.row_block(torch.from_numpy(A0s[mine]))
+    R = torch.from_numpy(R0s[mine])
+    out = {"members": mine}
+    for schedule, fused in VARIANTS:
+        Aq, Rq = make_mu_step(grid, dcfg(schedule, fused), iters=30)(
+            cell.sp, Ai, R)
+        out[(schedule, fused)] = (Aq.numpy(), Rq.numpy())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The spawned grids, once per module
 # ---------------------------------------------------------------------------
@@ -218,6 +298,55 @@ def repro_member_draws(cfg, X, k, grid):
     return out
 
 
+def bcsr_problem(g, seed=11):
+    """repro's balanced ShardedBCSR of a planted X with a third of its
+    off-diagonal blocks empty, packed as numpy for the cells; and an
+    init in the permuted, padded space."""
+    import jax.numpy as jnp
+    from repro.io import partition_dense
+    X, A0, R0 = problem(seed, n=BN)
+    rng = np.random.default_rng(seed)
+    nb = BN // BBS
+    keep = (rng.random((nb, nb)) < 0.6) | np.eye(nb, dtype=bool)
+    X = X * np.repeat(np.repeat(keep, BBS, 0), BBS, 1)[None]
+    sh = partition_dense(X, bs=BBS, grid=g)
+    assert int(np.asarray(sh.nnzb).min()) < sh.rows.shape[-1] or g == 1
+    part = types.SimpleNamespace(**{
+        name: getattr(sh.part, name)
+        for name in ("n", "bs", "grid", "nb", "nb_loc", "perm", "pos")})
+    packed = types.SimpleNamespace(     # numpy only: the cells import no jax
+        part=part, data=np.asarray(sh.data), rows=np.asarray(sh.rows),
+        cols=np.asarray(sh.cols), nnzb=np.asarray(sh.nnzb))
+    A0p = sh.part.permute_factor(A0)
+    return dict(sharded=sh, packed=packed, X=jnp.asarray(X), A0p=A0p,
+                R0=R0)
+
+
+def repro_bcsr_draws(cfg, sh, k):
+    """repro's draws for the BCSR mesh ensemble (make_mesh_ensemble_bcsr
+    and run_ensemble_bcsr_sharded_reference): (pkey, fkey) = split(member
+    key); each shard's noise perturb_shard(pkey, ., q, i * g + j) on a
+    shard of ones, stacked (g, g, m, z_max, bs, bs); init_factors(fkey)
+    at n_pad."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.perturb import perturb_shard
+    from repro.core.rescal import init_factors
+    from repro.selection.ensemble import unit_keys
+    g = sh.g
+    keys = unit_keys(cfg, k, tuple(range(cfg.n_perturbations)))
+    out = {}
+    for q in range(cfg.n_perturbations):
+        pkey, fkey = jax.random.split(keys[q])
+        ones = jnp.ones(sh.data.shape[2:], sh.data.dtype)
+        noise = np.stack([np.stack([np.asarray(perturb_shard(
+            pkey, ones, q, i * g + j, cfg.perturbation_delta))
+            for j in range(g)]) for i in range(g)])
+        st = init_factors(fkey, sh.n_pad, sh.m, k, dtype=jnp.float32)
+        out[(k, q)] = (noise, np.asarray(st.A), np.asarray(st.R))
+    return out
+
+
 def repro_regress(ks, m):
     import jax
     return {k: np.asarray(jax.random.uniform(
@@ -240,22 +369,40 @@ def one(tmp_path_factory):
     for k in jcfg.ks:
         members.update(repro_member_draws(jcfg, Xs, k, 1))
     regress = repro_regress(jcfg.ks, Xs.shape[0])
+    bp = bcsr_problem(1)
+    bcfg = JConfig(**BCSR_CFG)
+    bmembers = repro_bcsr_draws(bcfg, bp["sharded"], BCSR_CFG["k_min"])
+    scfg = JConfig(**BCSR_SWEEP)
+    smembers = {}
+    for k in scfg.ks:
+        smembers.update(repro_bcsr_draws(scfg, bp["sharded"], k))
+    sregress = repro_regress(scfg.ks, bp["sharded"].m)
     res = _grid_runs(tmp_path_factory.mktemp("grid11"),
                      dict(data=1, model=1),
                      (cell_collectives, ()), (cell_engine, (X, A0, R0)),
                      (cell_bf16, (X, A0, R0)),
                      (cell_sweep, (Xs, members, regress)),
-                     (cell_hooks, (X, A0, R0)))
-    return dict(inputs=(X, A0, R0), sweep_X=Xs, jcfg=jcfg, cells=res)
+                     (cell_hooks, (X, A0, R0)),
+                     (cell_bcsr, (bp["packed"], bp["A0p"], bp["R0"],
+                                  bmembers)),
+                     (cell_bcsr_sweep, (bp["packed"], smembers, sregress)))
+    return dict(inputs=(X, A0, R0), sweep_X=Xs, jcfg=jcfg, cells=res,
+                bcsr=bp, bcfg=bcfg, scfg=scfg)
 
 
 @pytest.fixture(scope="module")
 def two(tmp_path_factory):
     X, A0, R0 = problem()
+    bp = bcsr_problem(2)
+    from repro.selection import RescalkConfig as JConfig
+    bcfg = JConfig(**BCSR_CFG)
+    bmembers = repro_bcsr_draws(bcfg, bp["sharded"], BCSR_CFG["k_min"])
     res = _grid_runs(tmp_path_factory.mktemp("grid22"),
                      dict(data=2, model=2),
-                     (cell_collectives, ()), (cell_engine, (X, A0, R0)))
-    return dict(inputs=(X, A0, R0), cells=res)
+                     (cell_collectives, ()), (cell_engine, (X, A0, R0)),
+                     (cell_bcsr, (bp["packed"], bp["A0p"], bp["R0"],
+                                  bmembers)))
+    return dict(inputs=(X, A0, R0), cells=res, bcsr=bp, bcfg=bcfg)
 
 
 @pytest.fixture(scope="module")
@@ -268,11 +415,17 @@ def pods(tmp_path_factory):
     from repro.selection import RescalkConfig as JConfig
     jcfg = JConfig(**POD_CFG)
     members = repro_member_draws(jcfg, X, POD_CFG["k_min"], 2)
+    bp = bcsr_problem(2)
+    n_pad = bp["sharded"].n_pad
+    bA0s = rng.uniform(0.05, 1.0, (r, n_pad, K)).astype(np.float32)
+    bR0s = rng.uniform(0.05, 1.0, (r, M, K, K)).astype(np.float32)
     res = _grid_runs(tmp_path_factory.mktemp("grid222"),
                      dict(pods=2, data=2, model=2),
                      (cell_collectives, ()),
-                     (cell_pods, (X, A0s, R0s, members, {})))
-    return dict(X=X, A0s=A0s, R0s=R0s, jcfg=jcfg, cells=res)
+                     (cell_pods, (X, A0s, R0s, members, {})),
+                     (cell_bcsr_pods, (bp["packed"], bA0s, bR0s)))
+    return dict(X=X, A0s=A0s, R0s=R0s, jcfg=jcfg, cells=res, bcsr=bp,
+                bA0s=bA0s, bR0s=bR0s)
 
 
 def job(fixture, index):
@@ -514,6 +667,139 @@ def test_pod_ensemble_matches_repro_reference(pods, schedule, fused):
             np.testing.assert_allclose(c[key][2],
                                        np.asarray(ref.errors)[qs],
                                        rtol=5e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The BCSR engine on its shards
+# ---------------------------------------------------------------------------
+
+def repro_sparse_iters(sp, A0, R0, iters):
+    import jax.numpy as jnp
+    from repro.core.sparse import sparse_mu_step
+    A, R = jnp.asarray(A0), jnp.asarray(R0)
+    for _ in range(iters):
+        A, R = sparse_mu_step(sp, A, R)
+    return np.asarray(A), np.asarray(R)
+
+
+def bcsr_cells(fixture, index, g):
+    return job(fixture, index)[:g * g]
+
+
+@pytest.mark.parametrize("iters", ITERS)
+@pytest.mark.parametrize("schedule,fused", VARIANTS)
+@pytest.mark.parametrize("shape,index,g", [("one", 5, 1), ("two", 2, 2)])
+def test_bcsr_mu_step_matches_repro_on_the_merged_bcsr(
+        shape, index, g, schedule, fused, iters, request):
+    """make_mu_step on each cell's front-padded shard against repro's
+    single-device sparse_mu_step on the merged BCSR (n_pad entities)."""
+    fx = request.getfixturevalue(shape)
+    bp = fx["bcsr"]
+    cells = bcsr_cells(fx, index, g)
+    key = (schedule, fused, iters)
+    A = assemble_A(cells, key, g)
+    refA, refR = repro_sparse_iters(bp["sharded"].to_bcsr(), bp["A0p"],
+                                    bp["R0"], iters)
+    np.testing.assert_allclose(A, refA, **tol(iters))
+    for c in cells:
+        np.testing.assert_allclose(c[key][1], refR, **tol(iters))
+
+
+@pytest.mark.parametrize("shape,index,g", [("one", 5, 1), ("two", 2, 2)])
+def test_bcsr_error_and_dist_rescal_match_repro(shape, index, g, request):
+    import jax.numpy as jnp
+    from repro.core.sparse import sparse_rel_error
+    fx = request.getfixturevalue(shape)
+    bp = fx["bcsr"]
+    sp = bp["sharded"].to_bcsr()
+    cells = bcsr_cells(fx, index, g)
+    ref = float(sparse_rel_error(sp, jnp.asarray(bp["A0p"]),
+                                 jnp.asarray(bp["R0"])))
+    for c in cells:
+        assert c["error"] == pytest.approx(ref, rel=1e-5)
+    A = assemble_A(cells, "dist_rescal", g)
+    refA, refR = repro_sparse_iters(sp, bp["A0p"], bp["R0"], 30)
+    np.testing.assert_allclose(A, refA, **tol(30))
+    ref_err = float(sparse_rel_error(sp, jnp.asarray(refA),
+                                     jnp.asarray(refR)))
+    for c in cells:
+        np.testing.assert_allclose(c["dist_rescal"][1], refR, **tol(30))
+        assert c["dist_rescal"][2] == pytest.approx(ref_err, rel=1e-4)
+
+
+@pytest.mark.parametrize("schedule,fused", POD_RUNS)
+@pytest.mark.parametrize("shape,index,g", [("one", 5, 1), ("two", 2, 2)])
+def test_bcsr_grid_ensemble_matches_repro_sharded_reference(
+        shape, index, g, schedule, fused, request):
+    """run_grid_ensemble on each cell's shard against repro's
+    run_ensemble_bcsr_sharded_reference, on repro's draws: A, R and the
+    errors at rtol 5e-4 / atol 1e-5."""
+    from repro.selection.ensemble import run_ensemble_bcsr_sharded_reference
+    fx = request.getfixturevalue(shape)
+    jcfg = dataclasses.replace(fx["bcfg"], schedule=schedule)
+    ref = run_ensemble_bcsr_sharded_reference(fx["bcsr"]["sharded"],
+                                              BCSR_CFG["k_min"], jcfg)
+    cells = bcsr_cells(fx, index, g)
+    key = ("ensemble", schedule)
+    A = np.concatenate([cells[i * g][key][0] for i in range(g)], axis=-2)
+    np.testing.assert_allclose(A, np.asarray(ref.A), rtol=5e-4, atol=1e-5)
+    for c in cells:
+        np.testing.assert_allclose(c[key][1], np.asarray(ref.R), rtol=5e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(c[key][2], np.asarray(ref.errors),
+                                   rtol=5e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,index", [("one", 5), ("two", 2)])
+def test_bcsr_grid_ensemble_refuses_other_layouts(shape, index, request):
+    for c in job(request.getfixturevalue(shape), index):
+        msgs = c["refused"]
+        if "was handed shard" not in msgs[0]:      # a 1 x 1 grid's (0, 0)
+            assert len(msgs) == 1
+        else:
+            assert len(msgs) == 2
+        assert "partitioned for a" in msgs[-1]
+
+
+def test_bcsr_sweep_1x1_matches_repro_mesh_sweep(one):
+    """The whole slice on a BCSR shard: rescalk(cell, grid=1 x 1) against
+    repro's SweepScheduler(mesh=1 x 1) on the same ShardedBCSR and draws:
+    the same k_opt, per-k values within 1e-4."""
+    from repro.kernels.policy import KernelPolicy as JPolicy
+    from repro.launch.mesh import make_debug_mesh
+    from repro.selection import SweepScheduler as JScheduler
+    jcfg = dataclasses.replace(one["scfg"],
+                               kernel=JPolicy(use_fused=True, impl="ref"))
+    ref = JScheduler(jcfg, mesh=make_debug_mesh(1, 1)).run(
+        one["bcsr"]["sharded"])
+    got = job(one, 6)[0]
+    assert got["k_opt"] == ref.k_opt
+    for name in ("s_min", "s_mean", "rel_err"):
+        np.testing.assert_allclose(got[name], getattr(ref, name),
+                                   rtol=1e-4, atol=1e-4)
+    for k in jcfg.ks:
+        np.testing.assert_allclose(got["A"][k], ref.per_k[k].A_median,
+                                   rtol=1e-3, atol=1e-4)
+    assert not any(got["launches"].values())
+
+
+@pytest.mark.parametrize("schedule,fused", VARIANTS)
+def test_bcsr_pod_mu_step_matches_repro_per_member(pods, schedule, fused):
+    """Members split over the pods on a shared BCSR shard: each member's
+    factors equal repro's single-device sparse MU from the same init."""
+    bp = pods["bcsr"]
+    sp = bp["sharded"].to_bcsr()
+    cells = job(pods, 2)
+    for pod in range(2):
+        pc = cells[pod * 4:(pod + 1) * 4]
+        A = np.concatenate([pc[0][(schedule, fused)][0],
+                            pc[2][(schedule, fused)][0]], axis=-2)
+        R = pc[0][(schedule, fused)][1]
+        for slot, q in enumerate(pc[0]["members"]):
+            refA, refR = repro_sparse_iters(sp, pods["bA0s"][q],
+                                            pods["bR0s"][q], 30)
+            np.testing.assert_allclose(A[slot], refA, rtol=5e-4, atol=1e-5)
+            np.testing.assert_allclose(R[slot], refR, rtol=5e-4, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,11 @@
 small sweep through the kernels against the same sweep on the CPU, a
 small ServeEngine on the card against the same engine on the CPU, a
 small dense grid sweep on a 1 x 1 NCCL grid and a small single-device
-dense sweep (batched and cross-k grid mode), kernel against plain, and
-flash_attention with a prefill of the reduced llama3.2-1b through it.
+dense sweep (batched and cross-k grid mode), kernel against plain,
+flash_attention with a prefill of the reduced llama3.2-1b through it,
+and the data layer: virtual generation on the card, the BCSR kernels on
+front-padded shards (and on one relation slice of a member stack), and
+the BCSR grid sweep on a 1 x 1 NCCL grid.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -702,3 +705,109 @@ def test_traced_sweep_on_card_passes_check_trace(cuda, tmp_path):
     with np.load(tmp_path / "tr" / "metrics.npz") as d:
         assert d["core.sparse.sparse_mu_step.rel_error"].shape == \
             (len(ks) * iters * 3,)
+
+
+# ---------------------------------------------------------------------------
+# The data layer: virtual and sharded operands
+# ---------------------------------------------------------------------------
+
+VIRTUAL_SPEC = "virtual:bcsr:n=1024,m=3,k=3,bs=64,density=0.1,grid=2,seed=1"
+
+
+def test_virtual_generation_on_card_is_deterministic(cuda):
+    """The same spec twice on the card: the same blocks and values; the
+    pattern and ground truth equal the CPU's (host draws), the values
+    differ only by the noise's realization (torch generators per
+    device), within its +-1% band."""
+    from repro_torch.io import VirtualSpec, virtual_sharded_bcsr
+    spec = VirtualSpec.parse(VIRTUAL_SPEC)
+    a = virtual_sharded_bcsr(spec, device=cuda)
+    b = virtual_sharded_bcsr(spec, device=cuda)
+    assert torch.equal(a.data, b.data) and torch.equal(a.rows, b.rows)
+    cpu = virtual_sharded_bcsr(spec, device="cpu")
+    assert torch.equal(a.rows.cpu(), cpu.rows)
+    np.testing.assert_array_equal(a.nnzb, cpu.nnzb)
+    stored = cpu.data != 0
+    ratio = a.data.cpu()[stored] / cpu.data[stored]
+    assert float(ratio.min()) >= 0.99 / 1.01 - 1e-6
+    assert float(ratio.max()) <= 1.01 / 0.99 + 1e-6
+
+
+@pytest.mark.parametrize("k", [3, 5, 8])
+def test_bcsr_kernels_on_front_padded_shards_on_card(cuda, k):
+    """Every shard of an unbalanced layout (front-padded with zero blocks
+    at (0, 0), block row 0 one long unit) through both BCSR kernels,
+    against their plain versions; the padding adds nothing."""
+    from repro_torch.io import VirtualSpec, virtual_sharded_bcsr
+    spec = VirtualSpec.parse(VIRTUAL_SPEC + ",skew=1.5")
+    sh = virtual_sharded_bcsr(spec, device=cuda)
+    assert sh.nnzb.min() < sh.z_max          # some shard is padded
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    for i in range(2):
+        for j in range(2):
+            sp = sh.shard(i, j)
+            A = torch.rand((sp.n, k), generator=gen, device=cuda)
+            xa, xt = bcsr_fused.bcsr_xa_xta(sp, A, A)
+            sa = bcsr_spmm.bcsr_spmm(sp, A)
+            ra, rt = tref.ref_bcsr_xa_xta(sp, A, A)
+            for got, ref in ((xa, ra), (xt, rt), (sa, ra)):
+                assert rel_err(got, ref) <= 1e-5
+            pad = sh.z_max - int(sh.nnzb[i, j])
+            real = tsp.BCSR(data=sp.data[:, pad:].contiguous(),
+                            block_rows=sp.block_rows[pad:],
+                            block_cols=sp.block_cols[pad:], n=sp.n)
+            assert rel_err(bcsr_spmm.bcsr_spmm(real, A), sa) <= 1e-6
+
+
+def test_bcsr_kernels_take_one_slice_of_a_member_stack_on_card(cuda):
+    """The sliced schedule's call on a member stack: data (r, 1, nnzb,
+    bs, bs) viewed out of (r, m, ...), the member axis strided."""
+    t = tsp.random_bcsr(np.random.default_rng(3), m=3, n=200, bs=64,
+                        block_density=0.4, device=cuda)
+    stack = t.with_data(torch.stack([t.data * (1 + q) for q in range(4)]))
+    sl = stack.with_data(stack.data[:, 1:2])
+    assert not sl.data.is_contiguous()
+    B = torch.rand((4, 200, 5), device=cuda)
+    xa, xt = bcsr_fused.bcsr_xa_xta(sl, B, B)
+    ra, rt = tref.ref_bcsr_xa_xta(sl, B, B)
+    assert rel_err(xa, ra) <= 1e-5 and rel_err(xt, rt) <= 1e-5
+    assert rel_err(bcsr_spmm.bcsr_spmm(sl, B), ra) <= 1e-5
+
+
+@pytest.mark.parametrize("schedule", ["batched", "sliced"])
+def test_bcsr_grid_sweep_1x1_nccl_matches_single_device(cuda, schedule):
+    """The BCSR grid sweep on a one-rank NCCL grid against the
+    single-device sweep on the merged operand (batched; the sliced grid
+    schedule against its plain version): the same k_opt, per-k values
+    within 1e-4, bcsr_xa_xta launched per MU iteration (per slice under
+    the sliced schedule)."""
+    from repro_torch.core.rescalk import rescalk
+    from repro_torch.io import VirtualSpec, virtual_sharded_bcsr
+    from repro_torch.launch.mesh import make_grid
+    spec = VirtualSpec.parse(VIRTUAL_SPEC.replace("grid=2", "grid=1"))
+    sh = virtual_sharded_bcsr(spec, device=cuda)
+    grid = make_grid(data=1, model=1, device=cuda)
+    try:
+        cfg = RescalkConfig(k_min=2, k_max=3, n_perturbations=2,
+                            rescal_iters=30, regress_iters=20,
+                            schedule=schedule,
+                            kernel=KernelPolicy(use_fused=True))
+        ops.reset_launch_counts()
+        got = rescalk(sh.cell(0, 0), cfg, grid=grid)
+        per = spec.m if schedule == "sliced" else 1
+        assert ops.launch_counts()["bcsr_xa_xta"] == 60 * per
+        if schedule == "batched":
+            ref = rescalk(sh, cfg)
+        else:
+            ref = rescalk(sh.cell(0, 0), RescalkConfig(
+                k_min=2, k_max=3, n_perturbations=2, rescal_iters=30,
+                regress_iters=20, schedule=schedule,
+                kernel=KernelPolicy(use_fused=True, impl="ref")), grid=grid)
+        assert got.k_opt == ref.k_opt
+        for name in ("s_min", "s_mean", "rel_err"):
+            np.testing.assert_allclose(getattr(got, name),
+                                       getattr(ref, name), rtol=1e-4,
+                                       atol=1e-4)
+    finally:
+        grid.destroy()

@@ -455,6 +455,27 @@ def test_traced_dense_grid_sweep_passes_check_trace(tmp_path):
         assert d["core.rescal.masked_mu_step.step"].shape == (20,)
 
 
+@pytest.mark.parametrize("spec,kind", [
+    ("virtual:bcsr:n=512,m=2,k=3,bs=32,density=0.1,seed=0", "bcsr"),
+    ("virtual:bcsr:n=512,m=2,k=3,bs=32,density=0.1,grid=2,seed=0",
+     "bcsr-sharded"),
+])
+def test_traced_virtual_sweep_passes_check_trace(tmp_path, spec, kind):
+    """--trace on a virtual spec: a grid-2 layout's manifest keeps its
+    bcsr-sharded kind in memory.json, the per-rank bytes and the cost
+    table run on the merged BCSR, and check_trace.py passes."""
+    rescalk_run.main(["--device", "cpu", "--data", spec, "--k-min", "2",
+                      "--k-max", "3", "--r", "2", "--iters", "5",
+                      "--trace", str(tmp_path / "tr"),
+                      "--report", str(tmp_path / "r.json")])
+    out = check_trace(tmp_path / "tr", "--report", tmp_path / "r.json",
+                      "--expect-metrics", "--expect-memory")
+    assert out.returncode == 0, out.stdout
+    ledger = json.loads((tmp_path / "tr" / "memory.json").read_text())
+    assert ledger["ledger"]["kind"] == kind
+    assert ledger["ledger"]["compression"] > 1.0
+
+
 def test_traced_serve_passes_check_trace(traced_sweep, tmp_path):
     tmp, _, _ = traced_sweep
     out = serve.main(["--device", "cpu", "--factors", str(tmp / "r.bundle"),

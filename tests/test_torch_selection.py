@@ -200,3 +200,81 @@ def test_plan_and_report_read_by_repro(tmp_path):
     kr = convert.k_result(dataclasses.replace(res.per_k[2]))
     np.testing.assert_array_equal(kr.A_median, res.per_k[2].A_median)
     assert kr.s_min == res.per_k[2].s_min
+
+
+# ---------------------------------------------------------------------------
+# The virtual and sharded operand on one device
+# ---------------------------------------------------------------------------
+
+VIRTUAL = "virtual:bcsr:n=384,m=2,k=3,bs=32,density=0.25,grid={g},seed=4"
+
+
+@pytest.mark.parametrize("mode,g", [("batched", 1), ("batched", 2),
+                                    ("loop", 2), ("grid", 2)])
+def test_virtual_sweep_matches_repro(mode, g):
+    """The slice as a whole on a virtual operand: repro's ShardedBCSR of
+    the spec (the port's generation from repro's draws is held in
+    tests/test_torch_io.py) through the port's SweepScheduler, merged
+    once, against repro's SweepScheduler on the same draws: the same
+    k_opt, per-k s_min / s_mean / rel_err within 1e-4."""
+    from repro.io import VirtualSpec as JSpec
+    from repro.io import virtual_sharded_bcsr as j_virtual
+    sharded = j_virtual(JSpec.parse(VIRTUAL.format(g=g)))
+    jcfg = JConfig(k_min=2, k_max=4, n_perturbations=3, rescal_iters=30,
+                   regress_iters=30, seed=1,
+                   kernel=JPolicy(use_fused=True, impl="ref"))
+    ref = JScheduler(jcfg, mode=mode).run(sharded)
+    tcfg = RescalkConfig(k_min=2, k_max=4, n_perturbations=3,
+                         rescal_iters=30, regress_iters=30, seed=1,
+                         kernel=KernelPolicy(use_fused=True))
+    ours = convert.sharded_bcsr(sharded, device="cpu")
+    got = SweepScheduler(tcfg, mode=mode,
+                         draws=repro_draws(jcfg, sharded.to_bcsr())).run(ours)
+    assert got.k_opt == ref.k_opt
+    for name in ("s_min", "s_mean", "rel_err"):
+        np.testing.assert_allclose(getattr(got, name), getattr(ref, name),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_sharded_operand_is_merged_once_per_sweep(monkeypatch):
+    """On one device the scheduler merges a ShardedBCSR once, not per
+    unit, and runs the batched schedule only; with grid= it refuses a
+    ShardedBCSR (a cell takes its CellShard)."""
+    from repro_torch.io import VirtualSpec, virtual_sharded_bcsr
+    from repro_torch.io.partition import ShardedBCSR
+    from repro_torch.dist.sharding import Grid
+    sharded = virtual_sharded_bcsr(VirtualSpec.parse(VIRTUAL.format(g=2)),
+                                   device="cpu")
+    calls = []
+    merge = ShardedBCSR.to_bcsr
+    monkeypatch.setattr(ShardedBCSR, "to_bcsr",
+                        lambda self: calls.append(1) or merge(self))
+    cfg = RescalkConfig(k_min=2, k_max=3, n_perturbations=2,
+                        rescal_iters=3, regress_iters=3)
+    res = SweepScheduler(cfg, mode="loop",
+                         draws=TorchDraws(0, "cpu")).run(sharded)
+    assert len(calls) == 1 and res.per_k[2].A_median.shape == (384, 2)
+    with pytest.raises(ValueError, match="batched schedule only"):
+        SweepScheduler(dataclasses.replace(cfg, schedule="sliced")).run(
+            sharded)
+    with pytest.raises(TypeError, match="CellShard"):
+        SweepScheduler(cfg, grid=Grid.at_rank(0, 1, 1, 1, "cpu")).run(
+            sharded)
+
+
+def test_torch_draws_bcsr_member_is_the_grid_cell():
+    """TorchDraws draws a single-device BCSR member as cell 0 of a 1 x 1
+    grid draws its shard (noise from (seed, k, q, 0), A0 and R0 from
+    (seed, k, q)), so the two sweeps compute on the same numbers."""
+    from repro_torch.dist.sharding import Grid
+    from repro_torch.io import VirtualSpec, virtual_sharded_bcsr
+    sharded = virtual_sharded_bcsr(VirtualSpec.parse(VIRTUAL.format(g=1)),
+                                   device="cpu")
+    sp = sharded.to_bcsr()
+    d = TorchDraws(5, "cpu")
+    noise, A0, R0 = d.member(3, 2, sp, 0.02)
+    cell = torch.empty_like(sharded.cell(0, 0).sp.data)
+    A1, R1 = d.grid_member(3, 2, Grid.at_rank(0, 1, 1, 1, "cpu"), cell,
+                           0.02, n=sharded.n_pad)
+    assert torch.equal(noise, cell) and torch.equal(A0, A1) \
+        and torch.equal(R0, R1)
