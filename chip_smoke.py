@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phases (any failure exits non-zero; nothing is caught and passed over):
+Phases (any failure exits non-zero; nothing is caught and passed over;
+every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
+== 0``, but the one phase 11 forces):
 
   1. Build the six CUDA kernels (seven sources: flash_attention has a
      bf16 and an fp32 kernel) from ``src/repro_torch/kernels/csrc`` with
@@ -15,14 +17,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      n, empty block rows and cols, one block row of 44 blocks beside empty
      ones, nnzb == 0, k in {1, 3, 4, 5, 8, 9, 12, 16, 33, 64}, r in {1, 4},
      shared data with r operand members), to a relative Frobenius error
-     <= 1e-5 and max |diff| <= 1e-4 * max |ref| (XTB's atomics and the
-     plain version's sums add in different orders); empty block rows and
-     cols exactly zero; bcsr_xa_xta's XA bit-identical across two calls.
+     <= 1e-5 and max |diff| <= 1e-4 * max |ref| (the kernels and the
+     plain version sum in different orders); empty block rows and cols
+     exactly zero; bcsr_xa_xta's XA and XTB bit-identical across two
+     calls.
      bcsr_xa_xta then on the sweep's operands (r = 4 members, m = 8, n =
      131072, bs = 128, 13.1 GB of stored blocks, B1 = B2 = A) at k = 4 and
      5, the largest rank of each of its builds (4 and 8 columns) that the
      sweep runs, and at k = 8, the shape earlier PRs reported, held, XA
-     compared across two calls, and timed; the kernels line reports k = 5.
+     and XTB compared across two calls, and timed; the kernels line
+     reports k = 5.
      bcsr_spmm at that shape with k = 8.  Times kernel, plain version and,
      for bcsr_spmm, the ``torch.sparse_bsr_tensor @ B`` yardstick with CUDA
      events.
@@ -42,7 +46,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      m = 1 (the sliced schedule's call, a slice view of X), k in {1, 3, 5,
      16, 64}, r in {1, 4}, B2 broadcast over m (stride 0), n2 odd and
      n2 % 4 == 0 (the scalar and the float4 path), to the BCSR kernels'
-     tolerances; then held and timed beside its plain version (two
+     tolerances, XA and XTB bit-identical across two calls; then held
+     (and compared across two calls) and timed beside its plain version (two
      batched products) on the grid sweep's operands (r = 4, m = 8,
      n = 16384, X 34.4 GB, B1 = A, B2 = A broadcast over m) at k = 4 and
      k = 5, the largest rank of each KMAX build (4 and 8) the sweep runs;
@@ -203,6 +208,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      k_opt must be the planted 4.  Phase 2's edge cases include
      front-padded patterns (300 repeated (0, 0) blocks before the real
      ones).
+ 11. Checkpoints, retry and faults (after phase 10, in the same temporary
+     directory; the card's name and power limit printed first), on phase
+     10's operand at k = 2..5, r = 4, 60 MU iterations (phase 9's cut).
+     (a) Through ``rescalk_run.main`` in this process, the counters zeroed
+     just before each run and read just after: the sweep under
+     ``torch.use_deterministic_algorithms(True, warn_only=True)``, which
+     must warn of nothing (both BCSR kernels launched, mu_update_a once per
+     MU iteration); the same sweep with ``--ckpt-dir``; and its resume,
+     which reuses every unit.  All three reports are bit-identical (ks,
+     curves, k_opt, units) with ``n_kernel_fallbacks == 0``.  Printed:
+     each unit's checkpoint bytes, save and restore seconds, and the ms
+     per MU iteration with and without the checkpoints.  (b)
+     ``scripts/torch_chaos_drill.py --device cuda`` on the same sweep, one
+     CLI process per run: a baseline and a second fault-free run
+     (identical reports: determinism end to end), a transient unit fault
+     (retried, identical report), a torn checkpoint write and the resume
+     that quarantines it (identical), a deterministic fault (fails fast
+     after one attempt), one forced ``kernel/dispatch`` budget-overflow
+     (the call is refused with a TransientError and its unit retries on
+     the kernel: one ``kernel/fallback`` event with ``chosen="retry"``,
+     ``n_kernel_fallbacks == 1``, attempts == 2, identical report), and
+     an ``--async-ckpt`` run killed with SIGKILL once the first unit's
+     LATEST exists, whose resume reuses the saved units and equals the
+     baseline.  Every traced phase passes ``scripts/check_trace.py
+     --report``; every report but the forced overflow's has
+     ``n_kernel_fallbacks == 0`` and launched both kernels.  Then phases
+     3, 6, 7 and 10's ms per MU iteration beside the ones PERF.md
+     records for the previous release of this script.
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -214,6 +247,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -310,6 +344,18 @@ VIRTUAL_SMALL = dict(spec="virtual:bcsr:n=4096,m=3,k=4,bs=128,density=0.05,"
                      iters=300)
 PARTITION_GRID = 2          # (c): phase 3's file on a 2 x 2 layout
 PADDING_KS = (4, 5)         # (c): the shards through both BCSR kernels
+
+# phase 11: the chaos drill of the CLI at full width on phase 10's operand
+# (k = 2..5, 60 MU iterations as phase 9; the one cut), and the ms per MU
+# iteration of earlier phases that PERF.md records for the previous
+# release of this script on NVIDIA H100 80GB HBM3 at 700.00 W
+DRILL = dict(spec=VIRTUAL["spec"], k_min=2, k_max=5, r=4, iters=60)
+DRILL_TIMEOUT = 600
+RECORDED_MS = {"phase 3": 11.63, "phase 6": 14.39, "phase 7": 14.24,
+               "phase 7 grid mode": 17.12, "phase 10 (a)": 11.63,
+               "phase 10 (b)": 11.84}
+# ms per MU iteration of this run, by phase (filled as the phases run)
+MS_PER_ITER: dict[str, float] = {}
 
 
 def log(msg: str) -> None:
@@ -434,7 +480,7 @@ def check_edges(dev) -> None:
         B1 = torch.rand(shape, generator=gen, device=dev)
         B2 = torch.rand(shape, generator=gen, device=dev)
         xa, xt = bcsr_fused.bcsr_xa_xta(sp, B1, B2)
-        xa2, _ = bcsr_fused.bcsr_xa_xta(sp, B1, B2)
+        xa2, xt2 = bcsr_fused.bcsr_xa_xta(sp, B1, B2)
         sa = bcsr_spmm.bcsr_spmm(sp, B1)
         torch.cuda.synchronize()
         ra, rt = ref.ref_bcsr_xa_xta(sp, B1, B2)
@@ -442,8 +488,8 @@ def check_edges(dev) -> None:
         compare(f"bcsr_xa_xta XA [{tag}]", xa, ra)
         compare(f"bcsr_xa_xta XTB [{tag}]", xt, rt)
         compare(f"bcsr_spmm [{tag}]", sa, ra)
-        require(torch.equal(xa, xa2), f"bcsr_xa_xta XA differs between two "
-                                      f"calls [{tag}]")
+        require(torch.equal(xa, xa2) and torch.equal(xt, xt2),
+                f"bcsr_xa_xta XA or XTB differs between two calls [{tag}]")
         nb = -(-n // bs)
         for i in range(nb):
             sl = slice(i * bs, min((i + 1) * bs, n))
@@ -556,11 +602,12 @@ def phase_kernels(dev) -> list[dict]:
     for k in BCSR_KS:
         A_r = torch.rand((r, n, k), generator=gen, device=dev)
         xa, xt = bcsr_fused.bcsr_xa_xta(sp_r, A_r, A_r)
-        xa2, _ = bcsr_fused.bcsr_xa_xta(sp_r, A_r, A_r)
+        xa2, xt2 = bcsr_fused.bcsr_xa_xta(sp_r, A_r, A_r)
         torch.cuda.synchronize()
-        require(torch.equal(xa, xa2), f"bcsr_xa_xta XA differs between two "
-                                      f"calls [main, k={k}]")
-        del xa2
+        require(torch.equal(xa, xa2) and torch.equal(xt, xt2),
+                f"bcsr_xa_xta XA or XTB differs between two calls "
+                f"[main, k={k}]")
+        del xa2, xt2
         ra, rt = ref.ref_bcsr_xa_xta(sp_r, A_r, A_r)
         err = max(compare(f"bcsr_xa_xta XA [main, k={k}]", xa, ra),
                   compare(f"bcsr_xa_xta XTB [main, k={k}]", xt, rt))
@@ -576,8 +623,8 @@ def phase_kernels(dev) -> list[dict]:
                        bound_by=by)
         log(f"[kernels] bcsr_xa_xta at k={k}: kernel {ms:.3f} ms "
             f"({100 * b_ms / ms:.1f}% of the bound), plain {plain:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({by}), max |diff| {err:.3e}, XA "
-            f"bit-identical across calls")
+            f"bound {b_ms:.3f} ms ({by}), max |diff| {err:.3e}, XA and "
+            f"XTB bit-identical across calls")
         del A_r
     log(f"[kernels] bcsr_xa_xta at k=8: {by_k[8]['ms']:.3f} ms (PR 16's "
         f"kernel: 8.322 ms)")
@@ -658,7 +705,10 @@ def check_fused_edges(dev) -> None:
             B2 = torch.rand(lead + (m, n1, k), generator=gen, device=dev)
         tag = f"m={m} n1={n1} n2={n2} k={k} r={r or 1} shared={shared}"
         xa, xt = fused_bilinear.fused_xa_xtb(X, B1, B2)
+        xa2, xt2 = fused_bilinear.fused_xa_xtb(X, B1, B2)
         torch.cuda.synchronize()
+        require(torch.equal(xa, xa2) and torch.equal(xt, xt2),
+                f"fused_xa_xtb XA or XTB differs between two calls [{tag}]")
         ra, rt = ref.ref_fused_xa_xtb(X, B1, B2)
         compare(f"fused_xa_xtb XA [{tag}]", xa, ra)
         compare(f"fused_xa_xtb XTB [{tag}]", xt, rt)
@@ -702,7 +752,12 @@ def phase_fused(dev) -> dict:
         A = torch.rand((r, n, k), generator=gen, device=dev)
         B2 = A.unsqueeze(-3).expand(r, m, n, k)
         xa, xt = fused_bilinear.fused_xa_xtb(X, A, B2)
+        xa2, xt2 = fused_bilinear.fused_xa_xtb(X, A, B2)
         torch.cuda.synchronize()
+        require(torch.equal(xa, xa2) and torch.equal(xt, xt2),
+                f"fused_xa_xtb XA or XTB differs between two calls "
+                f"[main, k={k}]")
+        del xa2, xt2
         ra, rt = ref.ref_fused_xa_xtb(X, A, B2)
         err = max(compare(f"fused_xa_xtb XA [main, k={k}]", xa, ra),
                   compare(f"fused_xa_xtb XTB [main, k={k}]", xt, rt))
@@ -715,7 +770,7 @@ def phase_fused(dev) -> dict:
                        bound_by=by)
         log(f"[fused] fused_xa_xtb at k={k}: kernel {ms:.3f} ms, plain "
             f"{plain:.3f} ms, bound {b_ms:.3f} ms ({by}), max |diff| "
-            f"{err:.3e}")
+            f"{err:.3e}, XA and XTB bit-identical across calls")
         if k == cfg["sliced_k"]:
             # the sliced schedule's call at full size: one slice of one member
             Xt, B2t = X[0, 2:3], B2[0, 2:3]
@@ -1029,9 +1084,13 @@ def run_sweep(npz: Path, report: Path, impl: str, cfg: dict, *extra: str):
     t0 = time.perf_counter()
     res, rep = rescalk_run.main(argv)
     units = " ".join(f"k={u.k}:{u.seconds:.3f}s" for u in rep.units)
+    ms = ms_per_iteration(rep, cfg["iters"])
+    require(rep.meta["n_kernel_fallbacks"] == 0,
+            f"the sweep fell back to a plain version: {rep.meta}")
+    if impl == "auto" and not extra:
+        MS_PER_ITER.setdefault("phase 3", ms)
     log(f"[sweep] impl={impl}: {time.perf_counter() - t0:.1f}s wall; "
-        f"ensemble units {units}; per MU iteration "
-        f"{ms_per_iteration(rep, cfg['iters']):.2f} ms")
+        f"ensemble units {units}; per MU iteration {ms:.2f} ms")
     return res, rep
 
 
@@ -1264,10 +1323,14 @@ def run_grid_sweep(grid, X, impl: str, report: Path):
     wall = time.perf_counter() - t0
     units = json.loads(report.read_text())["units"]
     unit_s = sum(u["seconds"] for u in units)
+    ms = 1e3 * unit_s / (len(units) * cfg["iters"])
+    require(json.loads(report.read_text())["meta"]["n_kernel_fallbacks"]
+            == 0, "the grid sweep fell back to a plain version")
+    if impl == "auto":
+        MS_PER_ITER["phase 6"] = ms
     log(f"[grid] impl={impl}: sweep {wall:.1f}s wall; ensemble units "
         + " ".join(f"k={u['k']}:{u['seconds']:.3f}s" for u in units)
-        + f"; per MU iteration {1e3 * unit_s / (len(units) * cfg['iters']):.2f}"
-        f" ms")
+        + f"; per MU iteration {ms:.2f} ms")
     return res
 
 
@@ -1408,6 +1471,11 @@ def run_dense_cli(tmp: Path, name: str, n: int, *extra: str):
     launches = ops.launch_counts()
     iters = sum(len(u.cells) if u.cells else len(u.members)
                 for u in rep.units) * cfg["iters"] // cfg["r"]
+    require(rep.meta["n_kernel_fallbacks"] == 0,
+            f"{name} fell back to a plain version: {rep.meta}")
+    key = {"dense": "phase 7", "dense_grid": "phase 7 grid mode"}.get(name)
+    if key is not None:
+        MS_PER_ITER[key] = 1e3 * rep.total_seconds / iters
     log(f"[dense] {name}: {wall:.1f}s wall, units "
         + " ".join(f"{u.uid}:{u.seconds:.3f}s" for u in rep.units)
         + f"; {1e3 * rep.total_seconds / iters:.2f} ms per MU iteration of "
@@ -2043,6 +2111,8 @@ def run_virtual_cli(tmp: Path, name: str, cfg: dict, impl: str):
     t0 = time.perf_counter()
     res, rep = rescalk_run.main(argv)
     launches = ops.launch_counts()
+    require(rep.meta["n_kernel_fallbacks"] == 0,
+            f"{name} fell back to a plain version: {rep.meta}")
     log(f"[virtual] {name}: {time.perf_counter() - t0:.1f}s wall; per MU "
         f"iteration {ms_per_iteration(rep, cfg['iters']):.2f} ms; launches "
         f"{launches}")
@@ -2176,7 +2246,7 @@ def phase_virtual(tmp: Path, rep3, dev, smi: str) -> None:
     require(launches["mu_update_a"] == want,
             f"mu_update_a launched {launches['mu_update_a']} times, want "
             f"{want}")
-    ms_a = ms_per_iteration(rep, cfg["iters"])
+    ms_a = MS_PER_ITER["phase 10 (a)"] = ms_per_iteration(rep, cfg["iters"])
     log(f"[virtual] (a) k_opt {res.k_opt} against the planted "
         f"{cfg['k_true']}; {per_k_table(res)}")
     log(f"[virtual] (a) per MU iteration {ms_a:.2f} ms (phase 3: "
@@ -2215,9 +2285,12 @@ def phase_virtual(tmp: Path, rep3, dev, smi: str) -> None:
         gres = rescalk(cell, rc, grid=grid,
                        report_path=str(tmp / "virtual_grid.json"))
         glaunch = ops.launch_counts()
-        units = json.loads((tmp / "virtual_grid.json").read_text())["units"]
-        ms_b = 1e3 * sum(u["seconds"] for u in units) / (
-            len(units) * cfg["iters"])
+        grid_doc = json.loads((tmp / "virtual_grid.json").read_text())
+        require(grid_doc["meta"]["n_kernel_fallbacks"] == 0,
+                "the virtual grid sweep fell back to a plain version")
+        units = grid_doc["units"]
+        ms_b = MS_PER_ITER["phase 10 (b)"] = 1e3 * sum(
+            u["seconds"] for u in units) / (len(units) * cfg["iters"])
         log(f"[virtual] (b) 1 x 1 grid sweep: "
             f"{time.perf_counter() - t0:.1f}s wall, per MU iteration "
             f"{ms_b:.2f} ms, launches {glaunch}, collectives "
@@ -2283,6 +2356,148 @@ def phase_virtual(tmp: Path, rep3, dev, smi: str) -> None:
             f"{small['k_true']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: checkpoints, retry and faults; the chaos drill at full width
+# ---------------------------------------------------------------------------
+
+def span_seconds(tracer, name: str) -> dict[str, float]:
+    """Seconds of each ``name`` span in an in-memory trace, by unit uid."""
+    return {e["args"]["uid"]: e["dur"] / 1e6 for e in tracer.events
+            if e.get("ph") == "E" and e.get("name") == name}
+
+
+def drill_argv(cfg: dict) -> list[str]:
+    return ["--data", cfg["spec"], "--k-min", str(cfg["k_min"]),
+            "--k-max", str(cfg["k_max"]), "--r", str(cfg["r"]),
+            "--iters", str(cfg["iters"]), "--use-fused-kernel"]
+
+
+def same_report(tag: str, a, b) -> None:
+    """Bit-identical curves, k_opt and units (execution telemetry aside)."""
+    for name in ("ks", "s_min", "s_mean", "rel_err", "k_opt"):
+        require(getattr(a, name) == getattr(b, name),
+                f"{tag}: {name} differs: {getattr(a, name)} against "
+                f"{getattr(b, name)}")
+    require([(u.uid, u.k, u.members) for u in a.units]
+            == [(u.uid, u.k, u.members) for u in b.units],
+            f"{tag}: the units differ")
+
+
+def phase_chaos(tmp: Path, dev, smi: str) -> None:
+    """Phase 11 (see the module docstring)."""
+    import warnings
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import rescalk_run
+    from repro_torch.obs import trace as obs
+    cfg = DRILL
+    log(f"[chaos] on {smi}")
+    argv = drill_argv(cfg)
+    n_units = cfg["k_max"] - cfg["k_min"] + 1
+    want = n_units * cfg["iters"]
+
+    # (a) in this process: the sweep under deterministic algorithms
+    # (warnings recorded), then with --ckpt-dir, then its resume
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, rep0 = rescalk_run.main(argv + ["--report",
+                                               str(tmp / "chaos0.json")])
+            wall0 = time.perf_counter() - t0
+            launches = ops.launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name in ("bcsr_xa_xta", "bcsr_spmm"):
+        require(launches[name] > 0, f"{name} was not launched")
+    require(launches["mu_update_a"] == want,
+            f"mu_update_a launched {launches['mu_update_a']} times, want "
+            f"{want}")
+    notes = sorted({str(w.message)[:200] for w in caught})
+    require(not notes, f"warnings under use_deterministic_algorithms: "
+                       f"{notes}")
+    log(f"[chaos] (a) sweep under torch.use_deterministic_algorithms("
+        f"True, warn_only=True): no warning; {wall0:.1f}s wall, launches "
+        f"{launches}")
+    ck = tmp / "chaos_ck"
+    tracer = obs.Tracer(None)
+    prev = obs.install(tracer)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, rep1 = rescalk_run.main(argv + ["--ckpt-dir", str(ck), "--report",
+                                           str(tmp / "chaos1.json")])
+        wall1 = time.perf_counter() - t0
+        launches1 = ops.launch_counts()
+        t0 = time.perf_counter()
+        _, rep2 = rescalk_run.main(argv + ["--ckpt-dir", str(ck), "--report",
+                                           str(tmp / "chaos2.json")])
+        wall2 = time.perf_counter() - t0
+    finally:
+        obs.install(prev)
+    require(launches1 == launches, f"the checkpointed sweep launched "
+                                   f"{launches1}, the plain one {launches}")
+    same_report("--ckpt-dir against the plain sweep", rep1, rep0)
+    same_report("the resume against the plain sweep", rep2, rep0)
+    require(rep2.n_reused == n_units,
+            f"the resume reused {rep2.n_reused} of {n_units} units")
+    for rep in (rep0, rep1, rep2):
+        require(rep.meta["n_kernel_fallbacks"] == 0,
+                f"a fault-free sweep fell back: {rep.meta}")
+    saves = span_seconds(tracer, "sched/checkpoint")
+    loads = span_seconds(tracer, "sched/restore")
+    for u in rep1.units:
+        size = (ck / u.uid / "step_0.npz").stat().st_size
+        log(f"[chaos] {u.uid}: checkpoint {size} B, save "
+            f"{saves[u.uid]:.4f}s, restore {loads[u.uid]:.4f}s, unit "
+            f"{u.seconds:.3f}s")
+    iters = n_units * cfg["iters"]
+    plain_ms = 1e3 * rep0.total_seconds / iters
+    ckpt_ms = 1e3 * (rep1.total_seconds + sum(saves.values())) / iters
+    log(f"[chaos] per MU iteration: {plain_ms:.3f} ms without --ckpt-dir, "
+        f"{ckpt_ms:.3f} ms with it (unit seconds plus the checkpoint "
+        f"writes); wall {wall0:.1f}s, {wall1:.1f}s, resume {wall2:.1f}s")
+
+    # (b) the drill: every phase a CLI process on the card
+    work = tmp / "drill"
+    cmd = [sys.executable, str(ROOT / "scripts" / "torch_chaos_drill.py"),
+           "--device", "cuda", "--workdir", str(work), "--", *argv]
+    log(f"[chaos] (b) {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=DRILL_TIMEOUT)
+    for line in proc.stdout.splitlines():
+        log(f"[chaos]   {line}")
+    require(proc.returncode == 0,
+            f"the chaos drill exited {proc.returncode}:\n"
+            f"{proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.split("[chaos-drill] summary ")[1]
+                         .splitlines()[0])
+    for path in sorted(work.glob("r*.json")):
+        doc = json.loads(path.read_text())
+        fb = doc["meta"]["n_kernel_fallbacks"]
+        require(fb == (1 if path.name == "r5.json" else 0),
+                f"{path.name}: n_kernel_fallbacks {fb}")
+        launched = doc["meta"]["kernel_launches"]
+        require(launched["bcsr_xa_xta"] > 0 and launched["mu_update_a"] > 0,
+                f"{path.name}: the kernels were not launched: {launched}")
+    require(summary["kill_reused"] >= 1, f"the SIGKILL resume reused "
+                                         f"nothing: {summary}")
+    log(f"[chaos] (b) drill passed in {time.perf_counter() - t0:.1f}s: "
+        f"k_opt {summary['k_opt']}; the forced overflow's unit took "
+        f"{summary['overflow_attempts']} attempts; SIGKILL after "
+        f"{summary['kill_after_s']:.1f}s, {summary['kill_reused']} of "
+        f"{summary['kill_units']} units reused; {json.dumps(summary)}")
+    for key, old in RECORDED_MS.items():
+        now = MS_PER_ITER.get(key)
+        log(f"[chaos] {key}: {now:.2f} ms per MU iteration (recorded: "
+            f"{old:.2f}) on {smi}" if now is not None else
+            f"[chaos] {key}: not run")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2315,6 +2530,8 @@ def main() -> int:
         phase_dense(by_name, grid_res, Path(tmp))
         torch.cuda.empty_cache()
         phase_virtual(Path(tmp), rep3, dev, smi)
+        torch.cuda.empty_cache()
+        phase_chaos(Path(tmp), dev, smi)
     torch.cuda.empty_cache()
     rows.append(phase_lm(dev, smi))
     for row in rows:

@@ -52,6 +52,9 @@ class BCSR:
     block_cols: torch.Tensor   # (nnzb,) int32
     n: int                     # logical entities
     row_ptr: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # what is derived from the pattern once, shared by with_data copies
+    _derived: dict = dataclasses.field(init=False, repr=False,
+                                       compare=False)
 
     def __post_init__(self):
         if self.data.dim() not in (4, 5):
@@ -86,6 +89,7 @@ class BCSR:
                               device=self.data.device)
         row_ptr[1:] = torch.cumsum(counts, 0)
         object.__setattr__(self, "row_ptr", row_ptr)
+        object.__setattr__(self, "_derived", {})
 
     def with_data(self, data: torch.Tensor) -> "BCSR":
         """The same pattern with other stored values (a perturbed copy, a
@@ -101,9 +105,25 @@ class BCSR:
         new = object.__new__(BCSR)
         for name, value in (("data", data), ("block_rows", self.block_rows),
                             ("block_cols", self.block_cols), ("n", self.n),
-                            ("row_ptr", self.row_ptr)):
+                            ("row_ptr", self.row_ptr),
+                            ("_derived", self._derived)):
             object.__setattr__(new, name, value)
         return new
+
+    def col_index(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The transposed index, int32 on the data's device: the stored
+        blocks of block-column j are ``col_z[col_ptr[j]:col_ptr[j + 1]]``,
+        in block-row order.  Built once per pattern (a stable sort), and
+        shared by the ``with_data`` copies."""
+        got = self._derived.get("col_index")
+        if got is None:
+            cols, col_z = torch.sort(self.block_cols, stable=True)
+            col_ptr = torch.searchsorted(
+                cols, torch.arange(self.nblocks + 1, dtype=torch.int32,
+                                   device=cols.device), out_int32=True)
+            got = (col_ptr, col_z.to(torch.int32))
+            self._derived["col_index"] = got
+        return got
 
     @property
     def m(self) -> int:

@@ -19,6 +19,7 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from repro_torch.obs import trace as obs
+from repro_torch.resilience import faults
 
 DEFAULT_CHUNK = 1 << 16
 
@@ -163,16 +164,18 @@ def coo_from_chunks(chunks, *, n: int | None = None,
 class COOBuilder:
     """Streaming COO accumulator (``repro``'s): ``add`` appends one id
     chunk, ``finalize`` sorts and sums duplicates (``coo_from_chunks``).
-    ``repro``'s ingest fault seam is not ported."""
+    ``add`` is the ``ingest/chunk`` fault seam: a raise-* spec kills the
+    chunk, a nan-poison spec corrupts its values in place."""
 
     def __init__(self):
         self._chunks: list[tuple] = []
 
     def add(self, rels, rows, cols, vals) -> "COOBuilder":
+        vals = np.asarray(vals, np.float32)
+        faults.probe("ingest/chunk", arrays=vals, chunk=len(self._chunks))
         self._chunks.append((np.asarray(rows, np.int64),
                              np.asarray(rels, np.int64),
-                             np.asarray(cols, np.int64),
-                             np.asarray(vals, np.float32)))
+                             np.asarray(cols, np.int64), vals))
         return self
 
     def finalize(self, *, n: int | None = None,
@@ -186,19 +189,20 @@ def ingest_tsv(path: str, *, chunk: int = DEFAULT_CHUNK
     chunks.  Every name appears in some triple, so n and m are the vocab's
     sizes."""
     vocab = Vocab()
-
-    def chunks():
+    builder = COOBuilder()
+    with obs.span("ingest/tsv", path=path, chunk=chunk):
         for heads, rels, tails, vals in read_triples_tsv(path, chunk=chunk):
             h, r, t = vocab.encode(heads, rels, tails)
-            yield h, r, t, vals
-
-    with obs.span("ingest/tsv", path=path, chunk=chunk):
-        return coo_from_chunks(chunks()), vocab
+            builder.add(r, h, t, vals)
+        return builder.finalize(), vocab
 
 
 def ingest_npz(path: str, *, n: int | None = None, m: int | None = None,
                chunk: int = DEFAULT_CHUNK) -> COOTensor:
     """Chunked NPZ COO ingest (ids already assigned upstream); ``n`` and
     ``m`` declare the dimensions, as ``coo_from_chunks`` takes them."""
+    builder = COOBuilder()
     with obs.span("ingest/npz", path=path, chunk=chunk):
-        return coo_from_chunks(read_coo_npz(path, chunk=chunk), n=n, m=m)
+        for rows, rels, cols, vals in read_coo_npz(path, chunk=chunk):
+            builder.add(rels, rows, cols, vals)
+        return builder.finalize(n=n, m=m)

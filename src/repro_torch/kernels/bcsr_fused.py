@@ -13,13 +13,13 @@ persistent CTAs take (slice, block-row) units balanced by stored blocks;
 a producer thread streams the stored blocks through a ring of shared
 memory with bulk copies, and the B tiles beside them; each stored value
 is read from shared memory once, into registers that feed both products.
-XA accumulates in registers over a block-row and is written once
-(deterministic); each block's X^T tile is reduced inside the CTA and
-added into XTB with one vector fp32 atomic per four outputs, so XTB is
-NOT deterministic run to run at rounding level.  XTB is allocated with
-``torch.zeros``, its rows padded to a multiple of 4 columns (the vector
-adds) and cropped to k, so block-columns with no stored block stay
-exactly zero.
+XA accumulates in registers over a block-row and is written once; each
+block's X^T tile is reduced inside the CTA and stored to a workspace
+(T, nnzb, bs, kc), and a second kernel sums each block-column's tiles in
+block-row order (the transposed index ``BCSR.col_index``, built once per
+pattern on the card) into XTB, zeros for a block-column with no stored
+block.  Both outputs are bit-identical from call to call.  XTB's rows are
+padded to a multiple of 4 columns (the vector stores) and cropped to k.
 
 The copies land B in shared memory as it lies in device memory, so the
 wrapper hands the kernel B in its layout (``operand_tiles``): slices of
@@ -104,16 +104,20 @@ def bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor):
     B1t = operand_tiles(B1, sp.bs, sp.n_pad, kc)
     B2t = B1t if B2 is B1 else operand_tiles(B2, sp.bs, sp.n_pad, kc)
     b_member_stride = B1t.stride(1) if B1.dim() == 3 else 0
-    kt = -(-call.k // 4) * 4       # XTB's rows padded for vector adds
+    kt = -(-call.k // 4) * 4       # XTB's rows padded for vector stores
     xa = call.empty()
-    xtb = call.empty(zero=True, cols=kt)
+    xtb = call.empty(cols=kt)
+    part = torch.empty(call.T * sp.nnzb * sp.bs * kc, dtype=torch.float32,
+                       device=sp.data.device)
+    col_ptr, col_z = sp.col_index()
     with torch.cuda.device(sp.data.device):
         rc = _build.library().repro_bcsr_xa_xta(
             sp.data.data_ptr(), sp.row_ptr.data_ptr(),
-            sp.block_cols.data_ptr(), B1t.data_ptr(), B2t.data_ptr(),
-            xa.data_ptr(), xtb.data_ptr(), call.T, sp.m, sp.nblocks,
-            sp.nnzb, sp.bs, call.k, kt, kc, call.data_member_stride,
-            b_member_stride, B1t.stride(0), call.stream())
+            sp.block_cols.data_ptr(), col_ptr.data_ptr(), col_z.data_ptr(),
+            B1t.data_ptr(), B2t.data_ptr(), xa.data_ptr(), xtb.data_ptr(),
+            part.data_ptr(), call.T, sp.m, sp.nblocks, sp.nnzb, sp.bs,
+            call.k, kt, kc, call.data_member_stride, b_member_stride,
+            B1t.stride(0), call.stream())
     _build.check(rc, "bcsr_xa_xta")
     _launches += 1
     return call.shape_out(xa), call.shape_out(xtb[..., :call.k])

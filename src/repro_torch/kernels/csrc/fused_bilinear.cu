@@ -19,12 +19,15 @@
 //    deterministic.
 //  * XTB: each strip gives STRIP finished rows of X_t^T @ B2_t restricted
 //    to the panel's rows.  Every warp sums its 32 rows (lane = column),
-//    the warps reduce through shared memory, and the sum is added into
-//    XTB[t] with fp32 atomicAdd: one atomic per output value per panel.
-//    The wrapper allocates XTB with torch.zeros.  The order of the atomic
-//    adds changes from run to run, so XTB is NOT deterministic at
-//    rounding level; the checks' tolerances say so.  A deterministic
-//    variant is on the roadmap.
+//    the warps reduce through shared memory in a fixed order, and the sum
+//    is stored to the panel's own slot of a workspace (T, P, n2, k), P =
+//    the row panels: no two CTAs write the same bytes.  A second kernel
+//    (xtb_reduce) sums the P panel partials of each output in panel order
+//    into XTB, so XTB is bit-identical from call to call, like XA.  The
+//    workspace costs one write and one read of T * P * n2 * k floats
+//    (0.67 GB at the sweep's n = 16384, k = 5, 64 panels) beside X's
+//    8.6 GB.  With one panel (n1 <= BM) the kernel stores into XTB itself
+//    and the second kernel does not run.
 //  * Ragged tails are masked: rows past n1 and columns past n2 are staged
 //    as zeros and never stored.  Offsets are 64-bit (the sweep's X holds
 //    8.6e9 values per member set).
@@ -114,6 +117,9 @@ __device__ __forceinline__ void store_strip(float* __restrict__ ds,
 }
 
 // Dynamic shared memory of one CTA, in floats.
+// row panels of BM rows, one CTA each per slice
+inline int n_panels(int n1) { return (n1 + BM - 1) / BM; }
+
 template <int KMAX>
 constexpr int smem_floats() {
   return BM * DPAD + STRIP * KMAX + BM * KMAX + WARPS * STRIP * (KMAX + 1);
@@ -123,7 +129,7 @@ template <int KMAX, bool VEC>
 __global__ void __launch_bounds__(BM)
 fused_kernel(const float* __restrict__ X, const float* __restrict__ B1,
              const float* __restrict__ B2, float* __restrict__ xa,
-             float* __restrict__ xtb, Shape sh) {
+             float* __restrict__ ws, Shape sh) {
   extern __shared__ __align__(16) float smem[];
   float* ds = smem;                      // [BM][DPAD]   the X strip
   float* tile1 = ds + BM * DPAD;         // [STRIP][KMAX] B1 rows of the strip
@@ -146,7 +152,9 @@ fused_kernel(const float* __restrict__ X, const float* __restrict__ B1,
   const float* b1 = B1 + member * sh.b1_member;
   const float* b2 = B2 + member * sh.b2_member + slice * sh.b2_slice +
                     (long long)row0 * k;
-  float* xtb_t = xtb + (long long)t * n2 * k;
+  // this (slice, panel)'s X^T partial, (n2, k): its slot of the (T, P,
+  // n2, k) workspace, or XTB itself when P == 1
+  float* ws_p = ws + ((long long)t * gridDim.x + blockIdx.x) * n2 * k;
 
   // B2_t's panel rows, zero-padded to BM rows and KMAX columns
   for (int f = a; f < BM * KMAX; f += BM) {
@@ -211,7 +219,7 @@ fused_kernel(const float* __restrict__ X, const float* __restrict__ B1,
     for (int c = 0; c < KMAX; ++c) mine[c] = part[c];
     __syncthreads();
     const int cols = min(STRIP, n2 - s);
-    float* dst = xtb_t + (long long)s * k;
+    float* dst = ws_p + (long long)s * k;
     for (int f = a; f < cols * k; f += BM) {
       const int col = f / k;
       const int c = f % k;
@@ -220,7 +228,7 @@ fused_kernel(const float* __restrict__ X, const float* __restrict__ B1,
       for (int w = 0; w < WARPS; ++w) {
         sum += red[(w * STRIP + col) * (KMAX + 1) + c];
       }
-      atomicAdd(dst + f, sum);
+      dst[f] = sum;
     }
   }
 
@@ -233,39 +241,65 @@ fused_kernel(const float* __restrict__ X, const float* __restrict__ B1,
   }
 }
 
+// xtb[t][e] = sum over the P panels p, in order, of ws[t][p][e], for the
+// n2 * k outputs e of every slice t.
+__global__ void __launch_bounds__(256)
+xtb_reduce(const float* __restrict__ ws, float* __restrict__ xtb,
+           long long per_slice, long long total, int panels) {
+  for (long long f = blockIdx.x * 256ll + threadIdx.x; f < total;
+       f += (long long)gridDim.x * 256) {
+    const long long t = f / per_slice, e = f - t * per_slice;
+    const float* src = ws + t * panels * per_slice + e;
+    float sum = 0.f;
+    for (int p = 0; p < panels; ++p) sum += __ldg(src + p * per_slice);
+    xtb[f] = sum;
+  }
+}
+
 template <int KMAX, bool VEC>
 cudaError_t launch(const float* X, const float* B1, const float* B2,
-                   float* xa, float* xtb, int T, Shape sh,
+                   float* xa, float* xtb, float* ws, int T, Shape sh,
                    cudaStream_t stream) {
   const int smem = smem_floats<KMAX>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       fused_kernel<KMAX, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((sh.n1 + BM - 1) / BM, T);
-  fused_kernel<KMAX, VEC><<<grid, BM, smem, stream>>>(X, B1, B2, xa, xtb, sh);
+  const int panels = n_panels(sh.n1);
+  fused_kernel<KMAX, VEC><<<dim3(panels, T), BM, smem, stream>>>(
+      X, B1, B2, xa, panels == 1 ? xtb : ws, sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || panels == 1) return err;
+  const long long per_slice = (long long)sh.n2 * sh.k;
+  const long long total = per_slice * T;
+  const long long blocks = (total + 255) / 256;
+  xtb_reduce<<<(int)(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(
+      ws, xtb, per_slice, total, panels);
   return cudaGetLastError();
 }
 
 template <int KMAX>
 cudaError_t launch_k(const float* X, const float* B1, const float* B2,
-                     float* xa, float* xtb, int T, Shape sh, int vec,
-                     cudaStream_t stream) {
-  return vec ? launch<KMAX, true>(X, B1, B2, xa, xtb, T, sh, stream)
-             : launch<KMAX, false>(X, B1, B2, xa, xtb, T, sh, stream);
+                     float* xa, float* xtb, float* ws, int T, Shape sh,
+                     int vec, cudaStream_t stream) {
+  return vec ? launch<KMAX, true>(X, B1, B2, xa, xtb, ws, T, sh, stream)
+             : launch<KMAX, false>(X, B1, B2, xa, xtb, ws, T, sh, stream);
 }
 
 }  // namespace dense
 
-// xa (T, n1, k) = X_t @ B1[t / m];  xtb (T, n2, k) += X_t^T @ B2_t
-// (xtb must arrive zeroed), t = member * m + slice, T = members * m.
+// xa (T, n1, k) = X_t @ B1[t / m];  xtb (T, n2, k) = X_t^T @ B2_t, both in
+// a fixed order, t = member * m + slice, T = members * m.  ws is a
+// workspace of repro_fused_xa_xtb_workspace floats (unused, and may be
+// null, when that is 0).
 // Strides are in floats; a member stride of 0 shares the operand across
 // members, a B2 slice stride of 0 shares B2 across slices.  vec = 1 when
 // n2 % 4 == 0 and every X row starts 16-byte aligned.  Returns the
 // launch's cudaError_t.
 extern "C" int repro_fused_xa_xtb(const float* X, const float* B1,
                                   const float* B2, float* xa, float* xtb,
-                                  int T, int m, int n1, int n2, int k,
+                                  float* ws, int T, int m, int n1, int n2,
+                                  int k,
                                   long long x_member, long long x_slice,
                                   long long b1_member, long long b2_member,
                                   long long b2_slice, int vec,
@@ -273,9 +307,19 @@ extern "C" int repro_fused_xa_xtb(const float* X, const float* B1,
   dense::Shape sh{m, n1, n2, k, x_member, x_slice, b1_member, b2_member,
                   b2_slice};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k <= 4) return (int)dense::launch_k<4>(X, B1, B2, xa, xtb, T, sh, vec, st);
-  if (k <= 8) return (int)dense::launch_k<8>(X, B1, B2, xa, xtb, T, sh, vec, st);
-  if (k <= 16) return (int)dense::launch_k<16>(X, B1, B2, xa, xtb, T, sh, vec, st);
-  if (k <= 32) return (int)dense::launch_k<32>(X, B1, B2, xa, xtb, T, sh, vec, st);
-  return (int)dense::launch_k<64>(X, B1, B2, xa, xtb, T, sh, vec, st);
+  if (k <= 4) return (int)dense::launch_k<4>(X, B1, B2, xa, xtb, ws, T, sh, vec, st);
+  if (k <= 8) return (int)dense::launch_k<8>(X, B1, B2, xa, xtb, ws, T, sh, vec, st);
+  if (k <= 16) return (int)dense::launch_k<16>(X, B1, B2, xa, xtb, ws, T, sh, vec, st);
+  if (k <= 32) return (int)dense::launch_k<32>(X, B1, B2, xa, xtb, ws, T, sh, vec, st);
+  return (int)dense::launch_k<64>(X, B1, B2, xa, xtb, ws, T, sh, vec, st);
+}
+
+// *floats = the workspace repro_fused_xa_xtb needs for these shapes:
+// T * P * n2 * k floats for P > 1 row panels, 0 for one panel (the kernel
+// then stores into xtb itself).  Returns 0.
+extern "C" int repro_fused_xa_xtb_workspace(int T, int n1, int n2, int k,
+                                            long long* floats) {
+  const long long panels = dense::n_panels(n1);
+  *floats = panels == 1 ? 0 : (long long)T * panels * n2 * k;
+  return 0;
 }

@@ -11,10 +11,12 @@ at 2k FMAs, k flop per byte, under the fp32 ridge for every k the sweep
 uses; the floor is bytes(X) plus the factor reads and the two output
 writes over 3.35 TB/s.  Design: one CTA per (slice, 256-row panel) walks
 the columns in 32-wide strips staged once in shared memory; XA
-accumulates in registers and is written once (deterministic); each
-strip's X^T @ B2 partial is reduced across the CTA's warps and added into
-a zeroed XTB with fp32 ``atomicAdd``, so XTB is NOT deterministic run to
-run at rounding level.  Ragged n1/n2 tails are masked in the kernel.
+accumulates in registers and is written once; each strip's X^T @ B2
+partial is reduced across the CTA's warps and stored to the panel's slot
+of a workspace (T, panels, n2, k), and a second kernel sums the panels in
+order into XTB (with one panel the first kernel writes XTB itself).  Both
+outputs are bit-identical from call to call.  Ragged n1/n2 tails are
+masked in the kernel.
 
 The member axis is written out: X ([r,] m, n1, n2), B1 ([r,] n2, k),
 B2 ([r,] m, n1, k); an operand without the member axis is shared by all
@@ -27,6 +29,8 @@ On a CPU tensor the wrapper runs the plain version
 kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -116,17 +120,24 @@ def fused_xa_xtb(X: torch.Tensor, B1: torch.Tensor, B2: torch.Tensor):
     call = Call(X, B1, B2)
     call.require_cuda(X, B1, B2)
     empty = call.n1 == 0 or call.n2 == 0 or call.T == 0
-    xa = (torch.zeros if empty else torch.empty)(
-        call.shape_out(call.n1), dtype=torch.float32, device=call.device)
-    xtb = torch.zeros(call.shape_out(call.n2), dtype=torch.float32,
-                      device=call.device)
+    alloc = torch.zeros if empty else torch.empty
+    xa = alloc(call.shape_out(call.n1), dtype=torch.float32,
+               device=call.device)
+    xtb = alloc(call.shape_out(call.n2), dtype=torch.float32,
+                device=call.device)
     if empty:
         return xa, xtb
+    lib = _build.library()
+    floats = ctypes.c_longlong()
+    lib.repro_fused_xa_xtb_workspace(call.T, call.n1, call.n2, call.k,
+                                     ctypes.addressof(floats))
+    ws = torch.empty(floats.value, dtype=torch.float32, device=call.device)
     with torch.cuda.device(call.device):
-        rc = _build.library().repro_fused_xa_xtb(
+        rc = lib.repro_fused_xa_xtb(
             X.data_ptr(), B1.data_ptr(), B2.data_ptr(), xa.data_ptr(),
-            xtb.data_ptr(), call.T, call.m, call.n1, call.n2, call.k,
-            *call.strides, call.vec,
+            xtb.data_ptr(), ws.data_ptr() if floats.value else None,
+            call.T, call.m, call.n1,
+            call.n2, call.k, *call.strides, call.vec,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_xa_xtb")
     _launches += 1

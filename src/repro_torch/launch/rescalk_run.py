@@ -33,8 +33,20 @@ grid = 1); a virtual dense spec as the full (m, n, n) tensor.  The
 ledger) and writes ``trace.jsonl``, ``trace_chrome.json``, ``metrics.npz``,
 ``summary.txt`` and ``memory.json`` to DIR, the artifact set
 ``scripts/check_trace.py`` validates; ``--sanitize`` checks the factors
-after every MU step.  Flags of ``repro``'s CLI that are not ported yet
-are not defined here (ROADMAP.md lists them).
+after every MU step.
+
+``--ckpt-dir`` checkpoints every unit and makes a rerun resume from them;
+``--stop-after-units N`` stops after N computed units (a deterministic
+kill: the run prints ``[sweep] sweep interrupted ...`` and exits 0).
+``--max-retries``, ``--retry-base-delay`` and ``--unit-deadline`` set the
+unit RetryPolicy; ``--fault-plan FILE`` installs a ``resilience.faults``
+plan (``repro``'s JSON) before the tracer, so every ``fault/inject``
+instant lands in the trace; ``--async-ckpt`` writes the checkpoints on a
+thread.  ``scripts/torch_chaos_drill.py`` drives all of them.
+
+    CK=$(mktemp -d)       # a fresh directory per sweep; delete it after
+    ... rescalk_run --ckpt-dir $CK --stop-after-units 2   # "kill"
+    ... rescalk_run --ckpt-dir $CK                        # resume
 """
 from __future__ import annotations
 
@@ -56,8 +68,9 @@ from repro_torch.obs import costs as obs_costs
 from repro_torch.obs import memory as obs_memory
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs
+from repro_torch.resilience import RetryPolicy, faults
 from repro_torch.selection import (CRITERIA, INITS, RescalkConfig,
-                                   SweepScheduler)
+                                   SweepInterrupted, SweepScheduler)
 from repro_torch.selection.scheduler import SWEEP_MODES
 from repro_torch.serve import FactorBundle
 
@@ -95,12 +108,40 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--criterion", default="threshold",
                     choices=sorted(CRITERIA),
                     help="k-selection rule (selection/criteria.py)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="per-unit checkpoint directory; a rerun with the "
+                         "same directory resumes")
     ap.add_argument("--report", default=None,
                     help="write the SelectionReport JSON here")
     ap.add_argument("--bundle", default=None, metavar="DIR",
                     help="persist the selected-k factors as a FactorBundle "
                          "here; default: <report>.bundle next to --report. "
                          "The report's meta gains a 'bundle' pointer")
+    ap.add_argument("--stop-after-units", type=int, default=None,
+                    help="compute at most this many units, then exit "
+                         "(deterministic kill for resume drills)")
+    ap.add_argument("--max-retries", type=int, default=1,
+                    help="per-unit transient-retry budget "
+                         "(resilience.RetryPolicy max_attempts - 1; "
+                         "deterministic errors always fail fast)")
+    ap.add_argument("--retry-base-delay", type=float, default=0.05,
+                    metavar="SEC",
+                    help="first-retry backoff; doubles per attempt with "
+                         "deterministic seeded jitter")
+    ap.add_argument("--unit-deadline", type=float, default=None,
+                    metavar="SEC",
+                    help="per-attempt wall-clock budget for one unit; "
+                         "overruns raise DeadlineExceeded (transient) and "
+                         "retried attempts shrink to the straggler "
+                         "baseline")
+    ap.add_argument("--fault-plan", default=None, metavar="FILE",
+                    help="JSON FaultPlan (resilience.faults) installed "
+                         "for the run; every firing emits a fault/inject "
+                         "trace event")
+    ap.add_argument("--async-ckpt", action="store_true",
+                    help="write unit checkpoints on a background thread "
+                         "(failures surface at the next checkpoint "
+                         "boundary)")
     ap.add_argument("--use-fused-kernel", action="store_true",
                     help="route the MU products and the A update "
                          "through the CUDA kernels (kernels/ops.py)")
@@ -212,15 +253,25 @@ def _config(args) -> RescalkConfig:
 
 def sweep(args, X, A_true, vocab):
     """Sweep a loaded operand and print; returns (RescalkResult,
-    SelectionReport)."""
+    SelectionReport), or (None, None) when ``--stop-after-units`` stopped
+    the sweep."""
     m, n = operand_dims(X)
     print(f"operand m={m} n={n}, schedule={args.schedule}, "
           f"mode={args.mode}, criterion={args.criterion}")
     cfg = _config(args)
+    retry = RetryPolicy(max_attempts=args.max_retries + 1,
+                        base_delay=args.retry_base_delay,
+                        deadline=args.unit_deadline)
     sched = SweepScheduler(cfg, mode=args.mode, grid_chunk=args.grid_chunk,
-                           criterion=args.criterion,
+                           criterion=args.criterion, ckpt_dir=args.ckpt_dir,
+                           retry=retry, async_ckpt=args.async_ckpt,
+                           stop_after_units=args.stop_after_units,
                            report_path=args.report, verbose=True)
-    res = sched.run(X)
+    try:
+        res = sched.run(X)
+    except SweepInterrupted as stop:
+        print(f"[sweep] {stop}")
+        return None, None
     print("\n" + res.summary())
     print(f"\nselected k_opt = {res.k_opt}"
           + (f" (planted {args.k_true})" if A_true is not None else ""))
@@ -354,7 +405,15 @@ def run_traced(args):
 def main(argv=None):
     _device.strict_fp32()
     args = build_parser().parse_args(argv)
-    return run(args) if args.trace is None else run_traced(args)
+    go = run if args.trace is None else run_traced
+    if args.fault_plan is None:
+        return go(args)
+    # installed before the tracer, so every fault/inject instant of the
+    # run lands in the trace
+    plan = faults.FaultPlan.load(args.fault_plan)
+    print(f"[faults] {args.fault_plan}: {plan.summary()}")
+    with faults.active(plan):
+        return go(args)
 
 
 if __name__ == "__main__":

@@ -2,11 +2,14 @@
 
 Field names are those of ``repro``'s ``SelectionReport``/``UnitRecord``,
 so tools that read one read the other (``repro``'s
-``SelectionReport.load`` reads the port's reports).  The fields of layers
-the port has not reached yet (retry, checkpoints) keep their defaults;
-``peak_host_bytes`` / ``peak_device_bytes`` are the watermarks the
-scheduler reads at the end of each unit (the device one ``None`` on the
-CPU); ``kernel_launches`` is the port's own addition to ``meta``.
+``SelectionReport.load`` reads the port's reports).  The scheduler fills
+every field: ``reused`` for a unit restored from its checkpoint,
+``attempts``/``retries``/``backoff_seconds`` from the RetryPolicy,
+``straggler``/``baseline_seconds`` from the StragglerMonitor,
+``kernel_fallbacks`` from the injected fallbacks within the unit, and
+``peak_host_bytes`` / ``peak_device_bytes`` from the watermarks read at
+its end (the device one ``None`` on the CPU); ``kernel_launches`` and
+``device`` are the port's own additions to ``meta``.
 """
 from __future__ import annotations
 

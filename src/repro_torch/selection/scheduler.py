@@ -25,45 +25,84 @@ error's ||X||^2 from the engine's collectives (``bcsr_spmm`` on a shard
 under a fused policy) — the numbers ``repro`` computes on its global
 array.  The process grid runs batched mode only.
 
-Traced (``obs.trace``): ``sched/plan`` around the plan, one
-``sched/execute`` span per unit (closed after the unit's device
-synchronisation, so it times the device work) and one ``sched/reduce``
-span per rank.  Each unit's record carries the host high-water mark and
-the CUDA allocator's peak read at its end.
+On one device the sweep is resilient, as ``repro``'s
+(``repro/selection/scheduler.py:315-560``):
 
-Not ported yet: member groups over several pods as separate units, the
-cross-k grid on the process grid, checkpoint/resume, retry, fault
-injection and straggler monitoring (ROADMAP.md).
+  * ``ckpt_dir``: every executed unit is checkpointed (``ckpt``, one
+    directory per unit uid, ``repro``'s format) and a rerun restores the
+    units it finds instead of recomputing them, onto the operand's
+    device.  ``sweep.json`` holds the sweep's fingerprint (the config,
+    the mode and the operand's ``io.manifest`` fingerprint); a resume
+    under another fingerprint is refused.  A unit whose every checkpoint
+    step fails verification is quarantined and recomputed.  The per-k
+    reduction takes its draws from the same ``TorchDraws`` words either
+    way, so a resumed sweep equals an uninterrupted one bit for bit.
+  * ``retry``: each unit attempt probes the
+    ``sched/unit`` fault seam and runs under the ``RetryPolicy``:
+    transient errors back off and replay (``sched/retry`` events),
+    others fail fast (``sched/fail_fast``).  A ``StragglerMonitor`` flags
+    units slower than ``straggler_factor`` x the median
+    (``sched/straggler``) and shrinks a retried attempt's deadline.
+  * ``stop_after_units`` computes at most that many units, then raises
+    ``SweepInterrupted`` (the deterministic stand-in for a kill);
+    ``async_ckpt`` writes the checkpoints on a thread and surfaces a
+    failed write at the next checkpoint boundary; ``n_pods`` splits each
+    rank's members into ``dist.elastic.ensemble_plan`` groups, one unit
+    each.
+
+Each ``UnitRecord`` reports its attempts, backoff, straggler flag and
+kernel fallbacks (``kernels.ops.kernel_fallbacks`` diffed around the
+unit); the report's ``n_retries``, ``n_stragglers`` and
+``n_kernel_fallbacks`` are their sums.
+
+The process grid (``grid=``) refuses ``ckpt_dir``, ``n_pods > 1`` and
+retries with ``NotImplementedError`` (ROADMAP §1 item 3): a retry on one
+cell alone would desert the others in a collective.
+
+Traced (``obs.trace``): ``sched/plan`` around the plan, one
+``sched/execute`` span per unit attempt (closed after the unit's device
+synchronisation, so it times the device work), ``sched/restore`` and
+``sched/checkpoint`` spans, and one ``sched/reduce`` span per rank.  Each
+unit's record carries the host high-water mark and the CUDA allocator's
+peak read at its end.
+
+Not ported yet: the cross-k grid on the process grid (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 
 import numpy as np
 import torch
 
+from repro_torch import ckpt
 from repro_torch.core.clustering import custom_cluster
 from repro_torch.core.regression import regress_R
 from repro_torch.core.rescal import rel_error
 from repro_torch.core.silhouette import silhouettes
 from repro_torch.core.sparse import BCSR, sparse_regress_R, sparse_rel_error
+from repro_torch.dist.elastic import StragglerMonitor, ensemble_plan
 from repro_torch.dist.engine import local_regress_R, local_rel_error
 from repro_torch.dist.sharding import POD_AXIS, ROW_AXIS, Grid
+from repro_torch.io.manifest import manifest_of, operand_dims
 from repro_torch.io.partition import CellShard, ShardedBCSR
 from repro_torch.kernels import ops
 from repro_torch.obs import trace as obs
 from repro_torch.obs.memory import device_watermark, read_host_memory
+from repro_torch.resilience import RetryPolicy, faults
 
 from . import criteria
-from .draws import DrawSource, TorchDraws
+from .draws import DrawSource, TorchDraws, perturbed_values
 from .ensemble import (EnsembleResult, run_ensemble, run_grid_ensemble,
                        run_sweep_batched, single_device)
 from .report import SelectionReport, UnitRecord
 from .types import KResult, RescalkConfig, RescalkResult
 
-__all__ = ["GridChunk", "SweepScheduler", "WorkUnit", "plan_sweep",
-           "reduce_k", "reduce_k_grid"]
+__all__ = ["GridChunk", "SweepInterrupted", "SweepScheduler", "UnitOutcome",
+           "WorkUnit", "plan_sweep", "reduce_k", "reduce_k_grid"]
 
 SWEEP_MODES = ("batched", "loop", "grid")
 
@@ -97,16 +136,17 @@ class GridChunk:
 
 
 def plan_sweep(cfg: RescalkConfig, *, mode: str = "batched",
-               grid_chunk: int | None = None
+               n_pods: int = 1, grid_chunk: int | None = None
                ) -> list[WorkUnit] | list[GridChunk]:
-    """The sweep's units: "batched", one per rank with all r members;
+    """The sweep's units: "batched", per rank the members grouped
+    contiguously over ``n_pods`` units (``dist.elastic.ensemble_plan``);
     "loop", one per (k, q); "grid", the (k, q) grid flattened k-major in
-    chunks of ``grid_chunk`` cells (default: one chunk)."""
+    chunks of ``grid_chunk`` cells (default: one chunk per pod)."""
     if mode == "grid":
         cells = [(k, q) for k in cfg.ks
                  for q in range(cfg.n_perturbations)]
         if grid_chunk is None:
-            grid_chunk = len(cells)
+            grid_chunk = -(-len(cells) // n_pods)
         if grid_chunk <= 0:
             raise ValueError(f"grid_chunk must be positive, got "
                              f"{grid_chunk}")
@@ -117,8 +157,11 @@ def plan_sweep(cfg: RescalkConfig, *, mode: str = "batched",
         raise ValueError(f"unknown sweep mode {mode!r}")
     if grid_chunk is not None:
         raise ValueError("grid_chunk only applies to mode='grid'")
-    members = tuple(range(cfg.n_perturbations))
-    groups = [members] if mode == "batched" else [(q,) for q in members]
+    if mode == "batched":
+        groups = [tuple(g) for g in ensemble_plan(cfg.n_perturbations,
+                                                  n_pods) if g]
+    else:
+        groups = [(q,) for q in range(cfg.n_perturbations)]
     return [WorkUnit(index=i, k=k, members=g)
             for i, (k, g) in enumerate((k, g) for k in cfg.ks
                                        for g in groups)]
@@ -177,18 +220,51 @@ def reduce_k_grid(grid: Grid, Xl, cfg: RescalkConfig, k: int,
     return _k_result(k, clus, sil, R_reg, err, errors.cpu().numpy())
 
 
-def _record(unit, seconds: float, dev: torch.device) -> UnitRecord:
-    """A unit's record, with the watermarks read at its end: the host's
-    high-water mark and the CUDA allocator's peak (None on the CPU)."""
-    peaks = dict(peak_host_bytes=read_host_memory().get("hwm_bytes"),
-                 peak_device_bytes=device_watermark(dev))
-    if isinstance(unit, GridChunk):
-        return UnitRecord(uid=unit.uid, k=-1, members=[], seconds=seconds,
-                          reused=False, retries=0, attempts=1,
-                          cells=[list(c) for c in unit.cells], **peaks)
-    return UnitRecord(uid=unit.uid, k=unit.k, members=list(unit.members),
-                      seconds=seconds, reused=False, retries=0, attempts=1,
-                      **peaks)
+class SweepInterrupted(RuntimeError):
+    """``stop_after_units`` halted the sweep (the deterministic stand-in
+    for a kill: the computed units are checkpointed, the rest are not)."""
+
+    def __init__(self, executed: int, completed: int, total: int,
+                 resumable: bool = True):
+        self.executed = executed     # units computed this run
+        self.completed = completed   # units done overall (incl. reused)
+        self.total = total
+        self.resumable = resumable   # False when no ckpt_dir was set
+        tail = ("rerun with the same ckpt_dir to resume" if resumable else
+                "no ckpt_dir was set, so completed units were NOT "
+                "checkpointed and a rerun recomputes everything")
+        super().__init__(f"sweep interrupted after {executed} computed "
+                         f"units ({completed}/{total} done; {tail})")
+
+
+@dataclasses.dataclass
+class UnitOutcome:
+    unit: "WorkUnit | GridChunk"
+    result: EnsembleResult | None   # dropped once its rows are handed on
+    seconds: float
+    reused: bool
+    retries: int
+    attempts: int = 1               # executions this run (0 when reused)
+    backoff: float = 0.0            # total RetryPolicy sleep, seconds
+    straggler: bool = False         # flagged by the StragglerMonitor
+    baseline: float | None = None   # the monitor's median at the unit's end
+    peak_host: int | None = None    # host HWM bytes when the unit finished
+    peak_device: int | None = None  # CUDA allocator peak (None on the CPU)
+    fallbacks: int = 0              # kernel fallbacks within the unit
+
+    def record(self) -> UnitRecord:
+        unit = self.unit
+        grid = isinstance(unit, GridChunk)
+        return UnitRecord(
+            uid=unit.uid, k=-1 if grid else unit.k,
+            members=[] if grid else list(unit.members),
+            seconds=self.seconds, reused=self.reused, retries=self.retries,
+            attempts=self.attempts, backoff_seconds=self.backoff,
+            cells=[list(c) for c in unit.cells] if grid else None,
+            straggler=self.straggler, baseline_seconds=self.baseline,
+            peak_host_bytes=self.peak_host,
+            peak_device_bytes=self.peak_device,
+            kernel_fallbacks=self.fallbacks)
 
 
 class SweepScheduler:
@@ -196,13 +272,27 @@ class SweepScheduler:
 
     cfg        : RescalkConfig
     mode       : "batched" | "loop" | "grid" (see ``plan_sweep``)
-    grid_chunk : cells per chunk in mode "grid" (default: the whole grid)
+    grid_chunk : cells per chunk in mode "grid" (default: one chunk per
+                 pod); not part of the checkpoint fingerprint, since chunk
+                 uids name their exact cell range
     criterion  : key into selection.criteria.CRITERIA
     draws      : the draw source; default ``TorchDraws(cfg.seed)`` on the
                  operand's device
     grid       : a ``dist.sharding.Grid``: ``run`` then takes this cell's
                  dense block X^(i,j) or its ``CellShard``, and every cell
-                 of the grid calls it (batched mode only)
+                 of the grid calls it (batched mode only; no checkpoints,
+                 pods or retries)
+    ckpt_dir   : per-unit checkpoint root; units found there are restored,
+                 not recomputed
+    n_pods     : split each rank's members into this many units (grid
+                 mode: the default chunk count)
+    retry      : the unit RetryPolicy; default two attempts (one on the
+                 process grid)
+    stop_after_units : compute at most this many units (0 = resume only),
+                 then raise SweepInterrupted
+    async_ckpt : write unit checkpoints on a thread; a failed write is
+                 re-raised at the next checkpoint boundary
+    straggler_factor : a unit slower than this x the median is flagged
     report_path: write the SelectionReport JSON here after the sweep (on
                  the grid, cell 0 writes it)
     """
@@ -211,11 +301,22 @@ class SweepScheduler:
                  grid_chunk: int | None = None,
                  criterion: str = "threshold",
                  draws: DrawSource | None = None, grid: Grid | None = None,
+                 ckpt_dir: str | None = None, n_pods: int = 1,
+                 retry: RetryPolicy | None = None,
+                 stop_after_units: int | None = None,
+                 async_ckpt: bool = False, straggler_factor: float = 2.5,
                  report_path: str | None = None, verbose: bool = False):
         criteria.require(criterion)
-        if grid is not None and mode != "batched":
-            raise ValueError(f"the process grid runs mode='batched' only, "
-                             f"got mode={mode!r}")
+        if grid is not None:
+            if mode != "batched":
+                raise ValueError(f"the process grid runs mode='batched' "
+                                 f"only, got mode={mode!r}")
+            if (ckpt_dir is not None or n_pods != 1
+                    or (retry is not None and retry.max_attempts > 1)):
+                raise NotImplementedError(
+                    "the process grid has no checkpoints, pods or retries "
+                    "yet (ROADMAP §1 item 3); drop ckpt_dir, n_pods and "
+                    "the retries, or run on one device")
         if mode == "grid" and cfg.init != "random":
             raise NotImplementedError(
                 "mode='grid' supports init='random' only (NNDSVD depends "
@@ -226,10 +327,18 @@ class SweepScheduler:
         self.criterion = criterion
         self.draws = draws
         self.grid = grid
+        self.ckpt_dir = ckpt_dir
+        self.retry = retry or RetryPolicy(
+            max_attempts=1 if grid is not None else 2)
+        self.stop_after_units = stop_after_units
+        self.async_ckpt = async_ckpt
+        self._pending_save: ckpt.AsyncSave | None = None
+        self.stragglers = StragglerMonitor(factor=straggler_factor)
         self.report_path = report_path
         self.verbose = verbose
         with obs.span("sched/plan", mode=mode):
-            self.units = plan_sweep(cfg, mode=mode, grid_chunk=grid_chunk)
+            self.units = plan_sweep(cfg, mode=mode, n_pods=n_pods,
+                                    grid_chunk=grid_chunk)
         self.report: SelectionReport | None = None
 
     def _check_operand(self, X) -> torch.device:
@@ -250,6 +359,92 @@ class SweepScheduler:
                             "dense (m, n, n) tensor")
         return X.device
 
+    # -- checkpoints ---------------------------------------------------------
+
+    def _fingerprint(self, X) -> dict:
+        """What a unit checkpoint's validity depends on: the sweep config,
+        the mode and the operand's ``io.manifest`` fingerprint.  Unit uids
+        are config-blind, so this guard is what stops a resume from
+        reusing units of another configuration or other data."""
+        fp = dataclasses.asdict(self.cfg)
+        fp.update(mode=self.mode, manifest=manifest_of(X).fingerprint(),
+                  mesh=None)
+        return fp
+
+    def _check_ckpt_config(self, X) -> None:
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        path = os.path.join(self.ckpt_dir, "sweep.json")
+        fp = json.loads(json.dumps(self._fingerprint(X)))
+        if os.path.exists(path):
+            with open(path) as f:
+                stored = json.load(f)
+            if stored != fp:
+                bad = sorted(k for k in set(stored) | set(fp)
+                             if stored.get(k) != fp.get(k))
+                raise ValueError(
+                    f"checkpoint dir {self.ckpt_dir!r} was written by a "
+                    f"different sweep configuration (mismatched: {bad}); "
+                    f"resuming would silently reuse stale units — use a "
+                    f"fresh ckpt_dir or delete it")
+            return
+        ckpt.atomic_json_dump(path, fp, indent=1)
+
+    @staticmethod
+    def _unit_like(X, unit) -> dict:
+        """The shapes and dtypes of a unit's checkpoint (meta tensors)."""
+        m, n = operand_dims(X)
+        dtype = perturbed_values(X).dtype
+
+        def like(*shape):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if isinstance(unit, GridChunk):
+            c, km = len(unit.cells), unit.k_max
+            return {"A": like(c, n, km), "R": like(c, m, km, km),
+                    "errors": like(c)}
+        r_u, k = len(unit.members), unit.k
+        return {"A": like(r_u, n, k), "R": like(r_u, m, k, k),
+                "errors": like(r_u)}
+
+    def _try_restore(self, X, unit, dev) -> UnitOutcome | None:
+        if not self.ckpt_dir:
+            return None
+        tag = os.path.join(self.ckpt_dir, unit.uid)
+        if ckpt.latest_step(tag) is None:
+            return None
+        with obs.span("sched/restore", uid=unit.uid):
+            try:
+                tree, _ = ckpt.restore(tag, self._unit_like(X, unit),
+                                       device=dev)
+            except ckpt.CheckpointError:
+                # every step failed verification (quarantined, with its
+                # ckpt/quarantine event): recompute the unit
+                return None
+        if self.verbose:
+            print(f"  [ckpt] reused {unit.uid}")
+        return UnitOutcome(unit=unit, result=EnsembleResult(**tree),
+                           seconds=0.0, reused=True, retries=0, attempts=0)
+
+    def _surface_pending_save(self) -> None:
+        """Join the in-flight async checkpoint write, re-raising its
+        failure at this (the next) checkpoint boundary."""
+        handle, self._pending_save = self._pending_save, None
+        if handle is not None:
+            handle.join()
+
+    # -- execution -----------------------------------------------------------
+
+    def _unit_deadline(self, attempt: int) -> float | None:
+        """Per-attempt budget: a retried attempt's deadline shrinks to
+        factor x the median unit time once the sweep has a baseline."""
+        limit = self.retry.deadline
+        if limit is None:
+            return None
+        base = self.stragglers.baseline
+        if attempt > 0 and base is not None:
+            limit = min(limit, self.stragglers.factor * base)
+        return limit
+
     def _execute(self, X, unit, draws) -> EnsembleResult:
         if self.grid is not None:
             return run_grid_ensemble(self.grid, X, unit.k, self.cfg, draws)
@@ -257,6 +452,60 @@ class SweepScheduler:
             return run_sweep_batched(X, unit.cells, self.cfg, draws)
         return run_ensemble(X, unit.k, self.cfg, draws,
                             members=unit.members, mode=self.mode)
+
+    def _execute_unit(self, X, unit, draws, dev) -> UnitOutcome:
+        fb0 = ops.kernel_fallbacks()
+        timing: dict[str, float] = {}
+
+        def _attempt(attempt: int):
+            faults.probe("sched/unit", uid=unit.uid, attempt=attempt)
+            with obs.span("sched/execute", uid=unit.uid, attempt=attempt):
+                t0 = time.perf_counter()
+                res = self._execute(X, unit, draws)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                timing["dt"] = time.perf_counter() - t0
+            return res
+
+        def _on_retry(next_attempt: int, err: BaseException,
+                      pause: float) -> None:
+            obs.event("sched/retry", uid=unit.uid, attempt=next_attempt,
+                      backoff=round(pause, 6), error=type(err).__name__)
+            if self.verbose:
+                print(f"  [retry] {unit.uid} attempt {next_attempt} after "
+                      f"{type(err).__name__} (backoff {pause:.3f}s)")
+
+        res, stats = self.retry.call(_attempt, key=unit.uid,
+                                     on_retry=_on_retry,
+                                     deadline_fn=self._unit_deadline)
+        dt = timing["dt"]
+        # flagged durations stay out of the baseline
+        straggler = self.stragglers.record(unit.index, dt)
+        baseline = self.stragglers.baseline
+        if straggler:
+            print(f"  [straggler] {unit.uid} took {dt:.3f}s "
+                  f"(baseline {baseline:.3f}s)")
+            obs.event("sched/straggler", uid=unit.uid, seconds=dt,
+                      baseline=baseline)
+        if self.ckpt_dir:
+            with obs.span("sched/checkpoint", uid=unit.uid):
+                self._surface_pending_save()
+                tag = os.path.join(self.ckpt_dir, unit.uid)
+                if self.async_ckpt:
+                    self._pending_save = ckpt.save_async(tag, 0,
+                                                         res._asdict())
+                else:
+                    ckpt.save(tag, 0, res._asdict())
+        return UnitOutcome(unit=unit, result=res, seconds=dt, reused=False,
+                           retries=stats.attempts - 1,
+                           attempts=stats.attempts,
+                           backoff=stats.backoff_seconds,
+                           straggler=straggler, baseline=baseline,
+                           peak_host=read_host_memory().get("hwm_bytes"),
+                           peak_device=device_watermark(dev),
+                           fallbacks=ops.kernel_fallbacks() - fb0)
+
+    # -- reduction -----------------------------------------------------------
 
     def _reduce(self, X, k, rows, draws) -> KResult:
         """Reduce rank k from its (q, A, R, error) rows, in member
@@ -276,10 +525,14 @@ class SweepScheduler:
         return [(unit.k, q, res.A[i], res.R[i], res.errors[i])
                 for i, q in enumerate(unit.members)]
 
+    # -- the sweep -----------------------------------------------------------
+
     def run(self, X) -> RescalkResult:
         cfg = self.cfg
         grid = self.grid
         dev = self._check_operand(X)
+        if self.ckpt_dir:
+            self._check_ckpt_config(X)
         if grid is None:
             X = single_device(X)          # a ShardedBCSR, merged once
         draws = self.draws if self.draws is not None else \
@@ -289,14 +542,21 @@ class SweepScheduler:
         pending: dict[int, list] = {k: [] for k in cfg.ks}
         per_k: dict[int, KResult] = {}
         records: list[UnitRecord] = []
-        for unit in self.units:
-            with obs.span("sched/execute", uid=unit.uid, attempt=1):
-                t0 = time.perf_counter()
-                res = self._execute(X, unit, draws)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                dt = time.perf_counter() - t0
-            records.append(_record(unit, dt, dev))
+        executed = 0
+        for pos, unit in enumerate(self.units):
+            out = self._try_restore(X, unit, dev)
+            if out is None:
+                # checked before computing: stop_after_units=N computes at
+                # most N units (0 = resume only)
+                if (self.stop_after_units is not None
+                        and executed >= self.stop_after_units):
+                    self._surface_pending_save()
+                    raise SweepInterrupted(executed, pos, len(self.units),
+                                           resumable=bool(self.ckpt_dir))
+                out = self._execute_unit(X, unit, draws, dev)
+                executed += 1
+            records.append(out.record())
+            res, out.result = out.result, None
             done = {}
             if grid is not None:
                 with obs.span("sched/reduce", k=unit.k):
@@ -316,6 +576,7 @@ class SweepScheduler:
                 if self.verbose:
                     print(f"[sweep] k={k:3d} s_min={r.s_min:6.3f} "
                           f"s_mean={r.s_mean:6.3f} err={r.rel_err:7.4f}")
+        self._surface_pending_save()
 
         ks = cfg.ks
         s_min = np.array([per_k[k].s_min for k in ks])
@@ -327,8 +588,11 @@ class SweepScheduler:
                                rel_err=rel, k_opt=k_opt, per_k=per_k)
         launches = {name: n - launches0[name]
                     for name, n in ops.launch_counts().items()}
-        meta = {"n_units": len(self.units), "n_retries": 0,
-                "n_stragglers": 0, "n_kernel_fallbacks": 0,
+        meta = {"n_units": len(self.units),
+                "n_retries": sum(r.retries for r in records),
+                "n_stragglers": sum(1 for r in records if r.straggler),
+                "n_kernel_fallbacks": sum(r.kernel_fallbacks
+                                          for r in records),
                 "kernel_launches": launches, "device": str(dev)}
         if grid is not None:
             meta["mesh"] = grid.shape
@@ -341,4 +605,8 @@ class SweepScheduler:
             n_perturbations=cfg.n_perturbations, units=records, meta=meta)
         if self.report_path and (grid is None or grid.rank == 0):
             self.report.save(self.report_path)
+        if self.verbose and self.ckpt_dir:
+            print(f"[sweep] resumed {self.report.n_reused}/"
+                  f"{len(self.units)} units from checkpoints in "
+                  f"{self.ckpt_dir}")
         return result

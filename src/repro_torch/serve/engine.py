@@ -21,8 +21,9 @@ that would start after ``deadline``, get (-inf, -1) with ``shed=True``.
 Traced (``obs.trace``) as ``repro``'s engine is: a ``serve/request`` span
 per request, a ``serve/score`` span per device batch (closed after the
 scores reach the host), ``serve/shed`` and ``serve/cache`` instants per
-request, and a ``serve/reload`` span and instant per reload.  ``repro``'s
-fault probe is not ported yet.
+request, and a ``serve/reload`` span and instant per reload.  ``query``
+probes the ``serve/request`` fault seam at admission
+(``resilience.faults``).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch import device as _device
 from repro_torch.kernels import ops
 from repro_torch.kernels.policy import KernelPolicy
 from repro_torch.obs import trace as obs
+from repro_torch.resilience import faults
 
 from .bundle import FactorBundle
 
@@ -142,6 +144,7 @@ class ServeEngine:
         cfg.deadline has elapsed, are shed with the (-inf, -1) sentinel
         and ``shed=True``."""
         with obs.span("serve/request", n=len(queries)):
+            faults.probe("serve/request", n=len(queries))
             t0 = time.perf_counter()
             results: list[QueryResult | None] = [None] * len(queries)
             pending: OrderedDict[tuple, list[int]] = OrderedDict()

@@ -104,10 +104,18 @@ def test_cli_flags_match_repro_meanings():
     theirs = repro_parser()
     mine = {a.dest: a for a in ours._actions}
     for dest in ("bs", "k_min", "k_max", "r", "iters", "criterion",
-                 "report", "use_fused_kernel", "trace", "sanitize"):
+                 "report", "use_fused_kernel", "trace", "sanitize",
+                 "ckpt_dir", "stop_after_units", "max_retries",
+                 "retry_base_delay", "unit_deadline", "fault_plan",
+                 "async_ckpt"):
         theirs_action = next(a for a in theirs._actions if a.dest == dest)
         assert mine[dest].default == theirs_action.default, dest
+        assert mine[dest].type == theirs_action.type, dest
+        assert mine[dest].option_strings == theirs_action.option_strings
     assert mine["device"].default == "cuda"
+    # repro's CLI defines no flag the port lacks, apart from the mesh-free
+    # dry-run knobs it never had
+    assert {a.dest for a in theirs._actions} <= set(mine)
 
 
 def test_port_imports_neither_jax_nor_repro(tmp_path):
@@ -140,3 +148,59 @@ print(json.dumps({"modules": len(names), "bad": bad,
     assert got["bad"] == []
     assert got["built"] == 0
     assert got["groups"] is False
+
+
+def test_cli_interrupt_resume_and_retry_on_cpu(tmp_path, capsys):
+    """--stop-after-units prints repro's [sweep] line and returns; the
+    resume with --ckpt-dir reuses the unit and equals an uninterrupted
+    run; --fault-plan's transient fault is retried under --max-retries."""
+    from repro_torch.resilience import FaultPlan, FaultSpec, faults
+    spec = "virtual:bcsr:n=256,m=2,k=3,bs=32,density=0.25,seed=2"
+    base = ["--data", spec, "--k-min", "2", "--k-max", "3", "--r", "2",
+            "--iters", "8", "--use-fused-kernel", "--device", "cpu"]
+    ck = str(tmp_path / "ck")
+    assert rescalk_run.main(
+        base + ["--ckpt-dir", ck, "--stop-after-units", "1"]) == (None, None)
+    out = capsys.readouterr().out
+    assert ("[sweep] sweep interrupted after 1 computed units (1/2 done; "
+            "rerun with the same ckpt_dir to resume)") in out
+    assert "selected k_opt" not in out
+    plan = FaultPlan({"sched/unit": [
+        FaultSpec(kind="raise-transient", at=(0,))]}).save(
+            str(tmp_path / "plan.json"))
+    res, rep = rescalk_run.main(
+        base + ["--ckpt-dir", ck, "--fault-plan", plan,
+                "--retry-base-delay", "0.001", "--async-ckpt",
+                "--report", str(tmp_path / "r.json")])
+    out = capsys.readouterr().out
+    assert "[faults] " in out and "[retry] unit_k3_q0-1 attempt 1" in out
+    assert [(u.reused, u.attempts) for u in rep.units] == [(True, 0),
+                                                           (False, 2)]
+    assert rep.meta["n_retries"] == 1 and faults.current() is None
+    fresh, _ = rescalk_run.main(base)
+    assert fresh.k_opt == res.k_opt
+    np.testing.assert_array_equal(fresh.s_min, res.s_min)
+    np.testing.assert_array_equal(fresh.rel_err, res.rel_err)
+    with pytest.raises(faults.TransientError):
+        rescalk_run.main(base + ["--fault-plan", plan, "--max-retries", "0"])
+
+
+def test_chaos_drill_passes_on_cpu(tmp_path):
+    """scripts/torch_chaos_drill.py at repro's drill size (n=512, m=2,
+    k=3, bs=128, density 0.02, k = 2..3, r = 2, 10 iterations): every
+    phase's report passes the unchanged scripts/check_trace.py, and the
+    drill exits 0."""
+    drill = os.path.join(SRC, "..", "scripts", "torch_chaos_drill.py")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, drill, "--device", "cpu", "--workdir",
+         str(tmp_path / "drill")], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert "[chaos-drill] OK" in out.stdout
+    summary = json.loads(out.stdout.split("[chaos-drill] summary ")[1]
+                         .splitlines()[0])
+    assert summary["kill_reused"] == 1 and summary["kill_units"] == 2
+    assert summary["overflow_attempts"] == 1
+    for phase in ("phase0", "phase2", "phase3b", "phase5", "phase6b"):
+        assert (tmp_path / "drill" / f"{phase}.log").exists()

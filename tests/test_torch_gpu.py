@@ -55,8 +55,8 @@ GPU_CASES = [(256, 128, 0.3, 8, None), (200, 64, 0.3, 3, 4),
 
 @pytest.mark.parametrize("n,bs,density,k,r", GPU_CASES)
 def test_kernels_match_plain_versions_on_card(cuda, n, bs, density, k, r):
-    """Relative Frobenius error <= 1e-5: XTB's atomics add in no fixed
-    order, the plain version sums in another."""
+    """Relative Frobenius error <= 1e-5: the kernels and the plain version
+    sum in different orders."""
     t = tsp.random_bcsr(np.random.default_rng(n), m=3, n=n, bs=bs,
                         block_density=density, device=cuda)
     if r is not None:
@@ -112,9 +112,9 @@ def pattern_bcsr(pattern, n, bs, m, members, rng, device):
 
 @pytest.mark.parametrize("n,bs,pattern,k,dr,br", BCSR_EDGE_CASES)
 def test_bcsr_xa_xta_edges_on_card(cuda, n, bs, pattern, k, dr, br):
-    """Relative Frobenius error <= 1e-5 against the plain version (XTB's
-    atomics add in no fixed order); XA bit-identical across two calls;
-    block rows and cols that store nothing exactly zero."""
+    """Relative Frobenius error <= 1e-5 against the plain version (another
+    summation order); XA and XTB bit-identical across two calls; block
+    rows and cols that store nothing exactly zero."""
     rng = np.random.default_rng(n + k)
     sp = pattern_bcsr(pattern, n, bs, 3, dr, rng, cuda)
     shape = (br, n, k) if br is not None else (n, k)
@@ -122,10 +122,10 @@ def test_bcsr_xa_xta_edges_on_card(cuda, n, bs, pattern, k, dr, br):
     B2 = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)
     ops.reset_launch_counts()
     xa, xt = bcsr_fused.bcsr_xa_xta(sp, B1, B2)
-    xa2, _ = bcsr_fused.bcsr_xa_xta(sp, B1, B2)
+    xa2, xt2 = bcsr_fused.bcsr_xa_xta(sp, B1, B2)
     torch.cuda.synchronize()
     assert ops.launch_counts()["bcsr_xa_xta"] == 2
-    assert torch.equal(xa, xa2)
+    assert torch.equal(xa, xa2) and torch.equal(xt, xt2)
     ra, rt = tref.ref_bcsr_xa_xta(sp, B1, B2)
     assert rel_err(xa, ra) <= 1e-5 and rel_err(xt, rt) <= 1e-5
     rows, cols = pattern
@@ -182,6 +182,55 @@ def test_sweep_on_card_matches_cpu(cuda):
     for name in ("s_min", "s_mean", "rel_err"):
         np.testing.assert_allclose(getattr(got, name), getattr(ref, name),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["batched", "loop"])
+def test_resumed_and_retried_sweep_on_card_is_bit_identical(cuda, tmp_path,
+                                                             mode):
+    """Through the kernels on the card: a sweep stopped after one unit and
+    resumed from its checkpoints, and a sweep whose unit retried after a
+    transient fault, equal the uninterrupted sweep bit for bit (both X
+    kernels sum XTB in a fixed order); one forced budget-overflow refuses
+    one kernel call, whose unit retries on the kernel to the same bits."""
+    from repro_torch.resilience import (FaultPlan, FaultSpec, RetryPolicy,
+                                        faults)
+    from repro_torch.selection import SweepInterrupted, TorchDraws
+    rng = np.random.default_rng(5)
+    sp = tsp.random_bcsr(rng, m=2, n=200, bs=32, block_density=0.4,
+                         device=cuda)
+    cfg = RescalkConfig(k_min=2, k_max=3, n_perturbations=3,
+                        rescal_iters=20, regress_iters=20,
+                        kernel=KernelPolicy(use_fused=True))
+
+    def sweep(**kw):
+        sched = SweepScheduler(cfg, mode=mode, draws=TorchDraws(0, cuda),
+                               **kw)
+        return sched.run(sp), sched.report
+
+    want, rep = sweep()
+    assert rep.meta["n_kernel_fallbacks"] == 0
+    assert rep.meta["kernel_launches"]["bcsr_xa_xta"] > 0
+    d = str(tmp_path / "ck")
+    with pytest.raises(SweepInterrupted):
+        sweep(ckpt_dir=d, stop_after_units=1)
+    plan = FaultPlan({"sched/unit": [
+        FaultSpec(kind="raise-transient", at=(0,))]})
+    with faults.active(plan):
+        resumed, rep = sweep(ckpt_dir=d,
+                             retry=RetryPolicy(base_delay=0.001))
+    assert rep.n_reused == 1 and rep.meta["n_retries"] == 1
+    for got in (resumed, sweep()[0]):
+        assert got.k_opt == want.k_opt
+        for name in ("s_min", "s_mean", "rel_err"):
+            assert np.array_equal(getattr(got, name), getattr(want, name))
+    plan = FaultPlan({"kernel/dispatch": [
+        FaultSpec(kind="budget-overflow", at=(0,))]})
+    with faults.active(plan):
+        forced, rep = sweep()
+    assert rep.meta["n_kernel_fallbacks"] == 1
+    assert rep.meta["n_retries"] == 1 and forced.k_opt == want.k_opt
+    for name in ("s_min", "s_mean", "rel_err"):
+        assert np.array_equal(getattr(forced, name), getattr(want, name))
 
 
 def topk_close(got, plain, V, A):
@@ -383,8 +432,9 @@ FUSED_GPU_CASES = [(3, 37, 1000, 3, None, False), (1, 1000, 37, 64, 4, True),
 @pytest.mark.parametrize("m,n1,n2,k,r,shared", FUSED_GPU_CASES)
 def test_fused_xa_xtb_matches_plain_version_on_card(cuda, m, n1, n2, k, r,
                                                     shared):
-    """Relative Frobenius error <= 1e-5: XTB's atomics add in no fixed
-    order, the plain version sums in another."""
+    """Relative Frobenius error <= 1e-5 (the plain version sums in
+    another order); XA and XTB bit-identical across two calls (n1 = 300
+    reduces two row panels' partials)."""
     from repro_torch.kernels import fused_bilinear
     lead = (r,) if r is not None else ()
     X = torch.rand(lead + (m, n1, n2), device=cuda)
@@ -394,8 +444,10 @@ def test_fused_xa_xtb_matches_plain_version_on_card(cuda, m, n1, n2, k, r,
         torch.rand(lead + (m, n1, k), device=cuda))
     ops.reset_launch_counts()
     xa, xt = fused_bilinear.fused_xa_xtb(X, B1, B2)
+    xa2, xt2 = fused_bilinear.fused_xa_xtb(X, B1, B2)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["fused_xa_xtb"] == 1
+    assert ops.launch_counts()["fused_xa_xtb"] == 2
+    assert torch.equal(xa, xa2) and torch.equal(xt, xt2)
     ra, rt = tref.ref_fused_xa_xtb(X, B1, B2)
     assert rel_err(xa, ra) <= 1e-5 and rel_err(xt, rt) <= 1e-5
 

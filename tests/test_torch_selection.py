@@ -6,6 +6,8 @@ discipline (``unit_keys`` -> split into (pkey, fkey) -> the stored-block
 noise and init_factors' draws; the regression's PRNGKey(17)).
 """
 import dataclasses
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -278,3 +280,240 @@ def test_torch_draws_bcsr_member_is_the_grid_cell():
                            0.02, n=sharded.n_pad)
     assert torch.equal(noise, cell) and torch.equal(A0, A1) \
         and torch.equal(R0, R1)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint / resume, retry and fault seams (repro's tests/test_selection
+# .py:474-560, tests/test_resilience.py TestStragglerDeadline)
+# ---------------------------------------------------------------------------
+
+RESUME_CFG = dict(k_min=2, k_max=3, n_perturbations=2, rescal_iters=12,
+                  regress_iters=10, seed=1)
+
+
+def _resume_operand():
+    return convert.bcsr(planted(n=48, bs=16, m=2), device="cpu")
+
+
+def _same_sweep(got, want):
+    assert got.k_opt == want.k_opt
+    for k in want.per_k:
+        for name in ("s_min", "s_mean", "rel_err"):
+            assert getattr(got.per_k[k], name) == getattr(want.per_k[k], name)
+        np.testing.assert_array_equal(got.per_k[k].member_errors,
+                                      want.per_k[k].member_errors)
+        np.testing.assert_array_equal(got.per_k[k].A_median,
+                                      want.per_k[k].A_median)
+
+
+@pytest.mark.parametrize("mode,chunk,stop,units,reused", [
+    ("batched", None, 1, 2, 1), ("loop", None, 3, 4, 3),
+    ("grid", 3, 1, 2, 1), ("batched", None, 0, 2, 0)])
+def test_interrupt_then_resume_equals_uninterrupted(tmp_path, mode, chunk,
+                                                    stop, units, reused):
+    """stop_after_units computes at most that many units and raises
+    SweepInterrupted; a resume from the same ckpt_dir restores them and
+    recomputes the rest, bit for bit the uninterrupted sweep (the
+    reduction takes the same TorchDraws words either way)."""
+    from repro_torch.selection import SweepInterrupted
+    X = _resume_operand()
+    cfg = RescalkConfig(**RESUME_CFG, kernel=KernelPolicy(use_fused=True))
+    d = str(tmp_path / "ck")
+    with pytest.raises(SweepInterrupted) as stop_info:
+        SweepScheduler(cfg, mode=mode, grid_chunk=chunk, ckpt_dir=d,
+                       stop_after_units=stop).run(X)
+    assert stop_info.value.executed == stop and stop_info.value.resumable
+    sched = SweepScheduler(cfg, mode=mode, grid_chunk=chunk, ckpt_dir=d)
+    res = sched.run(X)
+    rep = sched.report
+    assert len(rep.units) == units and rep.n_reused == reused
+    assert all(u.attempts == (0 if u.reused else 1) for u in rep.units)
+    _same_sweep(res, SweepScheduler(cfg, mode=mode,
+                                    grid_chunk=chunk).run(X))
+    again = SweepScheduler(cfg, mode=mode, grid_chunk=chunk, ckpt_dir=d)
+    _same_sweep(again.run(X), res)
+    assert again.report.n_reused == units
+
+
+def test_resume_records_match_repros(tmp_path):
+    """The same scenario through repro's scheduler and the port's (kill
+    after one unit, a transient fault on the resumed run's first attempt,
+    resume): the same units, reuse flags, attempts, retries and backoff."""
+    from repro.resilience import FaultPlan as JPlan
+    from repro.resilience import faults as j_faults
+    from repro.selection import SweepInterrupted as JInterrupted
+    from repro_torch.resilience import FaultPlan, RetryPolicy, faults
+    from repro_torch.selection import SweepInterrupted
+    plan = {"specs": {"sched/unit": [{"kind": "raise-transient",
+                                      "at": [0]}]}}
+    sp = planted(n=48, bs=16, m=2)
+    records = []
+    for pkg, cfg, X, interrupted, plan_cls, active, retry in (
+            ("port", RescalkConfig(**RESUME_CFG), convert.bcsr(sp, "cpu"),
+             SweepInterrupted, FaultPlan, faults.active,
+             dict(retry=RetryPolicy(max_attempts=3))),
+            ("repro", JConfig(**RESUME_CFG), sp, JInterrupted, JPlan,
+             j_faults.active, dict(max_retries=2))):
+        sched_cls = SweepScheduler if pkg == "port" else JScheduler
+        d = str(tmp_path / pkg)
+        with pytest.raises(interrupted):
+            sched_cls(cfg, mode="loop", ckpt_dir=d, stop_after_units=1,
+                      **retry).run(X)
+        sched = sched_cls(cfg, mode="loop", ckpt_dir=d, **retry)
+        with active(plan_cls.from_json(json.dumps(plan))):
+            sched.run(X)
+        records.append([(u.uid, u.reused, u.attempts, u.retries,
+                         u.backoff_seconds) for u in sched.report.units])
+        assert sched.report.meta["n_retries"] == 1
+    assert records[0] == records[1]
+
+
+def test_torn_checkpoint_is_quarantined_and_recomputed(tmp_path):
+    from repro_torch.resilience import FaultPlan, FaultSpec, faults
+    from repro_torch.selection import SweepInterrupted
+    X = _resume_operand()
+    cfg = RescalkConfig(**RESUME_CFG)
+    d = str(tmp_path / "ck")
+    plan = FaultPlan({"ckpt/write": [
+        FaultSpec(kind="truncate-file", at=(0,), fraction=0.5)]})
+    with faults.active(plan), pytest.raises(SweepInterrupted):
+        SweepScheduler(cfg, ckpt_dir=d, stop_after_units=1).run(X)
+    sched = SweepScheduler(cfg, ckpt_dir=d)
+    with pytest.warns(UserWarning, match="quarantined"):
+        res = sched.run(X)
+    assert sched.report.n_reused == 0
+    assert any(".corrupt." in f
+               for f in os.listdir(os.path.join(d, "unit_k2_q0-1")))
+    _same_sweep(res, SweepScheduler(cfg).run(X))
+
+
+def test_changed_config_or_data_is_refused(tmp_path):
+    """sweep.json: another config, another mode, other values or another
+    sparsity pattern refuse to resume."""
+    from repro_torch.core.sparse import random_bcsr
+    X = random_bcsr(np.random.default_rng(0), m=2, n=64, bs=16,
+                    block_density=0.4, device="cpu")
+    cfg = RescalkConfig(**RESUME_CFG)
+    d = str(tmp_path / "ck")
+    SweepScheduler(cfg, ckpt_dir=d).run(X)
+    for other_cfg, mode, other in (
+            (dataclasses.replace(cfg, rescal_iters=13), "batched", X),
+            (cfg, "loop", X),
+            (cfg, "batched", X.with_data(X.data * 1.001)),
+            (cfg, "batched", tsp_moved(X))):
+        with pytest.raises(ValueError,
+                           match="different sweep configuration"):
+            SweepScheduler(other_cfg, mode=mode, ckpt_dir=d).run(other)
+    with open(os.path.join(d, "sweep.json")) as f:
+        stored = json.load(f)
+    assert stored["mode"] == "batched" and stored["mesh"] is None
+    assert stored["manifest"]["kind"] == "bcsr"
+
+
+def tsp_moved(X):
+    """X's values on another pattern: one stored block moved to a free
+    block-column of its row (the order stays row-major)."""
+    from repro_torch.core.sparse import BCSR
+    rows, cols = X.block_rows.tolist(), X.block_cols.tolist()
+    taken = set(zip(rows, cols))
+    for z in range(len(rows) - 1, -1, -1):
+        nxt = (rows[z + 1], cols[z + 1]) if z + 1 < len(rows) else None
+        for j in range(cols[z] + 1, X.nblocks):
+            if (rows[z], j) not in taken and (nxt is None
+                                              or (rows[z], j) < nxt):
+                cols[z] = j
+                return BCSR(data=X.data, block_rows=X.block_rows,
+                            block_cols=torch.tensor(cols, dtype=torch.int32),
+                            n=X.n)
+    raise AssertionError("no free block to move to")
+
+
+def test_retried_unit_leaves_the_report_unchanged(tmp_path):
+    """A transient sched/unit fault: the unit retries after repro's
+    backoff, the curves and k_opt are the fault-free run's, and the report
+    counts the retry; a deterministic fault fails fast after one
+    attempt."""
+    from repro_torch.resilience import (DeterministicFault, FaultPlan,
+                                        FaultSpec, RetryPolicy, faults)
+    X = _resume_operand()
+    cfg = RescalkConfig(**RESUME_CFG)
+    clean = SweepScheduler(cfg).run(X)
+    retry = RetryPolicy(max_attempts=3, base_delay=0.001)
+    sched = SweepScheduler(cfg, retry=retry)
+    plan = FaultPlan({"sched/unit": [
+        FaultSpec(kind="raise-transient", at=(1,))]})
+    with faults.active(plan):
+        res = sched.run(X)
+    _same_sweep(res, clean)
+    u = sched.report.units
+    assert [(x.attempts, x.retries) for x in u] == [(1, 0), (2, 1)]
+    assert u[1].backoff_seconds == retry.backoff(2, u[1].uid)
+    assert sched.report.meta["n_retries"] == 1
+    plan = FaultPlan({"sched/unit": [
+        FaultSpec(kind="raise-deterministic", at=(0,))]})
+    with faults.active(plan), pytest.raises(DeterministicFault):
+        SweepScheduler(cfg, retry=retry).run(X)
+    assert plan.hits == {"sched/unit": 1}
+
+
+def test_pods_split_members_and_straggler_deadline():
+    """n_pods groups each rank's members as ensemble_plan does (repro's
+    plan); a retried attempt's deadline shrinks to factor x the median
+    unit time once there is a baseline."""
+    from repro.selection.scheduler import plan_sweep as j_plan
+    from repro_torch.resilience import RetryPolicy
+    cfg = RescalkConfig(k_min=2, k_max=3, n_perturbations=5,
+                        rescal_iters=3, regress_iters=3)
+    jcfg = JConfig(k_min=2, k_max=3, n_perturbations=5)
+    for pods in (1, 2, 3):
+        for mode, chunk in (("batched", None), ("grid", None),
+                            ("grid", 4)):
+            got = plan_sweep(cfg, mode=mode, n_pods=pods, grid_chunk=chunk)
+            want = j_plan(jcfg, mode=mode, n_pods=pods, grid_chunk=chunk)
+            assert [u.uid for u in got] == [u.uid for u in want]
+    X = _resume_operand()
+    one = SweepScheduler(cfg, draws=TorchDraws(0, "cpu")).run(X)
+    sched = SweepScheduler(cfg, n_pods=2, draws=TorchDraws(0, "cpu"))
+    two = sched.run(X)
+    assert [u.members for u in sched.report.units] == [
+        [0, 1, 2], [3, 4], [0, 1, 2], [3, 4]]
+    assert two.k_opt == one.k_opt
+    for name in ("s_min", "s_mean", "rel_err"):
+        np.testing.assert_allclose(getattr(two, name), getattr(one, name),
+                                   rtol=1e-5, atol=1e-6)
+    sched = SweepScheduler(cfg, retry=RetryPolicy(deadline=60.0),
+                           straggler_factor=2.0)
+    assert sched._unit_deadline(0) == 60.0
+    for i in range(4):
+        sched.stragglers.record(i, 1.0)
+    assert sched._unit_deadline(0) == 60.0
+    assert sched._unit_deadline(1) == pytest.approx(2.0)
+    assert SweepScheduler(cfg)._unit_deadline(1) is None
+
+
+def test_process_grid_refuses_checkpoints_pods_and_retries():
+    from repro_torch.dist.sharding import Grid
+    from repro_torch.resilience import RetryPolicy
+    cfg = RescalkConfig(k_min=2, k_max=2, n_perturbations=2)
+    grid = Grid.at_rank(0, 1, 1, 1, "cpu")
+    assert SweepScheduler(cfg, grid=grid).retry.max_attempts == 1
+    for kw in (dict(ckpt_dir="ck"), dict(n_pods=2),
+               dict(retry=RetryPolicy(max_attempts=2))):
+        with pytest.raises(NotImplementedError, match="item 3"):
+            SweepScheduler(cfg, grid=grid, **kw)
+
+
+def test_async_checkpoints_resume(tmp_path):
+    """async_ckpt writes each unit on a thread, joined at the next
+    checkpoint boundary and before SweepInterrupted: the resume reuses
+    every computed unit."""
+    from repro_torch.selection import SweepInterrupted
+    X = _resume_operand()
+    cfg = RescalkConfig(**RESUME_CFG)
+    d = str(tmp_path / "ck")
+    with pytest.raises(SweepInterrupted):
+        SweepScheduler(cfg, mode="loop", ckpt_dir=d, async_ckpt=True,
+                       stop_after_units=3).run(X)
+    sched = SweepScheduler(cfg, mode="loop", ckpt_dir=d, async_ckpt=True)
+    _same_sweep(sched.run(X), SweepScheduler(cfg, mode="loop").run(X))
+    assert sched.report.n_reused == 3
