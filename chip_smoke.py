@@ -236,6 +236,37 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      ``n_kernel_fallbacks == 0`` and launched both kernels.  Then phases
      3, 6, 7 and 10's ms per MU iteration beside the ones PERF.md
      records for the previous release of this script.
+ 12. The sweep on the process grid as ``repro`` runs it on its mesh (after
+     phase 11, in the same temporary directory; the card's name and power
+     limit printed first), on one 1 x 1 NCCL grid (``make_grid(data=1,
+     model=1)``, destroyed at the end), ``SweepScheduler(cfg, grid=grid)``
+     with the counters zeroed just before each sweep and read just after,
+     k = 2..5, r = 4, the fused kernels; the one cut is 60 MU iterations
+     (phases 9 and 11's).  (a) Phase 6's dense operand (n = 16384, m = 8,
+     planted k = 4, noise 0.01, seed 0; X 8.59 GB, a unit's 4 members
+     34.36 GB): the per-k sweep, fused_xa_xtb and mu_update_a once per MU
+     iteration; with ``ckpt_dir`` and ``stop_after_units=2``
+     (SweepInterrupted) and its resume, which reuses 2 units and equals
+     the per-k sweep bit for bit; then ``mode="grid", grid_chunk=4`` (4
+     chunks of 4 k_max-padded cells), the kernels once per MU iteration
+     per chunk, the same k_opt and per-k values within 1e-4 of the per-k
+     sweep, and every cell of every chunk checkpoint exactly 0 past its
+     k.  (c) The per-k sweep again under a fault plan: a transient
+     ``sched/unit`` fault on the first unit and a ``budget-overflow`` on a
+     ``kernel/dispatch`` call in the middle of the second (the call is
+     refused with a TransientError, counted once with
+     ``chosen="retry"``; no plain version runs): the report equals the
+     fault-free one bit for bit, and those two units took 2 attempts.  (b)
+     Phase 10's operand (``virtual_sharded_bcsr``, ``cell(0, 0)``: 6122
+     stored blocks, 3.21 GB): the per-k sweep and the cross-k sweep
+     (``grid_chunk=4``), bcsr_xa_xta and mu_update_a once per MU iteration
+     per unit or chunk, bcsr_spmm launched, the same k_opt and per-k
+     within 1e-4; the cross-k sweep with ``ckpt_dir`` stopped after one
+     chunk and resumed equals it bit for bit, its masked columns exactly
+     0.  Printed: ms per MU iteration per k and cross-k beside phases 6
+     and 10 (b)'s, each checkpoint's bytes, save and restore seconds,
+     collectives per unit and the agreements among them, the device
+     peak.
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -354,6 +385,11 @@ DRILL_TIMEOUT = 600
 RECORDED_MS = {"phase 3": 11.63, "phase 6": 14.39, "phase 7": 14.24,
                "phase 7 grid mode": 17.12, "phase 10 (a)": 11.63,
                "phase 10 (b)": 11.84}
+# phase 12: the sweep on a 1 x 1 NCCL grid, resilient and cross-k, at
+# phase 6's dense width and on phase 10's operand; the one cut is 60 MU
+# iterations (phase 9's and phase 11's)
+GRID_SWEEP = dict(n=16384, m=8, k_true=4, noise=0.01, seed=0, k_min=2,
+                  k_max=5, r=4, iters=60, regress_iters=100, grid_chunk=4)
 # ms per MU iteration of this run, by phase (filled as the phases run)
 MS_PER_ITER: dict[str, float] = {}
 
@@ -2498,6 +2534,249 @@ def phase_chaos(tmp: Path, dev, smi: str) -> None:
             f"[chaos] {key}: not run")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the resilient sweep on the process grid (1 x 1 NCCL)
+# ---------------------------------------------------------------------------
+
+def sweep_config(cfg: dict):
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.selection import RescalkConfig
+    return RescalkConfig(k_min=cfg["k_min"], k_max=cfg["k_max"],
+                         n_perturbations=cfg["r"], rescal_iters=cfg["iters"],
+                         regress_iters=cfg["regress_iters"],
+                         seed=cfg["seed"], kernel=KernelPolicy(use_fused=True))
+
+
+def grid_sweep(tag: str, grid, X, cfg: dict, *, launches_of=None, **kw):
+    """One ``SweepScheduler(grid=grid)`` sweep with the counters zeroed
+    just before and read just after; returns (result, report, launches,
+    collectives, agreements)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.selection import SweepScheduler
+    sched = SweepScheduler(sweep_config(cfg), grid=grid, **kw)
+    agree, n_agree = grid.agree, [0]
+
+    def counted(*a, **k):
+        n_agree[0] += 1
+        return agree(*a, **k)
+
+    grid.agree = counted
+    try:
+        ops.reset_launch_counts()
+        c0 = grid.collectives
+        t0 = time.perf_counter()
+        res = sched.run(X)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        del grid.agree
+    rep = sched.report
+    computed = [u for u in rep.units if not u.reused]
+    iters = len(computed) * cfg["iters"]
+    ms = 1e3 * sum(u.seconds for u in computed) / iters if iters else 0.0
+    collectives = grid.collectives - c0
+    log(f"[gridsweep] {tag}: {wall:.1f}s wall, {len(computed)} units "
+        f"computed, {rep.n_reused} reused; per MU iteration {ms:.3f} ms; "
+        f"launches {launches}; collectives {collectives} "
+        f"({collectives / len(rep.units):.1f} per unit, of which "
+        f"{3 * n_agree[0] / len(rep.units):.1f} in {n_agree[0]} agreements)")
+    if launches_of is not None:
+        for name in launches_of:
+            require(launches[name] == iters,
+                    f"{tag}: {name} launched {launches[name]} times, want "
+                    f"{iters} (one per MU iteration per unit or chunk)")
+    require(rep.meta["mesh"] == grid.shape, f"{tag}: meta mesh "
+                                            f"{rep.meta['mesh']}")
+    return res, rep, launches, ms
+
+
+def same_result(tag: str, a, b) -> None:
+    """Bit-identical curves, k_opt and per-k factors."""
+    import numpy as np
+    require(a.k_opt == b.k_opt, f"{tag}: k_opt {a.k_opt} against {b.k_opt}")
+    for name in ("s_min", "s_mean", "rel_err"):
+        require(np.array_equal(getattr(a, name), getattr(b, name)),
+                f"{tag}: {name} differs: {getattr(a, name)} against "
+                f"{getattr(b, name)}")
+    for k in a.per_k:
+        for name in ("A_median", "R_regress", "member_errors"):
+            require(np.array_equal(getattr(a.per_k[k], name),
+                                   getattr(b.per_k[k], name)),
+                    f"{tag}: k={k} {name} differs")
+
+
+def close_curves(tag: str, a, b, tol: float = SWEEP_TOL) -> None:
+    import numpy as np
+    require(a.k_opt == b.k_opt, f"{tag}: k_opt {a.k_opt} against {b.k_opt}")
+    worst = max(float(np.abs(getattr(a, n) - getattr(b, n)).max())
+                for n in ("s_min", "s_mean", "rel_err"))
+    log(f"[gridsweep] {tag}: k_opt {a.k_opt}; per-k max |diff| "
+        f"{worst:.2e}")
+    require(worst <= tol, f"{tag}: per-k values differ by {worst:.2e}")
+
+
+def check_masked(tag: str, ck: Path, units) -> None:
+    """Every cell of every chunk checkpoint has exact zeros past its
+    k."""
+    for u in units:
+        arrays = ckpt_arrays(ck / u.uid)
+        for i, (k, _) in enumerate(u.cells):
+            require(not arrays["A"][i, :, k:].any()
+                    and not arrays["R"][i, :, k:].any()
+                    and not arrays["R"][i, :, :, k:].any(),
+                    f"{tag}: {u.uid} cell {i} has non-zero masked columns")
+    log(f"[gridsweep] {tag}: masked columns exactly 0 in all "
+        f"{sum(len(u.cells) for u in units)} cells")
+
+
+def ckpt_arrays(tag: Path) -> dict:
+    import numpy as np
+    with np.load(tag / "step_0.npz") as z:
+        return {name: z[name] for name in z.files}
+
+
+def ckpt_table(tag: str, tracer, ck: Path, rep) -> None:
+    saves = span_seconds(tracer, "sched/checkpoint")
+    loads = span_seconds(tracer, "sched/restore")
+    for u in rep.units:
+        path = ck / u.uid / "step_0.npz"
+        log(f"[gridsweep] {tag} {u.uid}: checkpoint "
+            f"{path.stat().st_size} B, save {saves.get(u.uid, 0.0):.4f}s, "
+            f"restore {loads.get(u.uid, 0.0):.4f}s, unit {u.seconds:.3f}s, "
+            f"attempts {u.attempts}")
+
+
+def phase_grid_sweep(tmp: Path, dev, smi: str) -> None:
+    """Phase 12 (see the module docstring)."""
+    import torch
+    from repro_torch.data.synthetic import synthetic_rescal
+    from repro_torch.io import VirtualSpec, virtual_sharded_bcsr
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.obs import trace as obs
+    from repro_torch.resilience import FaultPlan, FaultSpec, faults
+    from repro_torch.selection import SweepInterrupted
+    log(f"[gridsweep] on {smi}")
+    cfg = GRID_SWEEP
+    dense_names = ("fused_xa_xtb", "mu_update_a")
+    bcsr_names = ("bcsr_xa_xta", "mu_update_a")
+    torch.cuda.empty_cache()
+    grid = make_grid(data=1, model=1, device=dev)
+    tracer = obs.Tracer(None)
+    prev = obs.install(tracer)
+    try:
+        # (a) dense: per k, its checkpointed stop and resume, cross-k
+        X, _, _ = synthetic_rescal(cfg["n"], cfg["m"], cfg["k_true"],
+                                   seed=cfg["seed"], noise=cfg["noise"],
+                                   device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        plan = FaultPlan()          # empty: counts the dispatch probes
+        with faults.active(plan):
+            perk, rep_perk, _, ms_perk = grid_sweep(
+                "(a) dense per k", grid, X, cfg, launches_of=dense_names)
+        n_units = len(rep_perk.units)
+        hits = plan.hits.get("kernel/dispatch", 0)
+        require(hits % n_units == 0 and hits > 0,
+                f"{hits} dispatches over {n_units} units")
+        ck = tmp / "gridsweep_dense"
+        try:
+            grid_sweep("(a) dense per k, stopped", grid, X, cfg,
+                       ckpt_dir=str(ck), stop_after_units=2)
+            raise PhaseError("stop_after_units=2 did not stop the sweep")
+        except SweepInterrupted as e:
+            log(f"[gridsweep] (a) {e}")
+        resumed, rep_res, _, _ = grid_sweep(
+            "(a) dense per k, resumed", grid, X, cfg, ckpt_dir=str(ck))
+        require(rep_res.n_reused == 2, f"the resume reused "
+                                       f"{rep_res.n_reused} units, want 2")
+        same_result("(a) resumed against uninterrupted", resumed, perk)
+        ckpt_table("(a)", tracer, ck, rep_res)
+        ck_grid = tmp / "gridsweep_dense_grid"
+        cross, rep_cross, _, ms_cross = grid_sweep(
+            "(a) dense cross-k", grid, X, cfg, launches_of=dense_names,
+            mode="grid", grid_chunk=cfg["grid_chunk"],
+            ckpt_dir=str(ck_grid))
+        close_curves("(a) cross-k against per k", cross, perk)
+        check_masked("(a) dense cross-k", ck_grid, rep_cross.units)
+        log(f"[gridsweep] (a) per MU iteration: per k {ms_perk:.3f} ms, "
+            f"cross-k {ms_cross:.3f} ms (each chunk pays k_max = "
+            f"{cfg['k_max']} columns in every cell); phase 6 "
+            f"{MS_PER_ITER.get('phase 6', float('nan')):.3f} ms; on {smi}")
+
+        # (c) faults on the grid: a transient unit fault on the first
+        # unit, a refused kernel call in the middle of the second
+        per_unit = hits // n_units
+        plan = FaultPlan({
+            "sched/unit": [FaultSpec(kind="raise-transient", at=(0,))],
+            "kernel/dispatch": [FaultSpec(kind="budget-overflow",
+                                          at=(per_unit + per_unit // 2,))]})
+        n0 = len(tracer.events)
+        with faults.active(plan):
+            faulted, rep_f, launches_f, _ = grid_sweep(
+                "(c) dense per k, faults", grid, X, cfg)
+        same_result("(c) faulted against fault-free", faulted, perk)
+        attempts = [u.attempts for u in rep_f.units]
+        require(attempts == [2, 2] + [1] * (n_units - 2),
+                f"(c) attempts {attempts}")
+        chosen = [e["args"]["chosen"] for e in tracer.events[n0:]
+                  if e.get("name") == "kernel/fallback"]
+        require(chosen == ["retry"], f"(c) kernel/fallback events {chosen}")
+        require(rep_f.meta["n_kernel_fallbacks"] == 1,
+                f"(c) n_kernel_fallbacks {rep_f.meta['n_kernel_fallbacks']}")
+        require(launches_f["fused_xa_xtb"] >= n_units * cfg["iters"],
+                f"(c) launches {launches_f}")
+        log(f"[gridsweep] (c) report identical to the fault-free one; "
+            f"attempts {attempts}; the refused call counted once "
+            f"(chosen=retry), no plain version ran")
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[gridsweep] (a, c) device peak {peak / 1e9:.2f} GB")
+        del X
+        torch.cuda.empty_cache()
+
+        # (b) BCSR: per k, cross-k, its checkpointed stop and resume
+        spec = VirtualSpec.parse(VIRTUAL["spec"])
+        sharded = virtual_sharded_bcsr(spec, device=dev)
+        cell = sharded.cell(0, 0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        bperk, _, launches_b, ms_bperk = grid_sweep(
+            "(b) bcsr per k", grid, cell, cfg, launches_of=bcsr_names)
+        bcross, rep_bc, launches_bc, ms_bcross = grid_sweep(
+            "(b) bcsr cross-k", grid, cell, cfg, launches_of=bcsr_names,
+            mode="grid", grid_chunk=cfg["grid_chunk"])
+        for tag, launched in (("per k", launches_b),
+                              ("cross-k", launches_bc)):
+            require(launched["bcsr_spmm"] > 0,
+                    f"(b) {tag}: bcsr_spmm was not launched")
+        close_curves("(b) cross-k against per k", bcross, bperk)
+        ck_b = tmp / "gridsweep_bcsr"
+        try:
+            grid_sweep("(b) bcsr cross-k, stopped", grid, cell, cfg,
+                       mode="grid", grid_chunk=cfg["grid_chunk"],
+                       ckpt_dir=str(ck_b), stop_after_units=1)
+            raise PhaseError("stop_after_units=1 did not stop the sweep")
+        except SweepInterrupted as e:
+            log(f"[gridsweep] (b) {e}")
+        bres, rep_bres, _, _ = grid_sweep(
+            "(b) bcsr cross-k, resumed", grid, cell, cfg, mode="grid",
+            grid_chunk=cfg["grid_chunk"], ckpt_dir=str(ck_b))
+        require(rep_bres.n_reused == 1, f"(b) the resume reused "
+                                        f"{rep_bres.n_reused} chunks")
+        same_result("(b) resumed against uninterrupted", bres, bcross)
+        check_masked("(b) bcsr cross-k", ck_b, rep_bres.units)
+        ckpt_table("(b)", tracer, ck_b, rep_bres)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[gridsweep] (b) per MU iteration: per k {ms_bperk:.3f} ms, "
+            f"cross-k {ms_bcross:.3f} ms; phase 10 (b) "
+            f"{MS_PER_ITER.get('phase 10 (b)', float('nan')):.3f} ms; "
+            f"device peak {peak / 1e9:.2f} GB; on {smi}")
+        del cell, sharded
+    finally:
+        obs.install(prev)
+        grid.destroy()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2532,6 +2811,8 @@ def main() -> int:
         phase_virtual(Path(tmp), rep3, dev, smi)
         torch.cuda.empty_cache()
         phase_chaos(Path(tmp), dev, smi)
+        torch.cuda.empty_cache()
+        phase_grid_sweep(Path(tmp), dev, smi)
     torch.cuda.empty_cache()
     rows.append(phase_lm(dev, smi))
     for row in rows:

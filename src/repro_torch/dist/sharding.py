@@ -16,7 +16,10 @@ The global rank of cell (pod, i, j) is ``pod * rows * cols + i * cols +
 j``, the device order of ``repro``'s mesh.  Every collective is issued
 even on a group of one (a 1 x 1 grid on one card) and counted on
 ``Grid.collectives``, and every rank issues the same collectives in the
-same order.
+same order.  ``Grid.agree`` takes the maximum of a few numbers over
+every cell (the row, column and pod groups in turn): the sweep
+scheduler's decisions (restores, attempt outcomes, unit times), which
+``repro``'s single controller makes once for its whole mesh.
 
 Local-block slicing takes the place of ``repro``'s PartitionSpecs
 (``factor_specs``, ``ensemble_factor_specs``, ``ensemble_member_specs``):
@@ -29,6 +32,7 @@ it, and r by the pods; ``Grid`` refuses anything else.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 import torch.distributed as dist
@@ -138,14 +142,18 @@ class Grid:
         return X[..., self.i * nb:(self.i + 1) * nb,
                  self.j * nb:(self.j + 1) * nb]
 
-    def pod_members(self, r: int) -> range:
-        """The member ids this pod runs: an even, contiguous split of r."""
+    def pod_members(self, members: int | Sequence[int]) -> Sequence[int]:
+        """The members this pod runs: an even, contiguous split of
+        ``members`` (the ids themselves, or r for ids 0..r-1)."""
+        if isinstance(members, int):
+            members = range(members)
+        r = len(members)
         if r % self.pods:
             raise ValueError(f"r={r} members are not divisible by "
                              f"pods={self.pods} (members split evenly "
                              f"over pods)")
         per = r // self.pods
-        return range(self.pod * per, (self.pod + 1) * per)
+        return members[self.pod * per:(self.pod + 1) * per]
 
     # -- collectives --------------------------------------------------------
 
@@ -199,6 +207,21 @@ class Grid:
         dist.all_gather(parts, x, group=self._group(axis))
         self.collectives += 1
         return torch.cat(parts, dim=dim)
+
+    def agree(self, values: Sequence[float]) -> list[float]:
+        """The maximum of each of a few numbers over every cell of the
+        grid (all-reduced over the row, the column, then the pod axis),
+        so that every cell gets the same values: the sweep's decisions (a
+        restore, an attempt's outcome, a unit's time) go through here.
+        The values travel as float64, exact for flags and counts.
+        Counted on ``collectives`` like every other collective (3 per
+        call)."""
+        x = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=self.device)
+        for axis in (ROW_AXIS, COL_AXIS, POD_AXIS):
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self._group(axis))
+            self.collectives += 1
+        return x.tolist()
 
     def destroy(self) -> None:
         """Destroy this grid's groups, and the default group when

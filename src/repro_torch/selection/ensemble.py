@@ -1,9 +1,10 @@
 """Perturbation ensembles (port of ``repro/selection/ensemble.py:132,234,
-338,421,508,720,793,823``): a dense or BCSR operand on one device (a
+338,421,508,609,720,793,823``): a dense or BCSR operand on one device (a
 ``ShardedBCSR`` merged into one BCSR), batched or as a sequential loop;
 the cross-k grid of padded cells; and a dense block or a BCSR shard on
-the 2D process grid (the mesh programs ``make_mesh_ensemble`` and
-``make_mesh_ensemble_bcsr``).
+the 2D process grid, per k or as cross-k chunks (the mesh programs
+``make_mesh_ensemble``, ``make_mesh_ensemble_bcsr`` and
+``make_mesh_grid_ensemble``).
 
 ``repro`` vmaps the member pipeline (perturb -> init -> MU -> normalize ->
 rel_error) over the r members of a work unit.  Here the member axis is
@@ -27,7 +28,7 @@ import torch
 
 from repro_torch.core.nndsvd import nndsvd_init_A
 from repro_torch.core.rescal import (EPS_DEFAULT, MU_SCHEDULES, RescalState,
-                                     column_mask, masked_mu_step,
+                                     column_mask, mask_state, masked_mu_step,
                                      masked_normalize, normalize, pad_state,
                                      rel_error)
 from repro_torch.core.sparse import (BCSR, masked_sparse_mu_step,
@@ -216,42 +217,85 @@ def _grid_operand(grid: Grid, Xl):
     return Xl.sp, Xl.n_pad
 
 
-def run_grid_ensemble(grid: Grid, Xl, k: int, cfg,
-                      draws: DrawSource) -> EnsembleResult:
-    """This pod's members of candidate rank k on the grid: perturb this
-    cell's values -> init -> MU (``dist.engine``, ``cfg.schedule``,
-    ``cfg.kernel``) -> ``local_normalize`` -> ``local_rel_error`` against
-    the unperturbed operand.  ``Xl`` is X^(i,j) (m, n/g, n/g), or this
-    cell's ``CellShard`` of a ShardedBCSR (each cell holding only its
-    shard; its stored blocks are perturbed, its zero padding blocks stay
-    zero, and the factors live in the permuted space of n_pad rows).
-    Returns the pod's members (``grid.pod_members``): A^(i) (r/pods, n/g,
-    k), R and errors, equal on every cell of the pod but A."""
-    if cfg.init != "random":
-        raise NotImplementedError(
-            "the grid ensemble supports init='random' only (distributed "
-            "NNDSVD is a ROADMAP open item); drop grid= for nndsvd")
+def run_grid_ensemble(grid: Grid, Xl, k: int, cfg, draws: DrawSource, *,
+                      members: Sequence[int] | None = None
+                      ) -> EnsembleResult:
+    """This pod's share of ``members`` (default all r) of candidate rank k
+    on the grid: perturb this cell's values -> init -> MU
+    (``dist.engine``, ``cfg.schedule``, ``cfg.kernel``) ->
+    ``local_normalize`` -> ``local_rel_error`` against the unperturbed
+    operand.  ``Xl`` is X^(i,j) (m, n/g, n/g), or this cell's
+    ``CellShard`` of a ShardedBCSR (each cell holding only its shard; its
+    stored blocks are perturbed, its zero padding blocks stay zero, and
+    the factors live in the permuted space of n_pad rows).  The members
+    split evenly and contiguously over the pods (``grid.pod_members``;
+    ``repro``'s ``r_run % pods``).  Returns the pod's members: A^(i)
+    (r_u/pods, n/g, k), R and errors, equal on every cell of the pod but
+    A."""
+    _require_random_init(cfg, "the grid ensemble")
+    members = tuple(members) if members is not None else \
+        tuple(range(cfg.n_perturbations))
+    mine = grid.pod_members(members)
+    return _grid_members(grid, Xl, [(k, q) for q in mine], cfg, draws)
+
+
+def run_grid_sweep_batched(grid: Grid, Xl, cells, cfg,
+                           draws: DrawSource) -> EnsembleResult:
+    """A chunk of flattened (k, q) cells on the grid (``repro``'s
+    ``make_mesh_grid_ensemble``): the cells split evenly over the pods,
+    as ``repro`` puts the cell axis on its pod axis, and each pod runs its
+    share as one member-stacked MU loop at k_max = max(cfg.ks) under the
+    cells' column mask.  Each cell starts from its per-k grid draws
+    (``draws.grid_member``: the same noise words and the global init,
+    zero-padded to k_max), so a cell cropped to its k is the per-k grid
+    ensemble's member.  Returns the pod's cells, padded: A^(i) (cells /
+    pods, n/g, k_max), R and errors; the masked columns are exact
+    zeros."""
+    cells = tuple(cells)
+    _require_random_init(cfg, "the cross-k grid program")
+    if len(cells) % grid.pods:
+        raise ValueError(f"a grid chunk of {len(cells)} cells does not "
+                         f"shard evenly over pods={grid.pods}; pick a "
+                         f"grid_chunk divisible by the pod count")
+    return _grid_members(grid, Xl, grid.pod_members(cells), cfg, draws,
+                         k_max=max(cfg.ks))
+
+
+def _grid_members(grid: Grid, Xl, cells, cfg, draws: DrawSource, *,
+                  k_max: int | None = None) -> EnsembleResult:
+    """The (k, q) cells of this pod as one member-stacked MU loop on this
+    cell's operand: at their own k (one rank), or padded to ``k_max``
+    under their column mask (``repro``'s masked grid body: each MU
+    iteration, then A *= mask and R *= mask x mask)."""
     local, n = _grid_operand(grid, Xl)
-    members = grid.pod_members(cfg.n_perturbations)
     dcfg = DistRescalConfig(schedule=cfg.schedule, kernel=cfg.kernel,
                             sanitize=cfg.sanitize,
                             trace_metrics=cfg.trace_metrics)
     it = get_mu_iter(operand_kind(local), cfg.schedule)
     vals = perturbed_values(local)
-    buf = torch.empty((len(members),) + tuple(vals.shape), dtype=vals.dtype,
+    buf = torch.empty((len(cells),) + tuple(vals.shape), dtype=vals.dtype,
                       device=vals.device)
     A0, R0 = [], []
-    for slot, q in enumerate(members):
+    for slot, (k, q) in enumerate(cells):
         A_q, R_q = draws.grid_member(k, q, grid, buf[slot],
                                      cfg.perturbation_delta, n=n)
         buf[slot].mul_(vals)
+        if k_max is not None:
+            st = pad_state(RescalState(A=A_q, R=R_q, step=0), k_max)
+            A_q, R_q = st.A, st.R
         A0.append(grid.row_block(A_q))
         R0.append(R_q)
     X_q = local.with_data(buf) if isinstance(local, BCSR) else buf
-    Ai, R = torch.stack(A0), torch.stack(R0)
+    st = RescalState(A=torch.stack(A0), R=torch.stack(R0), step=0)
+    mask = None if k_max is None else column_mask(
+        [k for k, _ in cells], k_max, dtype=vals.dtype, device=vals.device)
     for _ in range(cfg.rescal_iters):
-        Ai, R = it(grid, X_q, Ai, R, dcfg)
+        st = RescalState(*it(grid, X_q, st.A, st.R, dcfg), step=0)
+        if mask is not None:
+            st = mask_state(st, mask)
     del X_q, buf
-    Ai, R = local_normalize(grid, Ai, R)
-    return EnsembleResult(A=Ai, R=R, errors=local_rel_error(
-        grid, local, Ai, R, policy=cfg.kernel))
+    st = RescalState(*local_normalize(grid, st.A, st.R), step=0)
+    if mask is not None:
+        st = mask_state(st, mask)
+    return EnsembleResult(A=st.A, R=st.R, errors=local_rel_error(
+        grid, local, st.A, st.R, policy=cfg.kernel))

@@ -17,26 +17,35 @@ On one device a ``ShardedBCSR`` is merged into one BCSR once per sweep
 (``ensemble.single_device``), as ``repro``'s scheduler merges it, in
 every mode.  With ``grid=`` (``dist/sharding.py``) the operand is this
 cell's dense block X^(i,j) (m, n/g, n/g) or its ``io.partition.
-CellShard``, and every cell of the grid calls ``run``: the units run
-``run_grid_ensemble`` (members split over pods), and ``reduce_k_grid``
-gathers the members' factors over the row and pod axes, clusters them
-identically on every cell, and takes the regression's A^T X A and the
-error's ||X||^2 from the engine's collectives (``bcsr_spmm`` on a shard
-under a fused policy) — the numbers ``repro`` computes on its global
-array.  The process grid runs batched mode only.
+CellShard``, and every cell of the grid calls ``run`` with the same
+arguments, as ``repro``'s ``SweepScheduler(mesh=...)`` runs one program
+on its mesh.  Batched units run ``run_grid_ensemble`` (the unit's members
+split over the pods), "grid" chunks ``run_grid_sweep_batched`` (the
+chunk's cells split over the pods, each pod's share one k_max-padded
+member-stacked loop); loop mode is refused, as ``repro`` refuses it on a
+mesh.  Each unit's result is gathered once (``gather_unit``: A's row
+blocks over the row axis, the members over the pod axis) into the global
+arrays ``repro``'s mesh program returns; they are the unit's checkpoint,
+and a rank's rows wait for all of its r members, as on one device,
+before ``reduce_k_grid`` clusters them identically on every cell and
+takes the regression's A^T X A and the error's ||X||^2 from the engine's
+collectives (``bcsr_spmm`` on a shard under a fused policy).
 
-On one device the sweep is resilient, as ``repro``'s
-(``repro/selection/scheduler.py:315-560``):
+The sweep is resilient, as ``repro``'s
+(``repro/selection/scheduler.py:261-560``), on one device and on the
+grid:
 
   * ``ckpt_dir``: every executed unit is checkpointed (``ckpt``, one
-    directory per unit uid, ``repro``'s format) and a rerun restores the
-    units it finds instead of recomputing them, onto the operand's
-    device.  ``sweep.json`` holds the sweep's fingerprint (the config,
-    the mode and the operand's ``io.manifest`` fingerprint); a resume
-    under another fingerprint is refused.  A unit whose every checkpoint
-    step fails verification is quarantined and recomputed.  The per-k
-    reduction takes its draws from the same ``TorchDraws`` words either
-    way, so a resumed sweep equals an uninterrupted one bit for bit.
+    directory per unit uid, ``repro``'s format: the unit's global A, R
+    and errors) and a rerun restores the units it finds instead of
+    recomputing them, onto the operand's device.  ``sweep.json`` holds
+    the sweep's fingerprint (the config, the mode, the operand's
+    ``io.manifest`` fingerprint and the grid's shape as ``mesh``); a
+    resume under another fingerprint is refused, naming the mismatched
+    keys.  A unit whose every checkpoint step fails verification is
+    quarantined and recomputed.  The per-k reduction takes its draws
+    from the same ``TorchDraws`` words either way, so a resumed sweep
+    equals an uninterrupted one bit for bit.
   * ``retry``: each unit attempt probes the
     ``sched/unit`` fault seam and runs under the ``RetryPolicy``:
     transient errors back off and replay (``sched/retry`` events),
@@ -50,14 +59,44 @@ On one device the sweep is resilient, as ``repro``'s
     rank's members into ``dist.elastic.ensemble_plan`` groups, one unit
     each.
 
+On the grid every decision is agreed (``Grid.agree``, a max over every
+cell, outside the MU iterations, whose collectives do not change):
+
+  * cell 0 checks the fingerprint, decides whether a unit has a
+    verified step (restoring it, healing a torn one), and writes the
+    checkpoints and the report; ``ckpt_dir`` must be a path every cell
+    sees.  Every cell then reads a restored unit's file; a failed read,
+    fingerprint check or write on any cell is raised on every cell;
+  * an attempt is bracketed by two agreements, after the ``sched/unit``
+    probe (before the unit's first collective) and after the unit's
+    device synchronisation.  Each cell contributes ok, transient or
+    fatal, and the grid acts on the worst: every cell backs off the same
+    ``RetryPolicy.backoff(attempt, uid)`` and retries, or every cell
+    fails fast; a cell that did not fail raises the same class as the
+    one that did.  A fault plan installed on every cell fires at the
+    same call index on every cell, since every cell runs the same
+    program;
+  * the closing agreement carries the slowest cell's unit time, which
+    the ``StragglerMonitor`` records, so every cell flags the same units
+    and derives the same deadline.  Unlike on one device, where an
+    attempt runs on a thread that an overrun abandons, the grid judges
+    the deadline at the closing agreement: an attempt whose grid-wide
+    time exceeded it is ``DeadlineExceeded`` on every cell, and no cell
+    abandons a thread that is still issuing collectives.
+
+What the grid cannot agree on: an error raised on one cell only between
+two collectives inside a unit (a CUDA error mid-MU, say).  The other
+cells wait in their collective until the process group's timeout
+(``launch.mesh.make_grid(timeout_s=)``), and the sweep is then resumed
+from its checkpoints.  ``repro``'s single controller has no such case;
+an agreement per MU iteration would close it at the cost of the
+iteration's collective count.
+
 Each ``UnitRecord`` reports its attempts, backoff, straggler flag and
 kernel fallbacks (``kernels.ops.kernel_fallbacks`` diffed around the
-unit); the report's ``n_retries``, ``n_stragglers`` and
+unit; on the grid the largest count of any cell), equal on every cell of
+the grid; the report's ``n_retries``, ``n_stragglers`` and
 ``n_kernel_fallbacks`` are their sums.
-
-The process grid (``grid=``) refuses ``ckpt_dir``, ``n_pods > 1`` and
-retries with ``NotImplementedError`` (ROADMAP §1 item 3): a retry on one
-cell alone would desert the others in a collective.
 
 Traced (``obs.trace``): ``sched/plan`` around the plan, one
 ``sched/execute`` span per unit attempt (closed after the unit's device
@@ -65,8 +104,6 @@ synchronisation, so it times the device work), ``sched/restore`` and
 ``sched/checkpoint`` spans, and one ``sched/reduce`` span per rank.  Each
 unit's record carries the host high-water mark and the CUDA allocator's
 peak read at its end.
-
-Not ported yet: the cross-k grid on the process grid (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -92,17 +129,20 @@ from repro_torch.io.partition import CellShard, ShardedBCSR
 from repro_torch.kernels import ops
 from repro_torch.obs import trace as obs
 from repro_torch.obs.memory import device_watermark, read_host_memory
-from repro_torch.resilience import RetryPolicy, faults
+from repro_torch.resilience import (DeadlineExceeded, DeterministicFault,
+                                    RetryPolicy, TransientError, faults)
 
 from . import criteria
 from .draws import DrawSource, TorchDraws, perturbed_values
-from .ensemble import (EnsembleResult, run_ensemble, run_grid_ensemble,
+from .ensemble import (EnsembleResult, _grid_operand, run_ensemble,
+                       run_grid_ensemble, run_grid_sweep_batched,
                        run_sweep_batched, single_device)
 from .report import SelectionReport, UnitRecord
 from .types import KResult, RescalkConfig, RescalkResult
 
 __all__ = ["GridChunk", "SweepInterrupted", "SweepScheduler", "UnitOutcome",
-           "WorkUnit", "plan_sweep", "reduce_k", "reduce_k_grid"]
+           "WorkUnit", "gather_unit", "plan_sweep", "reduce_k",
+           "reduce_k_grid"]
 
 SWEEP_MODES = ("batched", "loop", "grid")
 
@@ -197,27 +237,36 @@ def reduce_k(X, cfg: RescalkConfig, k: int, A_ens: torch.Tensor,
     return _k_result(k, clus, sil, R_reg, err, member_errors)
 
 
+def gather_unit(grid: Grid, res: EnsembleResult) -> EnsembleResult:
+    """A unit's global result from every cell's share, equal on every
+    cell: A's row blocks gathered over the row axis and the members (or
+    cells) over the pod axis, R and the errors over the pod axis — the
+    arrays ``repro``'s mesh program returns, and its checkpoint."""
+    return EnsembleResult(
+        A=grid.all_gather(grid.all_gather(res.A, ROW_AXIS, dim=-2),
+                          POD_AXIS, dim=0),
+        R=grid.all_gather(res.R, POD_AXIS, dim=0),
+        errors=grid.all_gather(res.errors, POD_AXIS, dim=0))
+
+
 def reduce_k_grid(grid: Grid, Xl, cfg: RescalkConfig, k: int,
-                  res: EnsembleResult, draws: DrawSource) -> KResult:
-    """``reduce_k`` on the grid, called by every cell with its
-    ``run_grid_ensemble`` result: the members' A row blocks are gathered
-    over the row axis and the members over the pod axis, the clustering
-    and silhouettes run identically on every cell, and the regression and
-    its error use the engine's collectives on X^(i,j) or on the cell's
-    BCSR shard (``CellShard``; A in the permuted space of n_pad rows)."""
-    local = Xl.sp if isinstance(Xl, CellShard) else Xl
-    m = local.m if isinstance(Xl, CellShard) else Xl.shape[-3]
-    A_ens = grid.all_gather(grid.all_gather(res.A, ROW_AXIS, dim=-2),
-                            POD_AXIS, dim=0)
-    R_ens = grid.all_gather(res.R, POD_AXIS, dim=0)
-    errors = grid.all_gather(res.errors, POD_AXIS, dim=0)
+                  A_ens: torch.Tensor, R_ens: torch.Tensor,
+                  member_errors: np.ndarray, draws: DrawSource) -> KResult:
+    """``reduce_k`` on the grid, called by every cell with rank k's
+    global ensemble (``gather_unit``'s rows, equal on every cell): the
+    clustering and silhouettes run identically on every cell, and the
+    regression and its error use the engine's collectives on X^(i,j) or
+    on the cell's BCSR shard (``CellShard``; A in the permuted space of
+    n_pad rows)."""
+    local, _ = _grid_operand(grid, Xl)
+    m = local.m if isinstance(local, BCSR) else local.shape[-3]
     clus = custom_cluster(A_ens, R_ens)
     sil = silhouettes(clus.A_aligned)
     Ai = grid.row_block(clus.A_median)
     R_reg = local_regress_R(grid, local, Ai, draws.regress_R0(k, m),
                             iters=cfg.regress_iters, policy=cfg.kernel)
     err = float(local_rel_error(grid, local, Ai, R_reg, policy=cfg.kernel))
-    return _k_result(k, clus, sil, R_reg, err, errors.cpu().numpy())
+    return _k_result(k, clus, sil, R_reg, err, member_errors)
 
 
 class SweepInterrupted(RuntimeError):
@@ -267,31 +316,44 @@ class UnitOutcome:
             kernel_fallbacks=self.fallbacks)
 
 
+# Errors a cell raises when another cell of the grid failed: the first
+# class of this tuple the failure is an instance of (subclasses first, the
+# last the catch-all), so every cell raises the same class and the
+# RetryPolicy classes it alike.
+_PEER_ERRORS = (DeadlineExceeded, TransientError, DeterministicFault,
+                ckpt.CheckpointError, ValueError, TimeoutError,
+                ConnectionError, OSError, RuntimeError)
+
+
 class SweepScheduler:
     """Drives the (k, q) grid over an operand, on the operand's device.
 
     cfg        : RescalkConfig
-    mode       : "batched" | "loop" | "grid" (see ``plan_sweep``)
+    mode       : "batched" | "loop" | "grid" (see ``plan_sweep``); the
+                 process grid runs "batched" and "grid"
     grid_chunk : cells per chunk in mode "grid" (default: one chunk per
                  pod); not part of the checkpoint fingerprint, since chunk
-                 uids name their exact cell range
+                 uids name their exact cell range.  On the process grid
+                 every chunk must split evenly over ``grid.pods``
     criterion  : key into selection.criteria.CRITERIA
     draws      : the draw source; default ``TorchDraws(cfg.seed)`` on the
                  operand's device
     grid       : a ``dist.sharding.Grid``: ``run`` then takes this cell's
                  dense block X^(i,j) or its ``CellShard``, and every cell
-                 of the grid calls it (batched mode only; no checkpoints,
-                 pods or retries)
+                 of the grid calls it with the same arguments
     ckpt_dir   : per-unit checkpoint root; units found there are restored,
-                 not recomputed
+                 not recomputed.  On the grid every cell must see the
+                 same directory (one file system); cell 0 writes it
     n_pods     : split each rank's members into this many units (grid
-                 mode: the default chunk count)
-    retry      : the unit RetryPolicy; default two attempts (one on the
-                 process grid)
+                 mode: the default chunk count); on the grid each unit's
+                 members split again over ``grid.pods``
+    retry      : the unit RetryPolicy; default two attempts (on the grid
+                 too: every cell agrees on each attempt's outcome)
     stop_after_units : compute at most this many units (0 = resume only),
                  then raise SweepInterrupted
     async_ckpt : write unit checkpoints on a thread; a failed write is
-                 re-raised at the next checkpoint boundary
+                 re-raised at the next checkpoint boundary (on every cell
+                 of the grid)
     straggler_factor : a unit slower than this x the median is flagged
     report_path: write the SelectionReport JSON here after the sweep (on
                  the grid, cell 0 writes it)
@@ -307,16 +369,10 @@ class SweepScheduler:
                  async_ckpt: bool = False, straggler_factor: float = 2.5,
                  report_path: str | None = None, verbose: bool = False):
         criteria.require(criterion)
-        if grid is not None:
-            if mode != "batched":
-                raise ValueError(f"the process grid runs mode='batched' "
-                                 f"only, got mode={mode!r}")
-            if (ckpt_dir is not None or n_pods != 1
-                    or (retry is not None and retry.max_attempts > 1)):
-                raise NotImplementedError(
-                    "the process grid has no checkpoints, pods or retries "
-                    "yet (ROADMAP §1 item 3); drop ckpt_dir, n_pods and "
-                    "the retries, or run on one device")
+        if grid is not None and mode not in ("batched", "grid"):
+            raise ValueError(
+                "mode='loop' is host-only (the sequential reference / "
+                "memory-bound fallback); drop grid= or use mode='batched'")
         if mode == "grid" and cfg.init != "random":
             raise NotImplementedError(
                 "mode='grid' supports init='random' only (NNDSVD depends "
@@ -328,8 +384,7 @@ class SweepScheduler:
         self.draws = draws
         self.grid = grid
         self.ckpt_dir = ckpt_dir
-        self.retry = retry or RetryPolicy(
-            max_attempts=1 if grid is not None else 2)
+        self.retry = retry or RetryPolicy(max_attempts=2)
         self.stop_after_units = stop_after_units
         self.async_ckpt = async_ckpt
         self._pending_save: ckpt.AsyncSave | None = None
@@ -339,7 +394,57 @@ class SweepScheduler:
         with obs.span("sched/plan", mode=mode):
             self.units = plan_sweep(cfg, mode=mode, n_pods=n_pods,
                                     grid_chunk=grid_chunk)
+        if grid is not None:
+            self._check_pod_split(grid.pods)
         self.report: SelectionReport | None = None
+
+    def _check_pod_split(self, pods: int) -> None:
+        """A unit whose members (or chunk whose cells) do not split evenly
+        over the grid's pods is a configuration error: refused here, not
+        after the retries."""
+        bad = [u.uid for u in self.units
+               if len(u.cells if isinstance(u, GridChunk) else u.members)
+               % pods]
+        if bad:
+            raise ValueError(
+                f"units {bad} do not shard evenly over pods={pods}; pick a "
+                f"grid_chunk (or n_pods) that keeps every unit divisible "
+                f"by the pod count")
+
+    @property
+    def _lead(self) -> bool:
+        """This process writes the checkpoints and decides the restores:
+        the one device, or cell 0 of the grid."""
+        return self.grid is None or self.grid.rank == 0
+
+    def _agree(self, err: BaseException | None, *values: float
+               ) -> list[float]:
+        """One cell's failure becomes every cell's: each cell contributes
+        its error's code (0 for none, transient codes below fatal ones)
+        and ``values``; the grid takes the maximum of each.  The cell
+        whose error is the worst re-raises it and every other cell raises
+        the same class, so all back off and retry, or all fail fast,
+        together.  Returns the agreed ``values``.  On one device: raise
+        ``err``, else return ``values``."""
+        if self.grid is None:
+            if err is not None:
+                raise err
+            return list(values)
+        n = len(_PEER_ERRORS)
+        code = 0
+        if err is not None:
+            kind = next((i for i, cls in enumerate(_PEER_ERRORS)
+                         if isinstance(err, cls)), n - 1)
+            code = 1 + kind + (0 if self.retry.is_transient(err) else n)
+        out = self.grid.agree([code, *values])
+        worst = int(out[0])
+        if worst:
+            if err is not None and code == worst:
+                raise err
+            cls = _PEER_ERRORS[(worst - 1) % n]
+            raise cls(f"{cls.__name__} on another cell of the grid "
+                      f"(every cell acts on the worst outcome)") from err
+        return out[1:]
 
     def _check_operand(self, X) -> torch.device:
         if self.grid is not None:
@@ -359,16 +464,29 @@ class SweepScheduler:
                             "dense (m, n, n) tensor")
         return X.device
 
+    def _dims(self, X) -> tuple[int, int, torch.dtype]:
+        """(m, n, dtype) of the operand's global factors: on the grid the
+        global entity count (n_pad of a sharded operand)."""
+        if self.grid is None:
+            m, n = operand_dims(X)
+            return m, n, perturbed_values(X).dtype
+        local, n = _grid_operand(self.grid, X)
+        m = local.m if isinstance(local, BCSR) else local.shape[-3]
+        return m, n, perturbed_values(local).dtype
+
     # -- checkpoints ---------------------------------------------------------
 
     def _fingerprint(self, X) -> dict:
         """What a unit checkpoint's validity depends on: the sweep config,
-        the mode and the operand's ``io.manifest`` fingerprint.  Unit uids
-        are config-blind, so this guard is what stops a resume from
-        reusing units of another configuration or other data."""
+        the mode, the operand's ``io.manifest`` fingerprint (on the grid,
+        cell 0's block or shard) and the grid's shape.  Unit uids are
+        config-blind, so this guard is what stops a resume from reusing
+        units of another configuration, other data or another grid."""
+        grid = self.grid
         fp = dataclasses.asdict(self.cfg)
-        fp.update(mode=self.mode, manifest=manifest_of(X).fingerprint(),
-                  mesh=None)
+        local = X.sp if isinstance(X, CellShard) else X
+        fp.update(mode=self.mode, manifest=manifest_of(local).fingerprint(),
+                  mesh=None if grid is None else grid.shape)
         return fp
 
     def _check_ckpt_config(self, X) -> None:
@@ -389,11 +507,10 @@ class SweepScheduler:
             return
         ckpt.atomic_json_dump(path, fp, indent=1)
 
-    @staticmethod
-    def _unit_like(X, unit) -> dict:
-        """The shapes and dtypes of a unit's checkpoint (meta tensors)."""
-        m, n = operand_dims(X)
-        dtype = perturbed_values(X).dtype
+    def _unit_like(self, X, unit) -> dict:
+        """The shapes and dtypes of a unit's checkpoint (meta tensors):
+        the unit's global result."""
+        m, n, dtype = self._dims(X)
 
         def like(*shape):
             return torch.empty(shape, dtype=dtype, device="meta")
@@ -406,31 +523,88 @@ class SweepScheduler:
         return {"A": like(r_u, n, k), "R": like(r_u, m, k, k),
                 "errors": like(r_u)}
 
+    @staticmethod
+    def _restore(tag: str, like: dict, uid: str, dev):
+        """The unit's tree from its newest verifiable step, or None when
+        every step failed verification (quarantined, with its
+        ckpt/quarantine event)."""
+        with obs.span("sched/restore", uid=uid):
+            try:
+                tree, _ = ckpt.restore(tag, like, device=dev)
+            except ckpt.CheckpointError:
+                return None
+        return tree
+
     def _try_restore(self, X, unit, dev) -> UnitOutcome | None:
+        """The unit's checkpointed global result, or None to compute it.
+        On the grid cell 0 decides (it restores, healing a torn step
+        first); the decision reaches every cell through an agreement, then
+        every cell reads the file, and a step that fails on any cell makes
+        every cell recompute the unit."""
         if not self.ckpt_dir:
             return None
         tag = os.path.join(self.ckpt_dir, unit.uid)
-        if ckpt.latest_step(tag) is None:
-            return None
-        with obs.span("sched/restore", uid=unit.uid):
-            try:
-                tree, _ = ckpt.restore(tag, self._unit_like(X, unit),
-                                       device=dev)
-            except ckpt.CheckpointError:
-                # every step failed verification (quarantined, with its
-                # ckpt/quarantine event): recompute the unit
+        like = self._unit_like(X, unit)
+        tree = None
+        if self._lead and ckpt.latest_step(tag) is not None:
+            tree = self._restore(tag, like, unit.uid, dev)
+        if self.grid is not None:
+            found, = self._agree(None, tree is not None)
+            if not found:
                 return None
+            err = None
+            if not self._lead:
+                try:
+                    tree = self._restore(tag, like, unit.uid, dev)
+                except Exception as e:  # agreed below: no shared file
+                    err = e
+            torn, = self._agree(err, tree is None)
+            if torn:
+                return None
+        if tree is None:
+            return None
         if self.verbose:
             print(f"  [ckpt] reused {unit.uid}")
         return UnitOutcome(unit=unit, result=EnsembleResult(**tree),
                            seconds=0.0, reused=True, retries=0, attempts=0)
 
-    def _surface_pending_save(self) -> None:
+    def _join_pending_save(self) -> None:
         """Join the in-flight async checkpoint write, re-raising its
-        failure at this (the next) checkpoint boundary."""
+        failure."""
         handle, self._pending_save = self._pending_save, None
         if handle is not None:
             handle.join()
+
+    def _surface_pending_save(self) -> None:
+        """Surface a failed async write at this (the next) checkpoint
+        boundary, on every cell of the grid."""
+        if not self.ckpt_dir:
+            return
+        err = None
+        try:
+            self._join_pending_save()
+        except Exception as e:  # agreed below, raised on every cell
+            err = e
+        self._agree(err)
+
+    def _checkpoint(self, unit, res: EnsembleResult) -> None:
+        """Write the unit's global result (cell 0 on the grid), after
+        surfacing the previous async write; a failure of either is
+        raised on every cell."""
+        with obs.span("sched/checkpoint", uid=unit.uid):
+            err = None
+            try:
+                self._join_pending_save()
+                if self._lead:
+                    tag = os.path.join(self.ckpt_dir, unit.uid)
+                    if self.async_ckpt:
+                        self._pending_save = ckpt.save_async(
+                            tag, 0, res._asdict())
+                    else:
+                        ckpt.save(tag, 0, res._asdict())
+            except Exception as e:  # agreed below, raised on every cell
+                err = e
+            self._agree(err)
 
     # -- execution -----------------------------------------------------------
 
@@ -446,25 +620,49 @@ class SweepScheduler:
         return limit
 
     def _execute(self, X, unit, draws) -> EnsembleResult:
-        if self.grid is not None:
-            return run_grid_ensemble(self.grid, X, unit.k, self.cfg, draws)
+        grid = self.grid
+        if grid is not None:
+            if isinstance(unit, GridChunk):
+                return run_grid_sweep_batched(grid, X, unit.cells, self.cfg,
+                                              draws)
+            return run_grid_ensemble(grid, X, unit.k, self.cfg, draws,
+                                     members=unit.members)
         if isinstance(unit, GridChunk):
             return run_sweep_batched(X, unit.cells, self.cfg, draws)
         return run_ensemble(X, unit.k, self.cfg, draws,
                             members=unit.members, mode=self.mode)
 
     def _execute_unit(self, X, unit, draws, dev) -> UnitOutcome:
+        grid = self.grid
         fb0 = ops.kernel_fallbacks()
         timing: dict[str, float] = {}
 
         def _attempt(attempt: int):
-            faults.probe("sched/unit", uid=unit.uid, attempt=attempt)
+            err = None
+            try:
+                faults.probe("sched/unit", uid=unit.uid, attempt=attempt)
+            except Exception as e:  # agreed before the unit's collectives
+                err = e
+            self._agree(err)
             with obs.span("sched/execute", uid=unit.uid, attempt=attempt):
                 t0 = time.perf_counter()
                 res = self._execute(X, unit, draws)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                timing["dt"] = time.perf_counter() - t0
+                err = None
+                try:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                except Exception as e:  # agreed below
+                    err = e
+                dt = time.perf_counter() - t0
+            # the grid's outcome, its slowest cell's time and fallbacks
+            dt, fb = self._agree(err, dt, ops.kernel_fallbacks() - fb0)
+            limit = self._unit_deadline(attempt) if grid is not None \
+                else None
+            if limit is not None and dt > limit:
+                raise DeadlineExceeded(
+                    f"attempt {attempt} took {dt:.3f}s on the slowest cell, "
+                    f"over its {limit:.3f}s deadline")
+            timing.update(dt=dt, fallbacks=fb)
             return res
 
         def _on_retry(next_attempt: int, err: BaseException,
@@ -475,10 +673,15 @@ class SweepScheduler:
                 print(f"  [retry] {unit.uid} attempt {next_attempt} after "
                       f"{type(err).__name__} (backoff {pause:.3f}s)")
 
-        res, stats = self.retry.call(_attempt, key=unit.uid,
-                                     on_retry=_on_retry,
-                                     deadline_fn=self._unit_deadline)
+        # on the grid the deadline is judged at the closing agreement, so
+        # no attempt runs on a thread that could be abandoned mid-collective
+        res, stats = self.retry.call(
+            _attempt, key=unit.uid, on_retry=_on_retry,
+            deadline_fn=self._unit_deadline if grid is None
+            else lambda attempt: None)
         dt = timing["dt"]
+        if grid is not None:
+            res = gather_unit(grid, res)
         # flagged durations stay out of the baseline
         straggler = self.stragglers.record(unit.index, dt)
         baseline = self.stragglers.baseline
@@ -488,14 +691,7 @@ class SweepScheduler:
             obs.event("sched/straggler", uid=unit.uid, seconds=dt,
                       baseline=baseline)
         if self.ckpt_dir:
-            with obs.span("sched/checkpoint", uid=unit.uid):
-                self._surface_pending_save()
-                tag = os.path.join(self.ckpt_dir, unit.uid)
-                if self.async_ckpt:
-                    self._pending_save = ckpt.save_async(tag, 0,
-                                                         res._asdict())
-                else:
-                    ckpt.save(tag, 0, res._asdict())
+            self._checkpoint(unit, res)
         return UnitOutcome(unit=unit, result=res, seconds=dt, reused=False,
                            retries=stats.attempts - 1,
                            attempts=stats.attempts,
@@ -503,7 +699,7 @@ class SweepScheduler:
                            straggler=straggler, baseline=baseline,
                            peak_host=read_host_memory().get("hwm_bytes"),
                            peak_device=device_watermark(dev),
-                           fallbacks=ops.kernel_fallbacks() - fb0)
+                           fallbacks=int(timing["fallbacks"]))
 
     # -- reduction -----------------------------------------------------------
 
@@ -514,11 +710,14 @@ class SweepScheduler:
         A = torch.stack([a for _, a, _, _ in rows])
         R = torch.stack([r for _, _, r, _ in rows])
         errs = torch.stack([e for _, _, _, e in rows]).cpu().numpy()
+        if self.grid is not None:
+            return reduce_k_grid(self.grid, X, self.cfg, k, A, R, errs,
+                                 draws)
         return reduce_k(X, self.cfg, k, A, R, errs, draws)
 
     def _rows(self, unit, res: EnsembleResult):
-        """(k, q, A, R, error) per member of a unit's result; a grid
-        chunk's rows cropped to their own k."""
+        """(k, q, A, R, error) per member of a unit's (global) result; a
+        grid chunk's rows cropped to their own k."""
         if isinstance(unit, GridChunk):
             return [(k, q, res.A[i, :, :k], res.R[i, :, :k, :k],
                      res.errors[i]) for i, (k, q) in enumerate(unit.cells)]
@@ -527,12 +726,25 @@ class SweepScheduler:
 
     # -- the sweep -----------------------------------------------------------
 
+    def _prepare(self, X) -> None:
+        """Check the operand against the grid, and the checkpoint
+        fingerprint (cell 0 on the grid); a refusal on any cell is raised
+        on every cell."""
+        err = None
+        try:
+            if self.grid is not None:
+                _grid_operand(self.grid, X)
+            if self.ckpt_dir and self._lead:
+                self._check_ckpt_config(X)
+        except Exception as e:  # agreed below, raised on every cell
+            err = e
+        self._agree(err)
+
     def run(self, X) -> RescalkResult:
         cfg = self.cfg
         grid = self.grid
         dev = self._check_operand(X)
-        if self.ckpt_dir:
-            self._check_ckpt_config(X)
+        self._prepare(X)
         if grid is None:
             X = single_device(X)          # a ShardedBCSR, merged once
         draws = self.draws if self.draws is not None else \
@@ -547,7 +759,8 @@ class SweepScheduler:
             out = self._try_restore(X, unit, dev)
             if out is None:
                 # checked before computing: stop_after_units=N computes at
-                # most N units (0 = resume only)
+                # most N units (0 = resume only); every cell of the grid
+                # counts the same units, so all stop at the same one
                 if (self.stop_after_units is not None
                         and executed >= self.stop_after_units):
                     self._surface_pending_save()
@@ -557,25 +770,18 @@ class SweepScheduler:
                 executed += 1
             records.append(out.record())
             res, out.result = out.result, None
-            done = {}
-            if grid is not None:
-                with obs.span("sched/reduce", k=unit.k):
-                    done[unit.k] = reduce_k_grid(grid, X, cfg, unit.k, res,
-                                                 draws)
-            else:
-                for k, q, A, R, err in self._rows(unit, res):
-                    pending[k].append((q, A, R, err))
-                for k in cfg.ks:
-                    if len(pending.get(k, ())) == cfg.n_perturbations:
-                        with obs.span("sched/reduce", k=k):
-                            done[k] = self._reduce(X, k, pending.pop(k),
-                                                   draws)
+            for k, q, A, R, err in self._rows(unit, res):
+                pending[k].append((q, A, R, err))
             del res
-            per_k.update(done)
-            for k, r in done.items():
-                if self.verbose:
-                    print(f"[sweep] k={k:3d} s_min={r.s_min:6.3f} "
-                          f"s_mean={r.s_mean:6.3f} err={r.rel_err:7.4f}")
+            for k in cfg.ks:
+                if len(pending.get(k, ())) == cfg.n_perturbations:
+                    with obs.span("sched/reduce", k=k):
+                        per_k[k] = r = self._reduce(X, k, pending.pop(k),
+                                                    draws)
+                    if self.verbose:
+                        print(f"[sweep] k={k:3d} s_min={r.s_min:6.3f} "
+                              f"s_mean={r.s_mean:6.3f} "
+                              f"err={r.rel_err:7.4f}")
         self._surface_pending_save()
 
         ks = cfg.ks

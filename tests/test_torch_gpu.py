@@ -6,7 +6,8 @@ dense sweep (batched and cross-k grid mode), kernel against plain,
 flash_attention with a prefill of the reduced llama3.2-1b through it,
 and the data layer: virtual generation on the card, the BCSR kernels on
 front-padded shards (and on one relation slice of a member stack), and
-the BCSR grid sweep on a 1 x 1 NCCL grid.
+the BCSR grid sweep on a 1 x 1 NCCL grid; and the cross-k grid sweep on
+that grid, stopped and resumed from its checkpoints.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -860,6 +861,52 @@ def test_bcsr_grid_sweep_1x1_nccl_matches_single_device(cuda, schedule):
         for name in ("s_min", "s_mean", "rel_err"):
             np.testing.assert_allclose(getattr(got, name),
                                        getattr(ref, name), rtol=1e-4,
+                                       atol=1e-4)
+    finally:
+        grid.destroy()
+
+
+def test_grid_mode_sweep_resume_1x1_nccl_on_card(cuda, tmp_path):
+    """The cross-k grid program on a one-rank NCCL grid with per-chunk
+    checkpoints: stopped after one chunk and resumed, it equals the
+    uninterrupted sweep bit for bit (fixed-order XTB), the resume launching
+    the kernels only for the chunks it computes (one fused_xa_xtb and one
+    mu_update_a per MU iteration per chunk); and within 1e-4 of the per-k
+    grid sweep, with the same k_opt."""
+    from repro_torch.data.synthetic import synthetic_rescal
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.selection import SweepInterrupted
+    grid = make_grid(data=1, model=1, device=cuda)
+    try:
+        X, _, _ = synthetic_rescal(256, 3, 3, seed=1, device=cuda)
+        cfg = RescalkConfig(k_min=2, k_max=3, n_perturbations=2,
+                            rescal_iters=30, regress_iters=20,
+                            kernel=KernelPolicy(use_fused=True))
+        kw = dict(grid=grid, mode="grid", grid_chunk=2)
+        ops.reset_launch_counts()
+        clean = SweepScheduler(cfg, **kw).run(X)
+        launches = ops.launch_counts()
+        assert launches["fused_xa_xtb"] == launches["mu_update_a"] == 60
+        ck = str(tmp_path / "ck")
+        with pytest.raises(SweepInterrupted):
+            SweepScheduler(cfg, ckpt_dir=ck, stop_after_units=1,
+                           **kw).run(X)
+        ops.reset_launch_counts()
+        sched = SweepScheduler(cfg, ckpt_dir=ck, **kw)
+        resumed = sched.run(X)
+        launches = ops.launch_counts()
+        assert launches["fused_xa_xtb"] == launches["mu_update_a"] == 30
+        assert sched.report.n_reused == 1
+        assert sched.report.meta["mesh"] == grid.shape
+        assert resumed.k_opt == clean.k_opt
+        for name in ("s_min", "s_mean", "rel_err"):
+            np.testing.assert_array_equal(getattr(resumed, name),
+                                          getattr(clean, name))
+        perk = SweepScheduler(cfg, grid=grid).run(X)
+        assert perk.k_opt == clean.k_opt
+        for name in ("s_min", "s_mean", "rel_err"):
+            np.testing.assert_allclose(getattr(clean, name),
+                                       getattr(perk, name), rtol=1e-4,
                                        atol=1e-4)
     finally:
         grid.destroy()

@@ -492,15 +492,23 @@ def test_pods_split_members_and_straggler_deadline():
 
 
 def test_process_grid_refuses_checkpoints_pods_and_retries():
+    """The process grid takes checkpoints, pods and retries now (two
+    attempts by default, as on one device and on repro's mesh); what it
+    refuses is repro's mesh refusals: loop mode, and units that do not
+    split over the grid's pods."""
     from repro_torch.dist.sharding import Grid
     from repro_torch.resilience import RetryPolicy
     cfg = RescalkConfig(k_min=2, k_max=2, n_perturbations=2)
     grid = Grid.at_rank(0, 1, 1, 1, "cpu")
-    assert SweepScheduler(cfg, grid=grid).retry.max_attempts == 1
+    assert SweepScheduler(cfg, grid=grid).retry.max_attempts == 2
     for kw in (dict(ckpt_dir="ck"), dict(n_pods=2),
-               dict(retry=RetryPolicy(max_attempts=2))):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            SweepScheduler(cfg, grid=grid, **kw)
+               dict(retry=RetryPolicy(max_attempts=2)),
+               dict(mode="grid", grid_chunk=1)):
+        SweepScheduler(cfg, grid=grid, **kw)
+    with pytest.raises(ValueError, match="host-only"):
+        SweepScheduler(cfg, grid=grid, mode="loop")
+    with pytest.raises(ValueError, match="pods=2"):
+        SweepScheduler(cfg, grid=Grid.at_rank(0, 2, 1, 1, "cpu"), n_pods=2)
 
 
 def test_async_checkpoints_resume(tmp_path):
