@@ -267,6 +267,37 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      and 10 (b)'s, each checkpoint's bytes, save and restore seconds,
      collectives per unit and the agreements among them, the device
      peak.
+ 13. LM training (after phase 12, in the same temporary directory; the
+     card's name and power limit printed first), llama3.2-1b at its
+     published widths (16 layers, d_model 2048, 32/8 heads, d_ff 8192,
+     vocab 128256; bf16 parameters, fp32 AdamW moments, random init from
+     seed 0) on ``data.tokens.batch_at`` batches of train_4k's sequence
+     (4096) with the global batch cut from 256 to 4, ``--remat``.  The
+     counters are zeroed just before each run and read just after: the
+     train path launches no kernel (the attention backward is the plain
+     chunked path's, as in ``repro``).  (a) ``launch.train.main``
+     (``--steps 12 --batch 4 --seq 4096 --remat --device cuda``) under
+     ``torch.use_deterministic_algorithms(True)``: every loss and
+     grad_norm finite, the mean loss of the last 4 steps below the first
+     4's; ms per step after the first, tokens/s, the model-FLOPs share of
+     the 989 TFLOP/s bf16 peak and the device peak printed.  (c)
+     ``make_train_step(microbatches=2)`` against one batch from the same
+     state: loss and grad_norm within TRAIN_MB_TOL.  (d) a forward with
+     impl="cuda" under grad raises.  (b) under deterministic algorithms,
+     8 steps with ``ckpt_dir``, save_every 4 and a raise-transient fault
+     on ``train/step`` hit 6, which restores step 4 and replays: every
+     loss equals that of the same step of (a), the uninterrupted run (the
+     same stream, seed, lr and remat), bit for bit; the checkpoints'
+     bytes, save and restore seconds printed.  Then one step under
+     torch.profiler (idle share, time by kernel class) and its parts alone
+     (chunked attention per layer, CE, clip + AdamW).  (e)
+     ``examples/torch_trade_nations.py`` and ``torch_quickstart.py`` with
+     ``--device cuda`` (their k_opt printed; fused_xa_xtb and mu_update_a
+     launched), and ``rescalk(X, cfg, member_runner=...)`` with a runner
+     that wraps ``default_member_runner`` on the trade tensor (n = 24, m =
+     12, planted k = 3): fused_xa_xtb and mu_update_a once per MU
+     iteration (4800), the k_opt and per-k values of loop mode within
+     1e-4.
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -279,6 +310,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -392,6 +424,18 @@ GRID_SWEEP = dict(n=16384, m=8, k_true=4, noise=0.01, seed=0, k_min=2,
                   k_max=5, r=4, iters=60, regress_iters=100, grid_chunk=4)
 # ms per MU iteration of this run, by phase (filled as the phases run)
 MS_PER_ITER: dict[str, float] = {}
+
+
+# phase 13: LM training at llama3.2-1b's published widths, train_4k's
+# sequence (4096) with the global batch cut from 256 to 4, --remat
+TRAIN = dict(arch="llama3.2-1b", batch=4, seq=4096, steps=12, lr=1e-3,
+             restart_steps=8, save_every=4, fault_hit=6, microbatches=2)
+# two microbatches against one batch in bf16: each half's loss and
+# gradients round to bf16 in another grouping
+TRAIN_MB_TOL = 2e-2
+# phase 13 (e): the trade examples' tensor and sweep
+TRADE = dict(n=24, m=12, k=3, seed=7, k_min=2, k_max=5, r=4, iters=300,
+             regress_iters=60)
 
 
 def log(msg: str) -> None:
@@ -1293,12 +1337,15 @@ def phase_serve(bundle: Path, row: dict, dev):
     return got
 
 
-def profiled(fn):
+def profiled(fn, host: bool = True):
     """Run ``fn`` under torch.profiler, ending in a synchronize: (wall
-    seconds, device busy seconds, device events by descending time)."""
+    seconds, device busy seconds, device events by descending time).
+    ``host=False`` records the device's activity alone: a window of tens
+    of thousands of host ops takes minutes to summarize."""
     import torch
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -2776,6 +2823,362 @@ def phase_grid_sweep(tmp: Path, dev, smi: str) -> None:
         grid.destroy()
     torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# Phase 13: LM training
+# ---------------------------------------------------------------------------
+
+def train_stats(history, cfg, batch: int, seq: int) -> dict:
+    """ms per step after the first, tokens/s and the model-FLOPs share of
+    the bf16 peak from a loop's history."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.models.model import model_flops
+    later = [h["seconds"] for h in history[1:]]
+    ms = 1e3 * sum(later) / len(later)
+    flops = model_flops(cfg, ShapeSpec("train", "train", seq, batch))
+    return {"ms": ms, "first_ms": 1e3 * history[0]["seconds"],
+            "tok_s": batch * seq / (ms / 1e3), "tflops": flops / ms / 1e9,
+            "share": flops / (ms / 1e3) / PEAK_BF16_FLOP_PER_S}
+
+
+def require_finite_falling(tag: str, history) -> tuple[float, float]:
+    import math
+    for h in history:
+        require(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+                f"{tag}: step {h['step']} loss {h['loss']} grad_norm "
+                f"{h['grad_norm']}")
+    first = sum(h["loss"] for h in history[:4]) / 4
+    last = sum(h["loss"] for h in history[-4:]) / 4
+    require(last < first, f"{tag}: mean loss of the last 4 steps {last:.4f}"
+                          f" is not below the first 4's {first:.4f}")
+    return first, last
+
+
+def no_launches(tag: str, launches: dict) -> None:
+    require(not any(launches.values()),
+            f"{tag}: the train path launched kernels {launches} (it runs "
+            f"the plain chunked attention; flash_attention has no backward)")
+
+
+def profile_train_step(cfg, dev) -> None:
+    """One full-width train step under torch.profiler (device busy time,
+    idle share, time by kernel class and the top kernels), then the
+    step's parts alone with CUDA events: one layer's chunked attention
+    forward and forward + backward, the CE forward + backward on the
+    step's logits shape, and clip + AdamW on the state."""
+    import torch
+    from repro_torch.data import TokenStreamConfig, batch_at
+    from repro_torch.models.attention import _chunked
+    from repro_torch.models.model import cross_entropy
+    from repro_torch.optim import AdamW, clip_by_global_norm
+    from repro_torch.train import init_state, make_train_step
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    opt = AdamW(lr=TRAIN["lr"])
+    state = init_state(cfg, opt, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    step = make_train_step(cfg, optimizer=opt, remat=True)
+    batch = batch_at(TokenStreamConfig(vocab=cfg.vocab, batch=B, seq=S), 0)
+    state, _ = step(state, batch)                       # warm-up
+    out = {}
+    wall, busy, events = profiled(lambda: out.update(
+        zip(("state", "m"), step(state, batch))), host=False)
+    require(busy > 0, "the profiled train step shows no device time")
+    del state
+    # cuBLAS's tensor-core GEMMs on Hopper are "nvjet" kernels; with
+    # TF32 off the fp32 ones (the chunked attention's einsums) are SIMT
+    classes = {"GEMM bf16": 0.0, "GEMM fp32": 0.0, "other": 0.0}
+    for e in events:
+        key = e.key.lower()
+        gemm = any(w in key for w in ("gemm", "xmma", "cutlass", "nvjet"))
+        cls = ("other" if not gemm else "GEMM fp32"
+               if any(w in key for w in ("sgemm", "f32f32")) else
+               "GEMM bf16")
+        classes[cls] += e.device_time_total / 1e6
+    ms_step = cuda_ms(lambda: out.update(zip(("state", "m"), step(
+        out.pop("state"), batch))), reps=1, warmup=0)
+    log(f"[train] profiled step: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms ({100 * (1 - busy / wall):.1f}% idle under "
+        f"the profiler); unprofiled step {ms_step:.1f} ms, so "
+        f"{100 * (1 - busy * 1e3 / ms_step):.1f}% idle; by class: "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / busy:.1f}%)"
+                    for k, v in classes.items()))
+    for e in events[:10]:
+        log(f"[train]   {e.device_time_total / 1e3:9.3f} ms "
+            f"{100 * e.device_time_total / 1e6 / busy:5.1f}%  x{e.count:<6d} "
+            f"{e.key[:70]}")
+
+    state = out.pop("state")
+    names, params = zip(*state.params.named_parameters())
+    grads = {n: torch.randn_like(p) * 1e-3 for n, p in zip(names, params)}
+
+    def optimizer_step():
+        clipped, _ = clip_by_global_norm(grads, 1.0)
+        with torch.no_grad():
+            updates, _ = opt.update(clipped, state.opt, dict(zip(names,
+                                                                 params)))
+            for n, p in zip(names, params):
+                p.add_(updates.pop(n))
+
+    ms_opt = cuda_ms(optimizer_step, reps=3, warmup=1)
+    del grads, state
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    hd = cfg.head_dim
+    q = torch.randn(B, S, cfg.n_heads, hd, device=dev, generator=gen,
+                    dtype=torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(B, S, cfg.n_kv, hd, device=dev, generator=gen,
+                        dtype=torch.bfloat16).requires_grad_()
+            for _ in range(2))
+    kw = dict(causal=True, q_offset=0, chunk=1024, q_chunk=256,
+              sm_scale=None)
+
+    def attn_fwd():
+        with torch.no_grad():
+            _chunked(q, k, v, **kw)
+
+    def attn_fwd_bwd():
+        o = _chunked(q, k, v, **kw)
+        torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+
+    ms_af = cuda_ms(attn_fwd, reps=3, warmup=1)
+    ms_afb = cuda_ms(attn_fwd_bwd, reps=3, warmup=1)
+    del q, k, v
+    torch.cuda.empty_cache()
+    logits = torch.randn(B, S, cfg.padded_vocab, device=dev, generator=gen,
+                         dtype=torch.bfloat16).requires_grad_()
+    labels = torch.randint(0, cfg.vocab, (B, S), device=dev, generator=gen)
+
+    def ce_fwd_bwd():
+        loss, _ = cross_entropy(logits, labels, cfg.vocab)
+        torch.autograd.grad(loss, logits)
+
+    ms_ce = cuda_ms(ce_fwd_bwd, reps=3, warmup=1)
+    del logits
+    torch.cuda.empty_cache()
+    attn_step = cfg.n_layers * (ms_af + ms_afb)     # remat: 2 fwd + 1 bwd
+    log(f"[train] parts alone (CUDA events): chunked attention per layer "
+        f"fwd {ms_af:.2f} ms, fwd+bwd {ms_afb:.2f} ms -> {attn_step:.1f} ms "
+        f"per step with remat ({100 * attn_step / ms_step:.1f}% of the "
+        f"unprofiled step); CE fwd+bwd {ms_ce:.2f} ms "
+        f"({100 * ms_ce / ms_step:.1f}%); clip + AdamW {ms_opt:.2f} ms "
+        f"({100 * ms_opt / ms_step:.1f}%)")
+
+
+def load_example(name: str):
+    import importlib.util
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_train(tmp: Path, dev, smi: str) -> None:
+    """Phase 13 (see the module docstring)."""
+    import torch
+    from repro_torch import ckpt
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.rescalk import default_member_runner, rescalk
+    from repro_torch.data import TokenStreamConfig, batch_at, trade_like
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.model import count_params_analytic
+    from repro_torch.obs import trace as obs
+    from repro_torch.optim import AdamW
+    from repro_torch.resilience import FaultPlan, FaultSpec, faults
+    from repro_torch.selection import RescalkConfig
+    from repro_torch.train import (LoopConfig, init_state, make_train_step,
+                                   train_loop)
+    cfg = ARCHS[TRAIN["arch"]]
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    n_params = count_params_analytic(cfg)["total"]
+    log(f"[train] on {smi}; {cfg.name}: {n_params / 1e9:.3f} G params, "
+        f"batch {B} x seq {S} (train_4k's 256 cut to {B}), --remat; "
+        f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB free on disk")
+
+    # (a) the CLI, under deterministic algorithms: its first steps are
+    # (b)'s uninterrupted run (the same stream, seed, lr and remat)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        hist = train_cli.main(["--arch", TRAIN["arch"], "--steps",
+                               str(TRAIN["steps"]), "--batch", str(B),
+                               "--seq", str(S), "--lr", str(TRAIN["lr"]),
+                               "--remat", "--device", "cuda"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    wall = time.perf_counter() - t0
+    no_launches("(a)", ops.launch_counts())
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(len(hist) == TRAIN["steps"], f"(a) {len(hist)} steps recorded")
+    first, last = require_finite_falling("(a)", hist)
+    st = train_stats(hist, cfg, B, S)
+    log(f"[train] (a) losses " + " ".join(f"{h['loss']:.4f}" for h in hist)
+        + "; grad_norm " + " ".join(f"{h['grad_norm']:.3f}" for h in hist))
+    log(f"[train] (a) mean loss first 4 {first:.4f} -> last 4 {last:.4f}; "
+        f"{st['ms']:.1f} ms per step after the first (first "
+        f"{st['first_ms']:.1f}), {st['tok_s']:.0f} tokens/s, model FLOPs "
+        f"{st['tflops']:.1f} TFLOP/s = {100 * st['share']:.2f}% of the "
+        f"989 TFLOP/s bf16 dense peak; peak device memory {peak / 1e9:.2f} "
+        f"GB; {wall:.1f}s wall (deterministic algorithms); 0 kernel "
+        f"launches; on {smi}")
+    torch.cuda.empty_cache()
+
+    # (c) microbatches, and (d) the guard, on one fresh state each
+    ds = TokenStreamConfig(vocab=cfg.vocab, batch=B, seq=S)
+    batch = batch_at(ds, 0)
+    got = {}
+    t0 = time.perf_counter()
+    for mb in (1, TRAIN["microbatches"]):
+        opt = AdamW(lr=TRAIN["lr"])
+        state = init_state(cfg, opt, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = make_train_step(cfg, optimizer=opt, remat=True,
+                                   microbatches=mb)(state, batch)
+        got[mb] = {k: float(v) for k, v in m.items()}
+        got[mb]["seconds"] = time.perf_counter() - t0
+        no_launches(f"(c) microbatches={mb}", ops.launch_counts())
+        if mb > 1:
+            try:
+                state.params(batch["tokens"][:1, :256].to(dev), impl="cuda")
+            except RuntimeError as err:
+                require("no backward" in str(err), f"(d) {err}")
+            else:
+                require(False, "(d) a forward with impl='cuda' under grad "
+                               "did not raise")
+        del state, opt
+        torch.cuda.empty_cache()
+    one, two = got[1], got[TRAIN["microbatches"]]
+    for key in ("loss", "grad_norm"):
+        rel = abs(two[key] - one[key]) / abs(one[key])
+        require(rel <= TRAIN_MB_TOL, f"(c) {key}: {two[key]} with "
+                f"microbatches against {one[key]} ({rel:.2e} relative)")
+    log(f"[train] (c) microbatches=2 loss {two['loss']:.5f} grad_norm "
+        f"{two['grad_norm']:.5f} against one batch {one['loss']:.5f} / "
+        f"{one['grad_norm']:.5f} (within {TRAIN_MB_TOL}); "
+        f"{1e3 * two['seconds']:.1f} ms against {1e3 * one['seconds']:.1f}"
+        f" (first steps); {time.perf_counter() - t0:.1f}s wall")
+    log("[train] (d) a forward with impl='cuda' under grad raised "
+        "RuntimeError; (a)-(c) launched no flash_attention")
+
+    # (b) restart identity under deterministic algorithms, against (a)
+    fn = lambda s: batch_at(ds, s)                       # noqa: E731
+    n = TRAIN["restart_steps"]
+    clean = hist[:n]
+    ck = tmp / "train_ck"
+    plan = FaultPlan({"train/step": [FaultSpec(
+        kind="raise-transient", at=(TRAIN["fault_hit"],))]})
+    tracer = obs.Tracer(None)
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        prev = obs.install(tracer)
+        try:
+            with faults.active(plan):
+                state, faulty = train_loop(
+                    cfg, fn, LoopConfig(steps=n, seed=0, ckpt_dir=str(ck),
+                                        save_every=TRAIN["save_every"]),
+                    optimizer=AdamW(lr=TRAIN["lr"]), remat=True, device=dev)
+            del state
+        finally:
+            obs.install(prev)
+        no_launches("(b)", ops.launch_counts())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    peak_b = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    require([f["hit"] for f in plan.fired] == [TRAIN["fault_hit"]],
+            f"(b) fired {plan.fired}")
+    replay = TRAIN["save_every"]
+    want_steps = (list(range(TRAIN["fault_hit"])) +
+                  list(range(replay, n)))
+    require([h["step"] for h in faulty] == want_steps,
+            f"(b) steps {[h['step'] for h in faulty]}, want {want_steps}")
+    clean_loss = {h["step"]: h["loss"] for h in clean}
+    for h in faulty:
+        require(h["loss"] == clean_loss[h["step"]],
+                f"(b) step {h['step']}: loss {h['loss']!r} against the "
+                f"uninterrupted run's {clean_loss[h['step']]!r}")
+    spans = {}
+    for e in tracer.events:
+        if e.get("ph") == "E" and e["name"] in ("train/save",
+                                                 "train/restore"):
+            spans.setdefault(e["name"], []).append(e["dur"] / 1e6)
+    nbytes = {p.name: p.stat().st_size for p in sorted(ck.glob("*.npz"))}
+    require(ckpt.latest_step(str(ck)) == n, f"(b) LATEST is "
+            f"{ckpt.latest_step(str(ck))}")
+    log(f"[train] (b) restart under torch.use_deterministic_algorithms("
+        f"True): fault at hit {TRAIN['fault_hit']}, restored step {replay}, "
+        f"steps {[h['step'] for h in faulty]}: every loss equals the "
+        f"uninterrupted run's ((a)'s) bit for bit; checkpoints "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in nbytes.items())
+        + "; save s " + ", ".join(f"{x:.2f}" for x in spans.get(
+            "train/save", []))
+        + "; restore s " + ", ".join(f"{x:.2f}" for x in spans.get(
+            "train/restore", []))
+        + f"; {train_stats(faulty, cfg, B, S)['ms']:.1f} ms per step; peak "
+        f"device memory {peak_b / 1e9:.2f} GB; {time.perf_counter() - t0:.1f}"
+        f"s wall; on {smi}")
+    shutil.rmtree(ck)
+
+    # where a step's time goes
+    t0 = time.perf_counter()
+    profile_train_step(cfg, dev)
+    log(f"[train] profile: {time.perf_counter() - t0:.1f}s wall")
+
+    # (e) the examples and the custom-runner loop
+    for name in ("torch_trade_nations", "torch_quickstart"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        k_opt = load_example(name).main(["--device", "cuda"])
+        launches = ops.launch_counts()
+        for kernel in ("fused_xa_xtb", "mu_update_a"):
+            require(launches[kernel] > 0, f"(e) {name}: {kernel} was not "
+                                          f"launched")
+        log(f"[train] (e) examples/{name}.py --device cuda: k_opt "
+            f"{k_opt}, {time.perf_counter() - t0:.1f}s, launches "
+            f"{launches}")
+    X, _, _ = trade_like(n=TRADE["n"], m=TRADE["m"], k=TRADE["k"],
+                         seed=TRADE["seed"], device=dev)
+    tcfg = RescalkConfig(k_min=TRADE["k_min"], k_max=TRADE["k_max"],
+                         n_perturbations=TRADE["r"],
+                         rescal_iters=TRADE["iters"],
+                         regress_iters=TRADE["regress_iters"], seed=0,
+                         kernel=KernelPolicy(use_fused=True))
+    calls = []
+
+    def runner(X_q, k, generator, cfg, init=None):
+        calls.append(k)
+        return default_member_runner(X_q, k, generator, cfg, init=init)
+
+    ops.reset_launch_counts()
+    custom = rescalk(X, tcfg, member_runner=runner)
+    launches = ops.launch_counts()
+    loop = rescalk(X, tcfg, mode="loop")
+    n_members = (TRADE["k_max"] - TRADE["k_min"] + 1) * TRADE["r"]
+    want = n_members * TRADE["iters"]
+    require(len(calls) == n_members, f"(e) runner called {len(calls)}")
+    for kernel in ("fused_xa_xtb", "mu_update_a"):
+        require(launches[kernel] == want, f"(e) custom runner: {kernel} "
+                f"launched {launches[kernel]} times, want {want}")
+    require(custom.k_opt == loop.k_opt, f"(e) custom runner k_opt "
+            f"{custom.k_opt}, loop mode {loop.k_opt}")
+    close_curves("(e) custom runner vs loop mode", custom, loop)
+    same = all((getattr(custom, f) == getattr(loop, f)).all()
+               for f in ("s_min", "s_mean", "rel_err"))
+    log(f"[train] (e) rescalk(member_runner=...) on the trade tensor: "
+        f"k_opt {custom.k_opt} (loop mode {loop.k_opt}), per-k "
+        f"{'bit-identical to' if same else 'within 1e-4 of'} loop mode; "
+        f"launches {launches}")
+
 
 def main() -> int:
     import torch
@@ -2813,6 +3216,8 @@ def main() -> int:
         phase_chaos(Path(tmp), dev, smi)
         torch.cuda.empty_cache()
         phase_grid_sweep(Path(tmp), dev, smi)
+        torch.cuda.empty_cache()
+        phase_train(Path(tmp), dev, smi)
     torch.cuda.empty_cache()
     rows.append(phase_lm(dev, smi))
     for row in rows:

@@ -373,6 +373,12 @@ def rel_error(X: torch.Tensor, A: torch.Tensor,
     return fit_error((X * X).sum(), atxa(A, x_times(X, A)), A, R)
 
 
+def reconstruct(A: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """Dense reconstruction A R_t A^T, (m, n, n).  For tests and small
+    data."""
+    return torch.einsum("ia,mab,jb->mij", A, R, A)
+
+
 def rescal(X: torch.Tensor, k: int, *,
            generator: torch.Generator | None = None, iters: int = 200,
            schedule: str = "batched", eps: float = EPS_DEFAULT,

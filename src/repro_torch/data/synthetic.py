@@ -1,5 +1,5 @@
-"""Synthetic relational tensors, the paper's §6.2.1 generator (port of
-``repro/data/synthetic.py:16,34``).
+"""Synthetic relational tensors, the paper's §6.2.1 generator and its
+§6.2.2 Trade-style tensor (port of ``repro/data/synthetic.py``).
 
 Ground-truth latent communities are Gaussian bumps over the entity axis;
 the core tensor R is Exponential(1); uniform multiplicative noise of
@@ -54,3 +54,24 @@ def synthetic_rescal(n: int, m: int, k: int, *, seed: int = 0,
         torch.matmul(A @ R[t], A.T, out=X[t])
         X[t].mul_(delta.uniform_(1.0 - noise, 1.0 + noise, generator=g))
     return X, A, R
+
+
+def trade_like(n: int = 24, m: int = 60, k: int = 5, *, seed: int = 0,
+               device=None, dtype: torch.dtype = torch.float32):
+    """A Trade-dataset-style tensor (paper §6.2.2's structure; port of
+    ``repro/data/synthetic.py:46``): k economic blocs (Gaussian bumps of
+    width 0.08) whose pairwise flows, base ~ Exp(1) (k, k), grow by
+    linspace(0.2, 1.0, m) over the m time slices, with multiplicative
+    noise Uniform[0.98, 1.02].  Returns (X (m, n, n), A (n, k), R (m, k,
+    k)) on ``device`` (default ``cuda``)."""
+    dev = _device.resolve(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(seed))
+    A = gaussian_features(n, k, generator=g, width=0.08).to(dtype)
+    base = torch.empty((k, k), dtype=dtype, device=dev).exponential_(
+        1.0, generator=g)
+    growth = torch.linspace(0.2, 1.0, m, dtype=dtype, device=dev)
+    R = base[None] * growth[:, None, None]                  # trade grows
+    X = torch.einsum("ia,mab,jb->mij", A, R, A)
+    delta = torch.empty_like(X).uniform_(0.98, 1.02, generator=g)
+    return X * delta, A, R

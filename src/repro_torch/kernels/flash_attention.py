@@ -38,7 +38,12 @@ s strides (on axes longer than 1) multiples of 16 bytes (TMA), sq <=
 
 On CPU tensors the wrapper runs the plain version
 (``kernels/ref.py:ref_attention``); on CUDA tensors it launches the
-kernel of its dtype or raises.
+kernel of its dtype or raises.  The kernels have no backward (nor has
+``repro``'s Pallas kernel, which has no ``custom_vjp``): a call on CUDA
+tensors of which one requires grad, with grad enabled, raises
+``RuntimeError`` (``refuse_grad``) rather than return an output without
+a ``grad_fn``.  Training differentiates the plain chunked path
+(``impl="ref"``), as ``repro``'s training forward does.
 """
 from __future__ import annotations
 
@@ -139,6 +144,17 @@ class Call:
                 f"got {sorted({str(x.device) for x in tensors})}")
 
 
+def refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` when grad is enabled and q, k or v requires
+    it: the kernel's output would carry no ``grad_fn``, so a loss through
+    it would leave the projections before it without gradients."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward and q, k or v "
+            "requires grad; differentiate the plain chunked path "
+            "(impl=\"ref\") or call under torch.no_grad()")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     sm_scale: float | None = None) -> torch.Tensor:
@@ -148,6 +164,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return ref_attention(q, k, v, causal=causal, q_offset=q_offset,
                              sm_scale=sm_scale)
+    refuse_grad(q, k, v)
     call = Call(q, k, v, q_offset)
     call.require_cuda(q, k, v)
     out = torch.empty_like(q)

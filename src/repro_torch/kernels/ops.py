@@ -137,7 +137,12 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     sm_scale: float | None = None, impl: str = "auto"):
     """Online-softmax GQA attention: q (b, hq, sq, d), k and v (b, hkv,
     skv, d) -> (b, hq, sq, d) (kernels/flash_attention.py).  ``impl="ref"``
-    is the materializing softmax (``ref.ref_attention``)."""
+    is the materializing softmax (``ref.ref_attention``).  A call bound
+    for the kernel raises ``RuntimeError`` when grad is enabled and q, k
+    or v requires it (the kernel has no backward), before any device
+    check."""
+    if impl == "cuda" or (impl == "auto" and _on_card((q, k, v))):
+        _flash_mod.refuse_grad(q, k, v)
     if _dispatch(impl, "flash_attention", q, k, v) == "ref":
         return _ref.ref_attention(q, k, v, causal=causal, q_offset=q_offset,
                                   sm_scale=sm_scale)

@@ -46,6 +46,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the KV heads repeated to Hq, (q_chunk x chunk) score tiles).  For a
     power-of-two scale (d = 16, 64) the two scale placements agree
     exactly; for d = 128 they differ by a rounding in bf16.
+
+    The kernel has no backward: on the kernel's route, q, k or v that
+    requires grad with grad enabled raises ``RuntimeError``
+    (``ops.flash_attention``); training passes ``impl="ref"`` and
+    autograd differentiates the chunked path.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")

@@ -1,12 +1,17 @@
-"""Model-level glue: parameter and FLOP accounting, greedy sampling (port
-of ``repro/models/model.py:55-131``).
+"""Model-level glue: the training loss, parameter and FLOP accounting,
+greedy sampling (port of ``repro/models/model.py``).
 
 ``model_flops`` is the roofline's useful work: 6·N·D for training and
 2·N·D for forward-only serving steps (N = parameters in the active
 compute path, D = tokens).  The dense family only: the MoE, SSM, hybrid,
 enc-dec and MLA branches of ``repro`` raise ``NotImplementedError``, as
-their models do (``transformer.check_supported``).  The loss
-(``cross_entropy``, ``loss_fn``) comes with the training slice.
+their models do (``transformer.check_supported``).
+
+The loss is ``repro``'s padded-vocab causal cross-entropy, in fp32: the
+logits of ids >= vocab are set to -1e30, labels equal to ``IGNORE`` are
+left out, and the mean runs over the counted tokens.  ``loss_fn``'s
+forward is the plain chunked attention (``impl="ref"``), which autograd
+differentiates, as ``jax.grad`` differentiates ``repro``'s.
 """
 from __future__ import annotations
 
@@ -14,6 +19,36 @@ import torch
 from torch import nn
 
 from . import transformer
+
+
+IGNORE = -1
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
+    """Padded-vocab causal CE: logits (B, S, Vpad), labels (B, S) with
+    ``IGNORE`` for positions without a loss -> (mean loss, n_tokens), both
+    0-d tensors (fp32, int64)."""
+    Vp = logits.shape[-1]
+    logits = logits.float()
+    if Vp > vocab:
+        real = torch.arange(Vp, device=logits.device) < vocab
+        logits = torch.where(real, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp_min(0).unsqueeze(-1))[..., 0]
+    counted = labels != IGNORE
+    nll = torch.where(counted, lse - picked, 0.0)
+    n = counted.sum().clamp_min(1)
+    return nll.sum() / n, n
+
+
+def loss_fn(model: nn.Module, cfg, batch: dict, *, remat: bool = False,
+            aux_weight: float = 0.01):
+    """The training loss of ``model`` on ``batch`` ({"tokens", "labels"},
+    (B, S) each): (loss, {"ce", "aux", "tokens"}), loss = ce + aux_weight
+    * aux."""
+    logits, aux = model(batch["tokens"], impl="ref", remat=remat)
+    ce, n = cross_entropy(logits, batch["labels"], cfg.vocab)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux, "tokens": n}
 
 
 def count_params(model: nn.Module) -> int:

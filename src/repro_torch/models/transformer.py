@@ -3,7 +3,9 @@
 or MQA, SwiGLU or GELU MLP, tied embeddings.
 
   Transformer(cfg, device=, gen=)            parameters (drawn from gen)
-  model.forward(tokens)          -> (logits (B, S, Vpad), aux)
+  model.forward(tokens)          -> (logits (B, S, Vpad), aux); training
+                                    passes impl="ref" (models/model.py
+                                    ``loss_fn``)
   model.prefill(tokens)          -> (logits (B, 1, Vpad) of the last
                                      position, cache)
   model.decode_step(cache, tokens, pos) -> (logits (B, 1, Vpad), cache)
@@ -11,7 +13,9 @@ or MQA, SwiGLU or GELU MLP, tied embeddings.
 The cache is ``repro``'s: {"k", "v"}, each (L, B, S, Hkv, D).  On a CUDA
 tensor every layer's full-sequence attention launches the CUDA
 flash_attention kernel (``impl="auto"``); ``impl="ref"`` keeps the plain
-chunked path.  The other families (moe, ssm, hybrid, encdec, vlm) and
+chunked path, which a training forward takes: the kernel has no backward
+(nor has ``repro``'s Pallas kernel), and a forward under grad on its
+route raises.  The other families (moe, ssm, hybrid, encdec, vlm) and
 MLA attention are not ported yet (ROADMAP.md §1) and raise
 ``NotImplementedError``.
 """
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 
@@ -75,6 +80,12 @@ class DenseBlock(nn.Module):
         return x + self.mlp(rmsnorm(x, self.ln2))
 
 
+def _block_out(blk: DenseBlock, x, positions, impl: str):
+    """A training forward's block: its output alone (the cache's k and v
+    are prefill's)."""
+    return blk(x, positions, q_chunk=TRAIN_Q_CHUNK, impl=impl)[0]
+
+
 class Transformer(nn.Module):
     """A dense decoder at ``cfg``'s widths and dtype on ``device`` (CUDA
     unless the caller asks for the CPU).  With ``gen`` the weights are
@@ -113,13 +124,23 @@ class Transformer(nn.Module):
         B, S = tokens.shape
         return torch.arange(S, device=tokens.device).expand(B, S)
 
-    def forward(self, tokens: torch.Tensor, *, impl: str = "auto"):
+    def forward(self, tokens: torch.Tensor, *, impl: str = "auto",
+                remat: bool = False):
         """tokens (B, S) -> (logits (B, S, Vpad), aux); aux is 0 (the
-        dense family has no auxiliary loss)."""
+        dense family has no auxiliary loss).  Under grad, ``impl`` must be
+        "ref" on a CUDA tensor (the kernel has no backward; the training
+        loss passes it).  ``remat`` recomputes each decoder block in the
+        backward instead of keeping its activations
+        (``torch.utils.checkpoint``, non-reentrant), as ``repro`` wraps
+        its scan body in ``jax.checkpoint``."""
         x = embed(self.embed, tokens)
         positions = self._positions(tokens)
         for blk in self.layers:
-            x, _, _ = blk(x, positions, q_chunk=TRAIN_Q_CHUNK, impl=impl)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(_block_out, blk, x, positions, impl,
+                               use_reentrant=False)
+            else:
+                x, _, _ = blk(x, positions, q_chunk=TRAIN_Q_CHUNK, impl=impl)
         logits = unembed(self.embed, rmsnorm(x, self.final_norm))
         return logits, torch.zeros((), device=x.device)
 

@@ -34,8 +34,8 @@ one call site (``repro``'s).  The port's sites are ``ckpt/read`` and
 ``ckpt/write`` (``ckpt/checkpoint.py``), ``ingest/chunk``
 (``io/triples.py`` ``COOBuilder.add``), ``kernel/dispatch``
 (``kernels/ops.py``), ``sched/unit`` (``selection/scheduler.py``) and
-``serve/request`` (``serve/engine.py``); ``train/step`` waits for the
-port of the training loop.
+``serve/request`` (``serve/engine.py``) and ``train/step``
+(``train/loop.py``).
 
 Zero-cost-off: with no plan installed, :func:`probe` is one module-level
 ``None`` check.  Every firing emits a ``fault/inject`` instant through
@@ -65,7 +65,7 @@ SEAMS = (
     "kernel/dispatch",  # kernels.ops._dispatch, at impl resolution
     "sched/unit",       # selection.scheduler, before each unit attempt
     "serve/request",    # serve.engine.ServeEngine.query, at admission
-    "train/step",       # the training loop, before each step (not ported)
+    "train/step",       # train.loop.train_loop, before each step
 )
 
 KINDS = ("raise-transient", "raise-deterministic", "truncate-file",

@@ -26,6 +26,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from repro_torch import device as _device
 from repro_torch.core.nndsvd import nndsvd_init_A
 from repro_torch.core.rescal import (EPS_DEFAULT, MU_SCHEDULES, RescalState,
                                      column_mask, mask_state, masked_mu_step,
@@ -121,7 +122,9 @@ def run_ensemble(X, k: int, cfg, draws: DrawSource, *,
     instead).  ``cfg`` is a
     ``RescalkConfig``; ``members`` a subset of the member ids (default
     all).  ``mode`` "batched" runs them as one member-stacked MU loop,
-    "loop" one after another (one perturbed copy resident at a time)."""
+    "loop" one after another (one perturbed copy resident at a time; on
+    a dense X each through ``core.rescalk.default_member_runner``, as
+    ``repro``'s loop mode runs it)."""
     if mode not in MODES:
         raise ValueError(f"unknown ensemble mode {mode!r}")
     members = tuple(members) if members is not None else \
@@ -131,6 +134,11 @@ def run_ensemble(X, k: int, cfg, draws: DrawSource, *,
         if X.batch_shape:
             raise ValueError("run_ensemble takes the unperturbed tensor")
         _require_random_init(cfg, "BCSR ensembles")
+    if mode == "loop" and not isinstance(X, BCSR):
+        # repro's loop mode: each member through the default runner
+        from repro_torch.core.rescalk import default_member_runner
+        return runner_members(X, k, members, cfg, draws,
+                              default_member_runner)
     groups = [members] if mode == "batched" else [(q,) for q in members]
     outs = []
     for group in groups:
@@ -140,6 +148,27 @@ def run_ensemble(X, k: int, cfg, draws: DrawSource, *,
         outs.append((st.A, st.R, _errors(X, st, cfg.kernel)))
     A, R, errs = (torch.cat(parts) for parts in zip(*outs))
     return EnsembleResult(A=A, R=R, errors=errs)
+
+
+def runner_members(X, k: int, members: Sequence[int], cfg,
+                   draws: DrawSource, runner) -> EnsembleResult:
+    """Loop mode's members of rank k on a dense X, each factorized by
+    ``runner(X_q, k, generator, cfg, init=...)`` (``core.rescalk``'s
+    member runner contract): the member's perturbed copy and initial
+    factors as loop mode draws them (``_perturbed``), the generator of
+    its (seed, k, q) stream, and its error against the unperturbed X."""
+    A_l, R_l, errs = [], [], []
+    for q in members:
+        X_q, st = _perturbed(X, k, (q,), cfg, draws)
+        gen = _device.seeded_generator(cfg.seed, k, q, device=X.device)
+        out = runner(X_q[0], k, gen, cfg,
+                     init=RescalState(A=st.A[0], R=st.R[0], step=0))
+        del X_q
+        A_l.append(out.A)
+        R_l.append(out.R)
+        errs.append(rel_error(X, out.A, out.R))
+    return EnsembleResult(A=torch.stack(A_l), R=torch.stack(R_l),
+                          errors=torch.stack(errs))
 
 
 def grid_init(cells, X, k_max: int, cfg, draws: DrawSource,

@@ -7,7 +7,9 @@ flash_attention with a prefill of the reduced llama3.2-1b through it,
 and the data layer: virtual generation on the card, the BCSR kernels on
 front-padded shards (and on one relation slice of a member stack), and
 the BCSR grid sweep on a 1 x 1 NCCL grid; and the cross-k grid sweep on
-that grid, stopped and resumed from its checkpoints.
+that grid, stopped and resumed from its checkpoints; and one train step
+of the reduced llama3.2-1b on the card, with the guard that keeps
+gradients off the attention kernel.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -19,6 +21,8 @@ machine that has only PyTorch; from the root of a checkout there:
 tests.)  ``chip_smoke.py`` runs the same comparisons at the sweep's
 full shapes.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -910,3 +914,53 @@ def test_grid_mode_sweep_resume_1x1_nccl_on_card(cuda, tmp_path):
                                        atol=1e-4)
     finally:
         grid.destroy()
+
+
+def test_train_step_on_card_refuses_kernel_grads(cuda):
+    """The reduced llama3.2-1b in bf16: one train step on the card runs
+    the plain chunked attention (no flash_attention launch), moves every
+    weight matrix and gives wq, wk, wv non-zero gradients, and
+    agrees with the same step on the CPU (bf16: 2e-2 of the loss); a
+    forward on the kernel's route under grad raises."""
+    from repro_torch.configs import REDUCED_ARCHS
+    from repro_torch.data import TokenStreamConfig, batch_at
+    from repro_torch.models import model as tm
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_state, make_train_step
+    cfg = dataclasses.replace(REDUCED_ARCHS["llama3.2-1b"], dtype="bfloat16")
+    batch = batch_at(TokenStreamConfig(vocab=cfg.vocab, batch=4, seq=64), 0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        opt = AdamW(lr=1e-3)
+        state = init_state(cfg, opt, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+        state.params.to(dev)
+        state = state._replace(opt=opt.init(dict(
+            state.params.named_parameters())))
+        before = {n: p.detach().clone()
+                  for n, p in state.params.named_parameters()}
+        ops.reset_launch_counts()
+        state, m = make_train_step(cfg, optimizer=opt, remat=True)(state,
+                                                                    batch)
+        assert ops.launch_counts()["flash_attention"] == 0
+        assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+        # every weight matrix moves; a norm's ones may not (an update of
+        # lr = 1e-3 is below bf16's spacing at 1.0, and bf16 parameters
+        # keep no fp32 master copy, as in repro)
+        still = [n for n, p in state.params.named_parameters()
+                 if p.dim() >= 2 and torch.equal(p.detach(), before[n])]
+        assert not still, still
+        out[dev.type] = float(m["loss"])
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=2e-2)
+    model = state.params.to(cuda)
+    loss, _ = tm.loss_fn(model, cfg, {k: v.to(cuda) for k, v in
+                                      batch.items()})
+    loss.backward()
+    for w in (model.layers[0].attn.wq, model.layers[0].attn.wk,
+              model.layers[0].attn.wv):
+        assert float(w.grad.float().abs().max()) > 0
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(batch["tokens"].to(cuda))
+    with torch.no_grad():
+        model(batch["tokens"].to(cuda))               # serving: the kernel
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
