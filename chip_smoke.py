@@ -298,6 +298,48 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      12, planted k = 3): fused_xa_xtb and mu_update_a once per MU
      iteration (4800), the k_opt and per-k values of loop mode within
      1e-4.
+ 14. The LM zoo's other families at their published widths and depths
+     (after phase 8; the card's name and power limit printed first),
+     bf16, random weights from seed 0.  flash_attention at the two call
+     shapes beyond the dense decoders', written as the models write them
+     and passed as permuted views: minicpm3-4b's MLA (b = 2, h = 40, s =
+     2048, q/k 96 and v 64 columns zero-padded to 128, scale 96 ** -0.5,
+     causal) and whisper-large-v3's cross attention (b = 2, h = 20, sq =
+     512, skv = 2048, d = 64, non-causal), each against its plain
+     version within ZOO_TOL (the padded output columns exactly 0) and
+     timed beside it, one scaled_dot_product_attention call on the
+     unpadded tensors, and the bound of the function's own widths (the
+     padded widths' bound beside it).  Every served run below follows a
+     warm-up at its own batch and prompt (2 tokens, unchecked).  (a)
+     deepseek-moe-16b (28 layers, d_model 2048, 16 heads of 128, 64
+     routed experts top-6 + 2 shared, d_ff 1408, vocab 102400; 16.67B
+     parameters, 33.34 GB) through ``decode_demo.main`` (--batch 4
+     --prompt-len 4096 --new-tokens 32, ``moe_impl="einsum"``), the
+     counters zeroed just before and its expert choices recorded
+     (``RouteTape``): 28 ``sm90_bf16`` launches in the prefill and no
+     other kernel; prefill ms and tok/s, decode ms per step, the device
+     peak.  Then against the plain chunked path (``demo_vs_plain``): the
+     router's top-6 is discrete, so a bf16 rounding difference in
+     attention flips near ties and the flips carry through the layers;
+     the plain path is run on the run's recorded choices: last-position
+     logits and every decode step's logits fed the run's tokens within
+     ZOO_TOL.  On its own routing the kernel path's last-position error
+     and share of flipped (token, layer) top-6 sets must be within
+     ZOO_FREE_SLACK of a path with no kernel (``SdpaAttention``:
+     scaled_dot_product_attention in the kernel's place); printed: both,
+     the flipped share per layer, the first MoE layer's router margins
+     (all tokens, flipped tokens), and the assignments dropped past
+     capacity and the busiest expert's load per layer.  Then the
+     prefill and 8 decode steps under ``torch.profiler``.  (b)
+     minicpm3-4b, granite-moe-3b-a800m, mamba2-1.3b and hymba-1.5b through
+     ``decode_demo.main`` (--batch 2 --prompt-len 2048 --new-tokens 16),
+     whisper-large-v3 (2048 frames, 512 tokens) and internvl2-26b (256
+     patches, 1792 tokens) through ``decode_demo.serve`` on a built
+     model (the demo refuses enc-dec and VLM, as ``repro``'s): each with
+     its flash_attention launches per variant (62, 32, 0, 0, 96 and 48,
+     all ``sm90_bf16``), no other kernel, and the plain path within
+     ZOO_TOL (granite-moe held as deepseek-moe-16b in (a)).  Depth
+     is not cut; the cuts are the batch and the sequence (PERF.md §4).
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -313,6 +355,7 @@ import os
 import shutil
 import subprocess
 import sys
+import statistics
 import tempfile
 import time
 from pathlib import Path
@@ -436,6 +479,37 @@ TRAIN_MB_TOL = 2e-2
 # phase 13 (e): the trade examples' tensor and sweep
 TRADE = dict(n=24, m=12, k=3, seed=7, k_min=2, k_max=5, r=4, iters=300,
              regress_iters=60)
+
+
+# phase 14: the LM zoo's other families at their published widths and
+# depths, random weights from seed 0, bf16: (a) deepseek-moe-16b served
+# through decode_demo (28 layers, 64 routed experts top-6 + 2 shared,
+# 16.7B parameters) at batch 4, prompt 4096, 32 new tokens; (b)
+# minicpm3-4b (MLA), granite-moe-3b-a800m, mamba2-1.3b and hymba-1.5b
+# through decode_demo, whisper-large-v3 and internvl2-26b through its
+# serve() on a built model (frames or patches are not tokens); and
+# flash_attention at minicpm3-4b's MLA shape (96/64 padded to 128) and
+# whisper-large-v3's cross shape
+ZOO_SERVE = dict(arch="deepseek-moe-16b", batch=4, prompt=4096,
+                 new_tokens=32)
+ZOO_PROFILE_STEPS = 8
+ZOO_DEMOS = ("minicpm3-4b", "granite-moe-3b-a800m", "mamba2-1.3b",
+             "hymba-1.5b")
+ZOO_DEMO = dict(batch=2, prompt=2048, new_tokens=16)
+ZOO_LIBRARY = {"whisper-large-v3": dict(batch=2, frames=2048, tokens=512),
+               "internvl2-26b": dict(batch=2, tokens=1792)}
+ZOO_FLASH = (dict(name="MLA", b=2, h=40, sq=2048, skv=2048, d=128, dqk=96,
+                  dv=64, causal=True),
+             dict(name="cross", b=2, h=20, sq=512, skv=2048, d=64, dqk=64,
+                  dv=64, causal=False))
+# kernel path against the plain chunked path, bf16 (phase 8's LM_BF16_TOL)
+ZOO_TOL = 5e-2
+# an MoE model on its own routing: the kernel path's last-position error
+# and share of flipped expert sets, against the plain path, each at most
+# this times a kernel-free bf16 path's (scaled_dot_product_attention).
+# Past the first flipped choice two runs diverge chaotically, so two bf16
+# attentions' distances from the plain path agree in size, not in value
+ZOO_FREE_SLACK = 1.5
 
 
 def log(msg: str) -> None:
@@ -1704,14 +1778,14 @@ def check_flash_grid(dev) -> None:
             f"({time.perf_counter() - t0:.1f}s)")
 
 
-def sdpa_call(q, k, v):
-    """torch's scaled_dot_product_attention, causal, GQA, on the same (b,
-    h, s, d) tensors: the yardstick, timed here and never called by the
+def sdpa_call(q, k, v, causal: bool = True, scale: float | None = None):
+    """torch's scaled_dot_product_attention, GQA, on the same (b, h, s,
+    d) tensors: the yardstick, timed here and never called by the
     port."""
     import torch
     F = torch.nn.functional
-    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=scale, enable_gqa=True)
 
 
 def time_flash(dev, cfg: dict, reps: int, plain_reps: int) -> dict:
@@ -1813,50 +1887,235 @@ def check_full_width_fp32(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def run_demo(*extra: str):
+def run_demo(arch: str, *extra: str):
     from repro_torch.launch import decode_demo
-    argv = ["--arch", LM["arch"], *extra]
+    argv = ["--arch", arch, *extra]
     log(f"[lm] decode_demo {' '.join(argv)}")
     return decode_demo.main(argv)
 
 
-def profile_lm(res, steps: int) -> None:
+class RouteTape:
+    """Teacher-forced MoE routing for a kernel-vs-plain comparison.
+    While recording, every call of ``models.moe._top_k`` (one per MoE
+    layer per forward or decode step) keeps its expert ids (and, with
+    ``margins``, the k-th probability's lead over the (k+1)-th); after
+    ``replay()`` each call returns the recorded ids, in the same order,
+    with its own probabilities at them.  The router's choice is discrete:
+    a rounding difference upstream (the kernel's against the plain
+    attention's, in bf16) flips a near tie between the k-th and the
+    (k+1)-th expert, and the flip carries through every later layer.
+    Replayed, both paths route alike, so what they are compared on is
+    the arithmetic of everything else.  Used as a context manager (it
+    patches ``_top_k`` inside it only); recording costs one list append
+    per call."""
+
+    def __init__(self, margins: bool = False):
+        from repro_torch.models import moe
+        self._moe, self._top_k = moe, moe._top_k
+        self.ids: list = []
+        self.margins: list = []
+        self._want_margins = margins
+        self._next = None
+
+    def __enter__(self):
+        self._moe._top_k = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._top_k = self._top_k
+
+    def replay(self) -> None:
+        self._next = 0
+
+    def replayed_all(self) -> bool:
+        return self._next == len(self.ids)
+
+    def _call(self, probs, k):
+        if self._next is None:
+            if not self._want_margins:
+                vals, ids = self._top_k(probs, k)
+                self.ids.append(ids)
+                return vals, ids
+            vals, ids = self._top_k(probs, k + 1)
+            self.margins.append(vals[..., k - 1] - vals[..., k])
+            self.ids.append(ids[..., :k])
+            return vals[..., :k], ids[..., :k]
+        ids = self.ids[self._next]
+        self._next += 1
+        return probs.gather(-1, ids), ids
+
+
+class SdpaAttention:
+    """A bf16 attention that involves no kernel of the port, for the
+    free-routing comparison: inside it, every full-sequence attention
+    call bound for the flash kernel (``kernels.ops.flash_attention``, on
+    the same (b, h, s, d) views, scale and causality) runs torch's
+    scaled_dot_product_attention instead.  Prefill only (q_offset 0, a
+    causal call square).  Used as a context manager; nothing of the port
+    calls it."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ops
+        F = torch.nn.functional
+        self._ops, self._flash = ops, ops.flash_attention
+
+        def sdpa(q, k, v, *, causal=True, q_offset=0, sm_scale=None,
+                 impl="auto"):
+            require(q_offset == 0 and (not causal
+                                       or q.shape[2] == k.shape[2]),
+                    f"SdpaAttention: q_offset {q_offset}, sq {q.shape[2]},"
+                    f" skv {k.shape[2]}")
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=sm_scale, enable_gqa=True)
+
+        ops.flash_attention = sdpa
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.flash_attention = self._flash
+
+
+def _serve_again(res, impl: str):
+    """``res``'s prompts prefilled through ``impl``, then decode steps
+    from that cache fed ``res``'s tokens: (last-position logits, [each
+    step's logits])."""
+    import torch
+    from repro_torch.train import make_prefill_step, make_serve_step
+    model = res.model
+    logits, filled = make_prefill_step(model, impl=impl)(res.prompts,
+                                                         **res.inputs)
+    T = res.tokens.shape[1] - 1
+    serve = make_serve_step(model)
+    with torch.inference_mode():
+        cache = model.extend_cache(filled, res.start + T)
+    del filled
+    steps = []
+    for t in range(T):
+        step, cache = serve(cache, res.tokens[:, t:t + 1], res.start + t)
+        steps.append(step)
+    del cache
+    return logits, steps
+
+
+def _against(logits, steps, ref_logits, ref_steps, vocab):
+    """(last-position error, largest step error, greedy tokens equal) of
+    a run against a reference run fed the same tokens."""
+    from repro_torch.models.model import greedy_sample
+    errs = [rel_frob(a, b) for a, b in zip(steps, ref_steps)]
+    same = sum(int((greedy_sample(a, vocab) == greedy_sample(b, vocab))
+                   .sum()) for a, b in zip(steps, ref_steps))
+    return rel_frob(logits, ref_logits), max(errs, default=0.0), same
+
+
+def demo_vs_plain(res, tag: str, tape: RouteTape | None = None) -> dict:
+    """``res``'s prompts through the plain chunked path (impl="ref"),
+    which must launch no kernel: its last-position logits, and decode
+    steps from its cache fed ``res``'s tokens, against them.  Returns
+    {"free": (``res``'s prefill error, largest step error, greedy tokens
+    equal) against the plain path}.  ``tape`` is the ``RouteTape`` that
+    recorded ``res``'s own run; where it holds expert choices (an MoE
+    model) the result also has "forced": the plain path run on those
+    choices against ``res``; "sdpa": a bf16 path with no kernel
+    (``SdpaAttention``), on its own routing, against the plain path, as
+    "free"; per MoE layer of the prefill, "flipped" and "flipped_sdpa",
+    the share of tokens whose top-k expert set differs from the plain
+    path's, "dropped", (assignments ``res``'s prefill dropped past
+    capacity, assignments), and "busiest", its busiest expert's load per
+    group over the capacity, mean over groups; "margin0", (the plain
+    path's median lead of the k-th over the (k+1)-th probability in the
+    first MoE layer, the same over the tokens the kernel path flips
+    there, their count)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    model, vocab = res.model, res.model.cfg.vocab
+    ref_steps = list(res.step_logits.split(1, dim=1))
+    before = ops.launch_counts()
+    free_tape = RouteTape(margins=True)
+    with free_tape:
+        plain = _serve_again(res, "ref")
+    require(ops.launch_counts() == before,
+            f"{tag}: the plain prefill launched a kernel")
+    out = {"free": _against(res.prefill_logits, ref_steps, *plain, vocab)}
+    if tape is None or not tape.ids:
+        return out
+    tape.replay()
+    with tape:
+        forced = _serve_again(res, "ref")
+    require(tape.replayed_all(), f"{tag}: the replay made "
+            f"{tape._next} routing calls, the run {len(tape.ids)}")
+    out["forced"] = _against(res.prefill_logits, ref_steps, *forced, vocab)
+    del forced
+    sdpa_tape = RouteTape()
+    with SdpaAttention(), sdpa_tape:
+        sdpa = _serve_again(res, "auto")
+    require(ops.launch_counts() == before,
+            f"{tag}: the scaled_dot_product_attention path launched a "
+            f"kernel")
+    out["sdpa"] = _against(*sdpa, *plain, vocab)
+    del sdpa, plain
+
+    L = sum(isinstance(m, moe.MoE) for m in model.modules())
+    E = model.cfg.n_experts
+
+    def flips(ids):
+        return [(a.sort(-1).values != b.sort(-1).values).any(-1)
+                for a, b in zip(free_tape.ids[:L], ids[:L])]
+
+    flipped = flips(tape.ids)
+    out["flipped"] = [float(f.float().mean()) for f in flipped]
+    out["flipped_sdpa"] = [float(f.float().mean())
+                           for f in flips(sdpa_tape.ids)]
+    m0, f0 = free_tape.margins[0], flipped[0]
+    out["margin0"] = (float(m0.median()),
+                      float(m0[f0].median()) if bool(f0.any()) else None,
+                      int(f0.sum()))
+    out["dropped"], out["busiest"] = [], []
+    for ids in tape.ids[:L]:
+        G, gs, k = ids.shape
+        C = moe.capacity(gs, k, E, moe.CAPACITY_FACTOR)
+        onehot = F.one_hot(ids, E).float()
+        _, kept = moe.slots(onehot, C)
+        out["dropped"].append((int((~kept).sum()), kept.numel()))
+        out["busiest"].append(float(onehot.sum((1, 2)).amax(-1).mean()) / C)
+    return out
+
+
+def profile_lm(res, steps: int, top: int = 8, tag: str = "lm") -> None:
     """The cell's prefill once more, then ``steps`` decode steps fed the
     run's tokens, each under torch.profiler: wall, device busy time and
-    idle share, and device time by kernel."""
+    idle share, and the ``top`` kernels by device time."""
     import torch
     from repro_torch.train import make_prefill_step, make_serve_step
     model, prompts = res.model, res.prompts
-    B, Pn = prompts.shape
     prefill = make_prefill_step(model)
     serve = make_serve_step(model)
     out = {}
     wall, busy, events = profiled(lambda: out.update(
-        zip(("logits", "cache"), prefill(prompts))))
+        zip(("logits", "cache"), prefill(prompts, **res.inputs))))
     windows = [("prefill", 1, wall, busy, events)]
     with torch.inference_mode():
-        cache = model.init_cache(B, Pn + steps)
-        for name in cache:
-            cache[name][:, :, :Pn] = out["cache"][name]
+        cache = model.extend_cache(out["cache"], res.start + steps)
     del out
 
     def decode():
         for t in range(steps):
-            serve(cache, res.tokens[:, t:t + 1], Pn + t)
+            serve(cache, res.tokens[:, t:t + 1], res.start + t)
 
     windows.append(("decode", steps, *profiled(decode)))
     for label, n, wall, busy, events in windows:
-        log(f"[lm] profiled {label} ({n} call(s)): wall {wall * 1e3:.3f} ms, "
-            f"device busy {busy * 1e3:.3f} ms ({100 * (1 - busy / wall):.1f}%"
-            f" idle)")
+        log(f"[{tag}] profiled {label} ({n} call(s)): wall "
+            f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
+            f"({100 * (1 - busy / wall):.1f}% idle)")
         if label == "prefill":
             attn = sum(e.device_time_total for e in events
                        if "flash_sm90" in e.key) / 1e6
-            log(f"[lm]   attention (flash_sm90) {attn * 1e3:.3f} ms, "
+            log(f"[{tag}]   attention (flash_sm90) {attn * 1e3:.3f} ms, "
                 f"{100 * attn / busy:.1f}% of the device's busy time, "
                 f"{100 * attn / wall:.1f}% of the wall")
-        for e in events[:8]:
-            log(f"[lm]   {e.device_time_total / 1e3 / n:9.4f} ms/call "
+        for e in events[:top]:
+            log(f"[{tag}]   {e.device_time_total / 1e3 / n:9.4f} ms/call "
                 f"{100 * e.device_time_total / 1e6 / busy:5.1f}%  "
                 f"x{e.count:<5d} {e.key[:70]}")
     del cache
@@ -1869,7 +2128,6 @@ def phase_lm(dev, smi: str) -> dict:
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.train import make_prefill_step, make_serve_step
     check_flash_grid(dev)
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
@@ -1881,11 +2139,11 @@ def phase_lm(dev, smi: str) -> dict:
     check_full_width_fp32(dev)
 
     B, Pn, T = LM["batch"], LM["prompt"], LM["new_tokens"]
-    run_demo("--batch", str(B), "--prompt-len", "256", "--new-tokens",
-             "2")                                      # warm-up, unchecked
+    run_demo(LM["arch"], "--batch", str(B), "--prompt-len", "256",
+             "--new-tokens", "2")                      # warm-up, unchecked
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    res = run_demo("--batch", str(B), "--prompt-len", str(Pn),
+    res = run_demo(LM["arch"], "--batch", str(B), "--prompt-len", str(Pn),
                    "--new-tokens", str(T))
     launches = ops.launch_counts()
     cfg = res.model.cfg
@@ -1908,26 +2166,11 @@ def phase_lm(dev, smi: str) -> dict:
             and bool(torch.isfinite(res.step_logits).all()),
             "decode_demo: non-finite logits")
 
-    ref_logits, ref_cache = make_prefill_step(res.model, impl="ref")(
-        res.prompts)
-    require(ops.launch_counts()["flash_attention"] == cfg.n_layers,
-            "the ref prefill launched flash_attention")
-    pre_err = rel_frob(res.prefill_logits, ref_logits)
+    pre_err, step_err, same = demo_vs_plain(res, "decode_demo")["free"]
     require(pre_err <= LM_BF16_TOL, f"decode_demo: last-position logits "
             f"{pre_err:.3e} from the plain path (> {LM_BF16_TOL})")
-    serve = make_serve_step(res.model)
-    with torch.inference_mode():
-        cache = res.model.init_cache(B, Pn + T)
-        for name in cache:
-            cache[name][:, :, :Pn] = ref_cache[name]
-    del ref_cache
-    step_errs, same = [], 0
-    for t in range(T):
-        logits, cache = serve(cache, res.tokens[:, t:t + 1], Pn + t)
-        step_errs.append(rel_frob(res.step_logits[:, t:t + 1], logits))
-        same += int((logits.argmax(-1) == res.tokens[:, t + 1:t + 2]).sum())
-    require(max(step_errs) <= LM_BF16_TOL, f"decode_demo: step logits "
-            f"{max(step_errs):.3e} from the plain path (> {LM_BF16_TOL})")
+    require(step_err <= LM_BF16_TOL, f"decode_demo: step logits "
+            f"{step_err:.3e} from the plain path (> {LM_BF16_TOL})")
     log(f"[lm] {cfg.name} {cfg.dtype} full width ({smi}): prefill {B}x{Pn} "
         f"{res.prefill_ms:.1f} ms ({B * Pn / res.prefill_ms * 1e3:.0f} "
         f"tok/s); decode {T} steps {res.decode_ms / T:.2f} ms/step "
@@ -1937,9 +2180,8 @@ def phase_lm(dev, smi: str) -> dict:
         f"{res.peak_bytes / 1e9:.2f} GB")
     log(f"[lm] kernel vs plain path: last-position logits relative error "
         f"{pre_err:.3e}; decode logits fed the kernel path's tokens, "
-        f"largest relative error {max(step_errs):.3e}; the plain path's "
+        f"largest relative error {step_err:.3e}; the plain path's "
         f"greedy token equals the kernel path's in {same} of {B * T}")
-    del cache
     profile_lm(res, min(16, T))
     del res
     torch.cuda.empty_cache()
@@ -3180,6 +3422,259 @@ def phase_train(tmp: Path, dev, smi: str) -> None:
         f"launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the LM zoo's other families at their published widths
+# ---------------------------------------------------------------------------
+
+def check_zoo_flash(dev) -> None:
+    """flash_attention at the zoo's two call shapes beyond the dense
+    decoders', inputs written as the models write them and passed as
+    permuted (B, S, H, D) views (no copies): the kernel against its plain
+    version on the same inputs (relative Frobenius error within
+    ZOO_TOL), the padded output columns exactly 0; both timed with CUDA
+    events beside the plain version, one scaled_dot_product_attention
+    call on the unpadded tensors (checked within ZOO_TOL too), and the
+    bound of the function's own widths (``attention_bound``), the padded
+    widths' bound printed beside as the padding's cost."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    for case in ZOO_FLASH:
+        b, h, sq, skv, d = (case[k] for k in ("b", "h", "sq", "skv", "d"))
+        dqk, dv, causal = case["dqk"], case["dv"], case["causal"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(sq + skv)
+        q, k, v = (torch.zeros((b, s, h, d), dtype=torch.bfloat16,
+                               device=dev) for s in (sq, skv, skv))
+        for x, cols in ((q, dqk), (k, dqk), (v, dv)):
+            x[..., :cols] = torch.randn(x[..., :cols].shape, generator=gen,
+                                        device=dev)
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+        kw = dict(causal=causal, sm_scale=dqk ** -0.5)
+        tag = (f"{case['name']}: b={b} h={h} sq={sq} skv={skv} d={d} "
+               f"({dqk}/{dv}) bf16 {'causal' if causal else 'non-causal'}")
+        fa.reset_launch_count()
+        got = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        require(fa.launch_count_by_variant() == {"sm90_bf16": 1,
+                                                 "fma_fp32": 0},
+                f"flash_attention [{tag}]: {fa.launch_count_by_variant()}")
+        plain = ref.ref_attention(q, k, v, **kw)
+        err = rel_frob(got, plain)
+        require(err <= ZOO_TOL, f"flash_attention [{tag}]: {err:.3e} from "
+                f"the plain version (> {ZOO_TOL})")
+        require(not bool(got[..., dv:].any()),
+                f"flash_attention [{tag}]: padded output columns not 0")
+        qu, ku, vu = (x[..., :cols].contiguous()
+                      for x, cols in ((q, dqk), (k, dqk), (v, dv)))
+        lib_fn = sdpa_call(qu, ku, vu, causal=causal, scale=dqk ** -0.5)
+        lib_err = rel_frob(lib_fn(), plain[..., :dv])
+        require(lib_err <= ZOO_TOL, f"scaled_dot_product_attention [{tag}]"
+                f" (yardstick): {lib_err:.3e} from the plain version")
+        del got, plain
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=10)
+        plain_ms = cuda_ms(lambda: ref.ref_attention(q, k, v, **kw), reps=2,
+                           warmup=1)
+        lib_ms = cuda_ms(lib_fn, reps=10)
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        bound, by = attention_bound(b * h, pairs, sq, skv, dqk, dv)
+        padded, _ = attention_bound(b * h, pairs, sq, skv, d, d)
+        log(f"[zoo] flash_attention [{tag}]: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, scaled_dot_product_attention on the "
+            f"unpadded tensors {lib_ms:.3f} ms ({ms / lib_ms:.2f}x; relative "
+            f"error {lib_err:.3e}), bound {bound:.4f} ms ({by}, the "
+            f"function's {dqk}/{dv} widths; {100 * bound / ms:.1f}%), "
+            f"{padded:.4f} ms at the padded {d}/{d} (the padding's cost "
+            f"{padded / bound:.2f}x), relative error {err:.3e}")
+        del q, k, v, qu, ku, vu, lib_fn
+        torch.cuda.empty_cache()
+
+
+def attention_bound(heads: int, pairs: int, sq: int, skv: int, dqk: int,
+                    dv: int) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time for attention over
+    ``heads`` (b h) heads and ``pairs`` visible (query, key) pairs per
+    head, with q/k rows of dqk and v/output rows of dv bf16 values: 2
+    (dqk + dv) operations per pair over the bf16 tensor-core peak, or q,
+    k, v read once and the output written once over the HBM rate."""
+    t_ops = 2 * heads * pairs * (dqk + dv) / PEAK_BF16_FLOP_PER_S * 1e3
+    t_bytes = (2 * heads * (sq * dqk + skv * dqk + skv * dv + sq * dv)
+               / PEAK_BYTES_PER_S * 1e3)
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def zoo_flash_want(cfg) -> int:
+    """flash_attention launches of one prefill: one per GQA or MLA layer;
+    enc-dec adds its encoder's and one cross attention per decoder
+    layer; the SSM and the hybrid's sliding window launch none."""
+    if cfg.family in ("ssm", "hybrid"):
+        return 0
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def check_zoo_run(res, tag: str, smi: str, tape: RouteTape) -> None:
+    """One served run of phase 14 (the counters zeroed before it, its
+    routing recorded by ``tape``): the prefill's flash_attention
+    launches, all on the tensor-core kernel, and no other kernel; valid
+    tokens and finite logits; then the plain path (``demo_vs_plain``)
+    within ZOO_TOL: as it routes itself for a model without experts, on
+    the run's own expert choices for an MoE model, whose own-routing
+    error and flipped share must also be within ZOO_FREE_SLACK of a
+    kernel-free bf16 path's.  Prints the cell's lines."""
+    import torch
+    from repro_torch.kernels import ops
+    cfg = res.model.cfg
+    want = zoo_flash_want(cfg)
+    launches = ops.launch_counts()
+    require(launches["flash_attention"] == want == res.flash_launches,
+            f"{tag}: flash_attention launched {launches['flash_attention']}"
+            f" times in the run, {res.flash_launches} in the prefill; want "
+            f"{want}")
+    require(res.flash_by_variant == {"sm90_bf16": want, "fma_fp32": 0},
+            f"{tag}: {res.flash_by_variant}, want {want} sm90_bf16")
+    require(not any(n for name, n in launches.items()
+                    if name != "flash_attention"),
+            f"{tag}: other kernels launched: {launches}")
+    B, T = res.tokens.shape[0], res.tokens.shape[1] - 1
+    require(int(res.tokens.max()) < cfg.vocab
+            and int(res.tokens.min()) >= 0, f"{tag}: bad tokens")
+    require(bool(torch.isfinite(res.prefill_logits).all())
+            and bool(torch.isfinite(res.step_logits).all()),
+            f"{tag}: non-finite logits")
+    got = demo_vs_plain(res, tag, tape)
+    key = "forced" if "forced" in got else "free"
+    pre_err, step_err, same = got[key]
+    require(pre_err <= ZOO_TOL, f"{tag}: last-position logits {pre_err:.3e} "
+            f"from the plain path ({key} routing; > {ZOO_TOL})")
+    require(step_err <= ZOO_TOL, f"{tag}: step logits {step_err:.3e} from "
+            f"the plain path ({key} routing; > {ZOO_TOL})")
+    Pn = res.prompts.shape[1]
+    log(f"[zoo] {tag} ({smi}): prefill {B}x{res.start} "
+        f"{res.prefill_ms:.1f} ms ({B * Pn / res.prefill_ms * 1e3:.0f} "
+        f"tok/s); decode {T} steps {res.decode_ms / T:.2f} ms/step "
+        f"({B * T / res.decode_ms * 1e3:.0f} tok/s); peak device memory "
+        f"{res.peak_bytes / 1e9:.2f} GB; flash_attention launches "
+        f"{res.flash_by_variant}")
+    log(f"[zoo] {tag} kernel vs plain path ({key} routing): last-position "
+        f"logits {pre_err:.3e}, decode logits fed the kernel path's tokens "
+        f"{step_err:.3e} at most, greedy tokens equal in {same} of {B * T}")
+    if key == "free":
+        return
+    mean = statistics.fmean
+    shares = {"kernel": got["free"] + (mean(got["flipped"]),),
+              "scaled_dot_product_attention": got["sdpa"]
+              + (mean(got["flipped_sdpa"]),)}
+    for name, (fp, fs, fsame, flip) in shares.items():
+        log(f"[zoo] {tag} {name} path on its own routing against the "
+            f"plain path's: last-position logits {fp:.3e}, steps {fs:.3e} "
+            f"at most, greedy tokens equal in {fsame} of {B * T}; "
+            f"top-{cfg.top_k} expert sets that differ in the prefill "
+            f"{100 * flip:.2f}% of the (token, layer) pairs")
+    (kp, *_, kf), (sp, *_, sf) = shares.values()
+    require(kp <= ZOO_FREE_SLACK * sp and kf <= ZOO_FREE_SLACK * sf,
+            f"{tag}: on its own routing the kernel path is {kp:.3e} from "
+            f"the plain path with {100 * kf:.2f}% flipped, over "
+            f"{ZOO_FREE_SLACK}x the kernel-free path's {sp:.3e} and "
+            f"{100 * sf:.2f}%")
+    pct = " ".join(f"{100 * f:.1f}" for f in got["flipped"])
+    log(f"[zoo] {tag} flipped per MoE layer, kernel path (%): {pct}")
+    pct = " ".join(f"{100 * f:.1f}" for f in got["flipped_sdpa"])
+    log(f"[zoo] {tag} flipped per MoE layer, kernel-free path (%): {pct}")
+    m_all, m_flip, n_flip = got["margin0"]
+    log(f"[zoo] {tag} first MoE layer: the plain path's k-th probability "
+        f"leads the (k+1)-th by {m_all:.3e} (median over tokens), by "
+        f"{'-' if m_flip is None else f'{m_flip:.3e}'} over the "
+        f"{n_flip} tokens whose set the kernel path flips there")
+    dropped = sum(d for d, _ in got["dropped"])
+    assigned = sum(n for _, n in got["dropped"])
+    pct = " ".join(f"{100 * d / n:.1f}" for d, n in got["dropped"])
+    log(f"[zoo] {tag} assignments dropped past capacity in the prefill: "
+        f"{dropped} of {assigned} ({100 * dropped / assigned:.3f}%); per MoE"
+        f" layer (%): {pct}")
+    ratio = " ".join(f"{b:.2f}" for b in got["busiest"])
+    log(f"[zoo] {tag} busiest expert's load per group over the capacity, "
+        f"mean over groups, per MoE layer: {ratio}")
+
+
+def phase_zoo(dev, smi: str) -> None:
+    """Phase 14 (see the module docstring)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import decode_demo
+    from repro_torch.models.transformer import Transformer
+    log(f"[zoo] {smi}")
+    check_zoo_flash(dev)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def demo(arch: str, batch: int, prompt: int, new_tokens: int):
+        """A warm-up through decode_demo at the cell's own batch and
+        prompt (2 tokens, unchecked, its model freed), then the timed
+        run with the counters zeroed just before and its routing
+        recorded: (result, tape)."""
+        shape = ("--batch", str(batch), "--prompt-len", str(prompt))
+        run_demo(arch, *shape, "--new-tokens", "2")
+        free()
+        ops.reset_launch_counts()
+        with RouteTape() as tape:
+            res = run_demo(arch, *shape, "--new-tokens", str(new_tokens))
+        return res, tape
+
+    # (a) deepseek-moe-16b at full width through decode_demo
+    a = ZOO_SERVE
+    res, tape = demo(a["arch"], a["batch"], a["prompt"], a["new_tokens"])
+    n = sum(p.numel() for p in res.model.parameters())
+    log(f"[zoo] {a['arch']}: {n / 1e9:.3f}B parameters, "
+        f"{2 * n / 1e9:.2f} GB in bf16")
+    check_zoo_run(res, a["arch"], smi, tape)
+    profile_lm(res, min(ZOO_PROFILE_STEPS, a["new_tokens"]), top=14,
+               tag="zoo")
+    del res, tape
+    free()
+
+    # (b) the other families at their published widths
+    for arch in ZOO_DEMOS:
+        res, tape = demo(arch, ZOO_DEMO["batch"], ZOO_DEMO["prompt"],
+                         ZOO_DEMO["new_tokens"])
+        check_zoo_run(res, arch, smi, tape)
+        del res, tape
+        free()
+    for arch, shape in ZOO_LIBRARY.items():
+        cfg = ARCHS[arch]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = Transformer(cfg, device=dev, gen=gen)
+        gen.manual_seed(1)
+        B = shape["batch"]
+        prompts = torch.randint(0, cfg.vocab, (B, shape["tokens"]),
+                                generator=gen, device=dev)
+        n_in = shape.get("frames") or cfg.n_patches
+        x = torch.randn((B, n_in, cfg.d_model), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        inputs = {"frames" if cfg.family == "encdec" else "patches": x}
+        log(f"[zoo] {arch} through decode_demo.serve: {B} x "
+            f"{shape['tokens']} tokens after {n_in} "
+            f"{'frames' if cfg.family == 'encdec' else 'patches'} (after a "
+            f"warm-up of 2 tokens, unchecked)")
+        decode_demo.serve(model, prompts, 2, **inputs)
+        free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        with RouteTape() as tape:
+            res = decode_demo.serve(model, prompts, ZOO_DEMO["new_tokens"],
+                                    **inputs)
+        check_zoo_run(res, arch, smi, tape)
+        del res, model, inputs, x, tape
+        free()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3220,6 +3715,8 @@ def main() -> int:
         phase_train(Path(tmp), dev, smi)
     torch.cuda.empty_cache()
     rows.append(phase_lm(dev, smi))
+    torch.cuda.empty_cache()
+    phase_zoo(dev, smi)
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if row[key] is not None:

@@ -16,8 +16,8 @@ carry across:
     (``grid_blocks``);
   * a ``KResult`` (``k_result``), a ``FactorBundle``
     (``factor_bundle``) and a cross-k ``GridChunk`` (``grid_chunk``);
-  * the LM zoo's parameter pytree, as the state dict of the port's dense
-    decoder (``lm_params_from_repro``).
+  * the LM zoo's parameter pytree, any family, as the state dict of the
+    port's ``Transformer`` (``lm_params_from_repro``).
 
 ``repro``'s dense member draws and k_max-padded states need no helper:
 ``selection.ArrayDraws`` takes the arrays as they are, and
@@ -35,7 +35,6 @@ from repro_torch.core.rescal import RescalState
 from repro_torch.core.sparse import BCSR
 from repro_torch.dist.sharding import Grid
 from repro_torch.io.partition import BlockPartition, ShardedBCSR
-from repro_torch.models.transformer import dtype_of
 from repro_torch.selection.scheduler import GridChunk
 from repro_torch.selection.types import KResult
 from repro_torch.serve.bundle import FactorBundle
@@ -128,28 +127,47 @@ def grid_chunk(chunk) -> GridChunk:
 
 def lm_params_from_repro(params, cfg, device=None) -> dict[str, torch.Tensor]:
     """The state dict of ``models.transformer.Transformer(cfg)`` from
-    ``repro``'s ``init_params`` pytree: ``embed/table``, ``final_norm``
-    and ``layers/{ln1, ln2, attn/{wq, wk, wv, wo}, mlp/{wi, [wg,] wo}}``
-    stacked on a leading L axis.  Both packages keep dense weights as
+    ``repro``'s ``init_params`` pytree, any family: ``embed/table``,
+    ``final_norm``, the ``layers`` stack (and enc-dec's ``enc_layers``
+    stack and ``enc_norm``) split along its leading L axis.  The names
+    carry over (``layers/attn/wq`` is ``layers.{i}.attn.wq``, ``mixer/
+    mamba/A_log`` is ``layers.{i}.mixer.mamba.A_log``), but for the
+    experts' ``wg`` and ``wi``, concatenated once into the fused
+    ``moe.wgi`` (gate columns first).  Both packages keep dense weights as
     (d_in, d_out) applied as ``x @ w``, so the arrays carry over as they
-    are, in ``cfg.dtype`` (bf16 arrays pass through fp32 exactly)."""
+    are, each in its own dtype (bf16 and fp32 leaves alike; bf16 passes
+    through fp32 exactly)."""
     dev = _device.resolve(device)
-    dtype = dtype_of(cfg)
 
     def t(x) -> torch.Tensor:
+        dtype = (torch.bfloat16 if str(np.asarray(x).dtype) == "bfloat16"
+                 else torch.float32)
         return torch.as_tensor(np.array(x, dtype=np.float32),
                                device=dev).to(dtype)
 
-    layers = params["layers"]
-    stacked = {"ln1": t(layers["ln1"]), "ln2": t(layers["ln2"])}
-    stacked.update({f"attn.{w}": t(layers["attn"][w])
-                    for w in ("wq", "wk", "wv", "wo")})
-    stacked.update({f"mlp.{w}": t(x) for w, x in layers["mlp"].items()})
+    def flat(tree, prefix: str) -> dict:
+        out = {}
+        for name, x in tree.items():
+            key = f"{prefix}{name}"
+            if isinstance(x, dict):
+                if "router" in x:                # the experts' wg, wi
+                    out[f"{key}.wgi"] = torch.cat([t(x["wg"]), t(x["wi"])],
+                                                  dim=-1)
+                    x = {k: v for k, v in x.items() if k not in ("wg", "wi")}
+                out.update(flat(x, key + "."))
+            else:
+                out[key] = t(x)
+        return out
+
     state = {"embed": t(params["embed"]["table"]),
              "final_norm": t(params["final_norm"])}
-    for i in range(cfg.n_layers):
-        state.update({f"layers.{i}.{name}": x[i]
-                      for name, x in stacked.items()})
+    for stack, n in (("layers", cfg.n_layers),
+                     ("enc_layers", cfg.n_enc_layers)):
+        if stack in params:
+            for name, x in flat(params[stack], "").items():
+                state.update({f"{stack}.{i}.{name}": x[i] for i in range(n)})
+    if "enc_norm" in params:
+        state["enc_norm"] = t(params["enc_norm"])
     return state
 
 

@@ -2,18 +2,22 @@
 ``repro/launch/decode_demo.py``): a batched prefill of random prompts,
 then greedy autoregressive decode, on random weights drawn from a seed.
 
-Runs on the H100 by default (``--device cpu`` runs the plain PyTorch path
-on the CPU).  On the card every layer's prefill attention launches the
-hand-written CUDA flash_attention kernel.
+Serves every decoder-only arch of the zoo (dense, MLA, MoE, SSM,
+hybrid); enc-dec and VLM exit, as ``repro``'s demo does.  Runs on the
+H100 by default (``--device cpu`` runs the plain PyTorch path on the
+CPU).  On the card every layer's GQA or MLA prefill attention launches
+the hand-written CUDA flash_attention kernel (the SSM and the hybrid's
+sliding window launch none, as ``repro``'s run no kernel); the MoE
+path is ``repro``'s default, "einsum".
 
     PYTHONPATH=src python -m repro_torch.launch.decode_demo \\
-        --arch llama3.2-1b --reduced --batch 4 --prompt-len 16 \\
+        --arch deepseek-moe-16b --reduced --batch 4 --prompt-len 16 \\
         --new-tokens 16 --device cpu
 
-Decode continues from the prefill's cache (copied into a cache of
-prompt + new-tokens positions); ``repro``'s demo decodes against a fresh
-zero cache instead.  ``repro``'s ``--mesh`` is not defined here (ROADMAP.md
-§1).
+Decode continues from the prefill's cache (``Transformer.extend_cache``
+to prompt + new-tokens positions); ``repro``'s demo decodes against a
+fresh zero cache instead.  ``repro``'s ``--mesh`` is not defined here
+(ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs import ARCHS, REDUCED_ARCHS
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops
 from repro_torch.models.model import greedy_sample
 from repro_torch.models.transformer import Transformer
@@ -37,12 +42,15 @@ class DemoResult:
     around work that ends in a device synchronize)."""
     model: Transformer
     prompts: torch.Tensor          # (B, P)
+    inputs: dict                   # enc-dec's frames or the VLM's patches
+    start: int                     # the first decode position
     prefill_logits: torch.Tensor   # (B, 1, Vpad), last prompt position
     tokens: torch.Tensor           # (B, T + 1): the prefill's, then T steps
     step_logits: torch.Tensor      # (B, T, Vpad): step t's input tokens[:, t]
     prefill_ms: float
     decode_ms: float
     flash_launches: int            # flash_attention launches in the prefill
+    flash_by_variant: dict         # the same, per kernel variant
     peak_bytes: int | None         # peak device memory (None on the CPU)
 
 
@@ -72,35 +80,47 @@ def run(args) -> DemoResult:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     model = Transformer(cfg, device=dev, gen=gen)
-    B, Pn, T = args.batch, args.prompt_len, args.new_tokens
     gen.manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab, (B, Pn), generator=gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                            generator=gen, device=dev)
+    return serve(model, prompts, args.new_tokens)
 
+
+def serve(model: Transformer, prompts: torch.Tensor, new_tokens: int,
+          **inputs) -> DemoResult:
+    """The demo's serving on a built model: a timed prefill of ``prompts``
+    (B, P) (with enc-dec's ``frames`` or the VLM's ``patches`` in
+    ``inputs``), then ``new_tokens`` timed greedy decode steps from its
+    cache.  Prints what it measured."""
+    cfg, dev = model.cfg, model.device
+    B, Pn, T = *prompts.shape, new_tokens
     prefill = make_prefill_step(model)
     launches0 = ops.launch_counts()["flash_attention"]
+    variants0 = _flash.launch_count_by_variant()
     _sync(dev)
     t0 = time.perf_counter()
-    logits, filled = prefill(prompts)
+    logits, filled = prefill(prompts, **inputs)
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.launch_counts()["flash_attention"] - launches0
+    by_variant = {name: n - variants0[name] for name, n in
+                  _flash.launch_count_by_variant().items()}
     print(f"prefill {B}x{Pn}: {prefill_ms:.1f} ms "
           f"({B * Pn / prefill_ms * 1e3:.0f} tok/s)")
     print(f"flash_attention launches in the prefill: {launches} "
-          f"({cfg.n_layers} layers)")
+          f"({cfg.n_layers} layers; {by_variant})")
 
-    serve = make_serve_step(model)
+    start = Pn + (inputs["patches"].shape[1] if "patches" in inputs else 0)
+    step_fn = make_serve_step(model)
     with torch.inference_mode():
-        cache = model.init_cache(B, Pn + T)
-        for name in cache:
-            cache[name][:, :, :Pn] = filled[name]
+        cache = model.extend_cache(filled, start + T)
     del filled
     tok = greedy_sample(logits, cfg.vocab)
     tokens, steps = [tok], []
     _sync(dev)
     t0 = time.perf_counter()
-    for pos in range(Pn, Pn + T):
-        step_logits, cache = serve(cache, tok, pos)
+    for pos in range(start, start + T):
+        step_logits, cache = step_fn(cache, tok, pos)
         tok = greedy_sample(step_logits, cfg.vocab)
         tokens.append(tok)
         steps.append(step_logits)
@@ -115,11 +135,11 @@ def run(args) -> DemoResult:
         print(f"peak device memory: {peak / 2**30:.2f} GiB")
     empty = logits.new_empty((B, 0, logits.shape[-1]))
     return DemoResult(
-        model=model, prompts=prompts, prefill_logits=logits,
-        tokens=torch.cat(tokens, dim=1),
+        model=model, prompts=prompts, inputs=inputs, start=start,
+        prefill_logits=logits, tokens=torch.cat(tokens, dim=1),
         step_logits=torch.cat(steps, dim=1) if steps else empty,
         prefill_ms=prefill_ms, decode_ms=decode_ms, flash_launches=launches,
-        peak_bytes=peak)
+        flash_by_variant=by_variant, peak_bytes=peak)
 
 
 def main(argv=None) -> DemoResult:

@@ -6,11 +6,12 @@
 
 Runs on the H100 by default; ``--device cpu`` runs the same path on the
 CPU.  The published widths train on the card (llama3.2-1b at seq 4096
-needs ``--remat``).  ``repro``'s ``--mesh`` is defined, but only "none"
-runs here: the production meshes wait for the LM mesh (ROADMAP.md §1
-item 5(d)).  The enc-dec and VLM archs exit as ``repro``'s launcher
-does; the other families the port does not run yet raise
-``NotImplementedError``.
+needs ``--remat``).  Every decoder-only family trains (dense, MLA,
+MoE, SSM, hybrid); the MoE path is "dense" with ``--reduced`` and
+"scatter" otherwise, as ``repro``'s launcher picks it.  ``repro``'s
+``--mesh`` is defined, but only "none" runs here: the production meshes
+wait for the LM mesh (ROADMAP.md §1 item 5(d)).  The enc-dec and VLM
+archs exit as ``repro``'s launcher does.
 """
 from __future__ import annotations
 
@@ -19,7 +20,6 @@ import argparse
 from repro_torch.configs import ARCHS, REDUCED_ARCHS
 from repro_torch.data import TokenStreamConfig, batch_at
 from repro_torch.models.model import count_params_analytic
-from repro_torch.models.transformer import check_supported
 from repro_torch.optim import AdamW
 from repro_torch.train import LoopConfig, train_loop
 
@@ -50,7 +50,6 @@ def main(argv=None) -> list[dict]:
         raise SystemExit(f"{cfg.name}: token-stream trainer targets "
                          "decoder-only archs; see tests for frontend-stub "
                          "training of encdec/vlm")
-    check_supported(cfg)
     if args.mesh != "none":
         raise NotImplementedError(
             f"--mesh {args.mesh}: the LM mesh is not ported yet "
@@ -62,6 +61,7 @@ def main(argv=None) -> list[dict]:
                       save_every=args.save_every, log_every=10)
     _, history = train_loop(cfg, lambda s: batch_at(ds, s), loop,
                             optimizer=AdamW(lr=args.lr), remat=args.remat,
+                            moe_impl="dense" if args.reduced else "scatter",
                             device=args.device, verbose=True)
     if history:
         print(f"done: loss {history[0]['loss']:.4f} -> "

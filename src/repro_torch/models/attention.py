@@ -1,15 +1,28 @@
-"""GQA attention (port of ``repro/models/attention.py:27,159,212,223``):
-the full-sequence ``chunked_attention`` (prefill and forward), the
-single-token ``decode_attention`` against a cache, and the
-``GQAAttention`` block.  Sliding-window, MLA, ring and cross attention
-are not ported yet (ROADMAP.md §1).
+"""Attention variants (port of ``repro/models/attention.py``): the
+full-sequence ``chunked_attention`` (prefill and forward), the
+single-token ``decode_attention`` against a cache, the ``GQAAttention``
+block, the banded ``sliding_window_attention`` and its ring-buffer decode
+``ring_decode_attention`` (the hybrid family), the non-causal
+``cross_attention`` (enc-dec), and MLA, multi-head latent attention
+(``MLAAttention``: ``mla_latents``, ``mla_queries``, ``mla_prefill``,
+``mla_decode``).
 
 ``repro`` keeps two routes to one function: the Pallas kernel
 ``kernels/flash_attention.py`` on the TPU and the chunked online softmax
 in XLA elsewhere, its oracle.  So here: on a CUDA tensor
 ``chunked_attention`` launches the hand-written CUDA kernel
 (``kernels.ops.flash_attention``); on the CPU, or with ``impl="ref"``,
-it runs ``repro``'s chunked algorithm in PyTorch.
+it runs ``repro``'s chunked algorithm in PyTorch.  ``cross_attention``
+and ``mla_prefill`` go through it.  MLA's q/k head dim (d_nope + d_rope)
+and v head dim (d_v) differ and need not be one the kernel builds: on
+the kernel's route q, k and v are written into zero-padded buffers of
+the smallest head dim it builds that holds both, which adds exactly 0 to
+every dot product, with the scale of the unpadded q/k dim.
+
+``repro`` runs the sliding-window, ring, MLA decode and single-token
+decode attention in XLA, outside its kernel (whose contract has no
+window), so their ports are plain PyTorch on every device: no kernel is
+bypassed.
 
 Layouts: activations (B, S, H, D); caches (B, S, Hkv, D).
 """
@@ -19,9 +32,10 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.policy import IMPLS
 
-from .layers import apply_rope, dense_init, param
+from .layers import apply_rope, dense_init, param, rmsnorm
 
 NEG_INF = -1e30
 
@@ -52,9 +66,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``ops.flash_attention``); training passes ``impl="ref"`` and
     autograd differentiates the chunked path.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if impl == "cuda" or (impl == "auto" and q.device.type == "cuda"):
+    if on_kernel(impl, q):
         out = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, q_offset=q_offset, sm_scale=sm_scale,
@@ -62,6 +74,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.transpose(1, 2)
     return _chunked(q, k, v, causal=causal, q_offset=q_offset, chunk=chunk,
                     q_chunk=q_chunk, sm_scale=sm_scale)
+
+
+def on_kernel(impl: str, x: torch.Tensor) -> bool:
+    """Whether a full-sequence attention call on ``x`` with ``impl`` takes
+    the CUDA kernel's route (``chunked_attention``'s rule)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl == "cuda" or (impl == "auto" and x.device.type == "cuda")
 
 
 def _chunked(q, k, v, *, causal, q_offset, chunk, q_chunk, sm_scale):
@@ -121,24 +141,90 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     ``repro`` scores the whole cache and masks positions >= pos to -1e30;
     their p is exp(-1e30 - m) = 0, so scoring only the first ``pos``
-    positions gives the same result.  Scores and p @ v accumulate in fp32,
-    p is cast to the cache's dtype first.  Plain PyTorch: ``repro``
-    computes this outside any Pallas kernel too."""
+    positions gives the same result.  Plain PyTorch: ``repro`` computes
+    this outside any Pallas kernel too."""
+    return _attend_one(q, k_cache[:, :pos], v_cache[:, :pos])
+
+
+def _attend_one(q, k, v, valid=None) -> torch.Tensor:
+    """One query position q (B, 1, Hq, D) against k and v (B, S, Hkv, D),
+    keys where ``valid`` (S,) is false masked to -1e30: scores and p @ v
+    accumulate in fp32, p is cast to v's dtype first."""
     B, _, Hq, D = q.shape
-    Hkv = k_cache.shape[2]
-    g = Hq // Hkv
-    scale = D ** -0.5
-    qg = (q * torch.tensor(scale, dtype=q.dtype)).reshape(B, Hkv, g, D)
-    kc = k_cache[:, :pos]
-    vc = v_cache[:, :pos]
-    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), kc.float())
+    Hkv = k.shape[2]
+    qg = (q * torch.tensor(D ** -0.5, dtype=q.dtype)).reshape(
+        B, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float())
+    if valid is not None:
+        s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
-                       vc.float())
+    acc = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).float(), v.float())
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, window: int,
+                             chunk: int = 256) -> torch.Tensor:
+    """Banded causal attention: q, k, v (B, S, H*, D) -> (B, S, Hq, D);
+    each query sees the keys j with i - window < j <= i.  As ``repro``:
+    query chunks of ``chunk`` rows (which must divide S), each scoring a
+    static band of keys before it, zero-padded at the front and masked;
+    q times the scale in its dtype, scores and p @ v in fp32, p cast to
+    v's dtype first."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    if Hkv != Hq:
+        k = k.repeat_interleave(Hq // Hkv, dim=2)
+        v = v.repeat_interleave(Hq // Hkv, dim=2)
+    q = q * torch.tensor(D ** -0.5, dtype=q.dtype)
+    chunk = min(chunk, Sq)
+    if Sq % chunk:
+        raise ValueError(f"sliding_window_attention: chunk {chunk} does "
+                         f"not divide the sequence ({Sq})")
+    band = ((window + chunk - 1) // chunk + 1) * chunk
+    pad = band - chunk
+    kp = nn.functional.pad(k, (0, 0, 0, 0, pad, 0))
+    vp = nn.functional.pad(v, (0, 0, 0, 0, pad, 0))
+    dev = q.device
+    q_ids = torch.arange(chunk, device=dev)[:, None]
+    k_ids = torch.arange(band, device=dev)[None, :] - pad
+    mask = (q_ids >= k_ids) & (q_ids - k_ids < window)
+    out = torch.empty_like(q)
+    for i in range(Sq // chunk):
+        q0 = i * chunk
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, q0:q0 + chunk].float(),
+                         kp[:, q0:q0 + band].float())
+        s = torch.where(mask & (q0 + k_ids >= 0), s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                         vp[:, q0:q0 + band].float())
+        out[:, q0:q0 + chunk] = o.transpose(1, 2).to(q.dtype)
+    return out
+
+
+def ring_decode_attention(q: torch.Tensor, k_ring: torch.Tensor,
+                          v_ring: torch.Tensor, pos: int,
+                          window: int) -> torch.Tensor:
+    """Decode against a ring-buffer sliding-window cache: q (B, 1, Hq, D),
+    k_ring and v_ring (B, W, Hkv, D), W = window, slot j holding the most
+    recent position p with p % W == j (keys rotated at their own
+    positions).  Slot j's position is pos - ((pos - j) mod W); a slot
+    whose position is negative (warm-up) is masked."""
+    slots = torch.arange(window, device=q.device)
+    valid = pos - torch.remainder(pos - slots, window) >= 0
+    return _attend_one(q, k_ring, v_ring, valid)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    impl: str = "auto") -> torch.Tensor:
+    """Non-causal attention of decoder queries q (B, Sq, H, D) over the
+    encoder's k and v (B, Se, Hkv, D): ``chunked_attention`` with
+    causal=False, so the CUDA kernel on a CUDA tensor."""
+    return chunked_attention(q, k, v, causal=False,
+                             chunk=min(1024, k.shape[1]), impl=impl)
 
 
 class GQAAttention(nn.Module):
@@ -172,12 +258,12 @@ class GQAAttention(nn.Module):
         return q, k, v
 
     def full(self, x: torch.Tensor, positions: torch.Tensor, *,
-             q_chunk: int, impl: str = "auto"):
-        """Causal attention over the whole sequence: (out (B, S, d), k,
-        v), k and v as the cache holds them."""
+             q_chunk: int, impl: str = "auto", causal: bool = True):
+        """Attention over the whole sequence (causal unless the encoder
+        asks): (out (B, S, d), k, v), k and v as the cache holds them."""
         B, S, _ = x.shape
         q, k, v = self.qkv(x, positions)
-        o = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk,
+        o = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
                               impl=impl)
         return o.reshape(B, S, -1) @ self.wo, k, v
 
@@ -194,3 +280,134 @@ class GQAAttention(nn.Module):
         v_cache[:, pos] = v[:, 0]
         o = decode_attention(q, k_cache, v_cache, pos + 1)
         return o.reshape(B, 1, -1) @ self.wo
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention), MiniCPM3 / DeepSeek-V2 style
+# ---------------------------------------------------------------------------
+
+class MLAAttention(nn.Module):
+    """Multi-head latent attention: queries through a rank-``q_lora``
+    bottleneck, keys and values decompressed from a ``kv_lora`` latent,
+    plus a ``d_rope`` rotary key shared by the heads.  The cache holds
+    the latents {"c" (B, S, kv_lora), "r" (B, S, d_rope)}.  Weights as
+    ``repro``'s ``mla_init``: wq_down (d, q_lora), q_norm, wq_up (q_lora,
+    H*(d_nope+d_rope)), wkv_down (d, kv_lora+d_rope), kv_norm, wkv_up
+    (kv_lora, H*(d_nope+d_v)), wo (H*d_v, d)."""
+
+    def __init__(self, d_model: int, n_heads: int, *, q_lora: int,
+                 kv_lora: int, d_nope: int, d_rope: int, d_v: int,
+                 rope_theta: float, dtype, device):
+        super().__init__()
+        self.n_heads, self.kv_lora = n_heads, kv_lora
+        self.d_nope, self.d_rope, self.d_v = d_nope, d_rope, d_v
+        self.rope_theta = rope_theta
+        self.wq_down = param((d_model, q_lora), dtype, device)
+        self.q_norm = nn.Parameter(torch.ones(q_lora, dtype=dtype,
+                                              device=device))
+        self.wq_up = param((q_lora, n_heads * (d_nope + d_rope)), dtype,
+                           device)
+        self.wkv_down = param((d_model, kv_lora + d_rope), dtype, device)
+        self.kv_norm = nn.Parameter(torch.ones(kv_lora, dtype=dtype,
+                                               device=device))
+        self.wkv_up = param((kv_lora, n_heads * (d_nope + d_v)), dtype,
+                            device)
+        self.wo = param((n_heads * d_v, d_model), dtype, device)
+
+    @torch.no_grad()
+    def init_parameters(self, gen: torch.Generator) -> None:
+        for w in (self.wq_down, self.wq_up, self.wkv_down, self.wkv_up,
+                  self.wo):
+            w.copy_(dense_init(gen, *w.shape, w.dtype, w.device))
+
+    def prefill(self, x, positions, *, q_chunk: int, impl: str = "auto"):
+        return mla_prefill(self, x, positions, q_chunk=q_chunk, impl=impl)
+
+    def decode(self, x, c_cache, r_cache, pos: int):
+        return mla_decode(self, x, pos, c_cache, r_cache)
+
+
+def mla_latents(p: MLAAttention, x: torch.Tensor, positions: torch.Tensor):
+    """The compressed cache payload: (c_kv (B, S, kv_lora), k_rope (B, S,
+    d_rope)), k_rope rotated."""
+    B, S, _ = x.shape
+    down = x @ p.wkv_down
+    c_kv = rmsnorm(down[..., :p.kv_lora], p.kv_norm)
+    k_rope = down[..., p.kv_lora:].reshape(B, S, 1, p.d_rope)
+    k_rope = apply_rope(k_rope, positions, p.rope_theta)
+    return c_kv, k_rope.reshape(B, S, p.d_rope)
+
+
+def mla_queries(p: MLAAttention, x: torch.Tensor, positions: torch.Tensor):
+    """(q_nope (B, S, H, d_nope), q_rope (B, S, H, d_rope)), q_rope
+    rotated."""
+    B, S, _ = x.shape
+    cq = rmsnorm(x @ p.wq_down, p.q_norm)
+    q = (cq @ p.wq_up).reshape(B, S, p.n_heads, p.d_nope + p.d_rope)
+    return q[..., :p.d_nope], apply_rope(q[..., p.d_nope:], positions,
+                                         p.rope_theta)
+
+
+def mla_prefill(p: MLAAttention, x: torch.Tensor, positions: torch.Tensor,
+                *, q_chunk: int = 256, impl: str = "auto"):
+    """Training/prefill MLA: K and V decompressed, causal attention with
+    the scale 1 / sqrt(d_nope + d_rope).  Returns (out (B, S, d),
+    (c_kv, k_rope)), the latents for the cache.  On the kernel's route q,
+    k and v are written into zero buffers of one head dim the kernel
+    builds (module docstring); ``ValueError`` when none holds them."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = p.n_heads, p.d_nope, p.d_rope, p.d_v
+    c_kv, k_rope = mla_latents(p, x, positions)
+    q_nope, q_rope = mla_queries(p, x, positions)
+    kv = (c_kv @ p.wkv_up).reshape(B, S, H, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    scale = (dn + dr) ** -0.5
+    if on_kernel(impl, x):
+        d = next((d for d in HEAD_DIMS if d >= max(dn + dr, dv)), None)
+        if d is None:
+            raise ValueError(f"mla_prefill: head dims {dn + dr} (q, k) and "
+                             f"{dv} (v) exceed flash_attention's "
+                             f"{HEAD_DIMS[-1]}")
+        q, k, vp = (x.new_zeros((B, S, H, d)) for _ in range(3))
+        q[..., :dn] = q_nope
+        q[..., dn:dn + dr] = q_rope
+        k[..., :dn] = k_nope
+        k[..., dn:dn + dr] = k_rope[:, :, None]
+        vp[..., :dv] = v
+        out = chunked_attention(q, k, vp, causal=True, sm_scale=scale,
+                                impl=impl)[..., :dv]
+    else:
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)],
+                      dim=-1)
+        out = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk,
+                                sm_scale=scale, impl="ref")
+    return out.reshape(B, S, H * dv) @ p.wo, (c_kv, k_rope)
+
+
+def mla_decode(p: MLAAttention, x: torch.Tensor, pos: int,
+               c_cache: torch.Tensor, r_cache: torch.Tensor) -> torch.Tensor:
+    """Absorbed-matmul MLA decode of one token x (B, 1, d) at ``pos``:
+    writes its latents into the caches (B, S, kv_lora) and (B, S,
+    d_rope) at ``pos``, in place, maps the query into the latent space
+    and attends to positions 0..pos of the compressed cache, in fp32 as
+    ``repro``.  Returns the block's output (B, 1, d)."""
+    B = x.shape[0]
+    H, dn, dv = p.n_heads, p.d_nope, p.d_v
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    c_new, r_new = mla_latents(p, x, positions)
+    c_cache[:, pos] = c_new[:, 0]
+    r_cache[:, pos] = r_new[:, 0]
+    q_nope, q_rope = mla_queries(p, x, positions)
+    w_up = p.wkv_up.reshape(p.kv_lora, H, dn + dv)
+    wk, wv = w_up[..., :dn], w_up[..., dn:]
+    q_lat = torch.einsum("bohd,lhd->bohl", q_nope, wk)[:, 0]
+    cc = c_cache[:, :pos + 1].float()
+    rc = r_cache[:, :pos + 1].float()
+    s = (torch.einsum("bhl,bsl->bhs", q_lat.float(), cc)
+         + torch.einsum("bohr,bsr->bhs", q_rope.float(), rc)) \
+        * (dn + p.d_rope) ** -0.5
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", pr, cc)
+    out = torch.einsum("bhl,lhd->bhd", o_lat, wv.float())
+    return out.reshape(B, 1, H * dv).to(x.dtype) @ p.wo

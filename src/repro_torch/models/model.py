@@ -3,15 +3,16 @@ greedy sampling (port of ``repro/models/model.py``).
 
 ``model_flops`` is the roofline's useful work: 6·N·D for training and
 2·N·D for forward-only serving steps (N = parameters in the active
-compute path, D = tokens).  The dense family only: the MoE, SSM, hybrid,
-enc-dec and MLA branches of ``repro`` raise ``NotImplementedError``, as
-their models do (``transformer.check_supported``).
+compute path, D = tokens).  For MoE, N counts only the active experts
+(top_k + shared).
 
 The loss is ``repro``'s padded-vocab causal cross-entropy, in fp32: the
 logits of ids >= vocab are set to -1e30, labels equal to ``IGNORE`` are
-left out, and the mean runs over the counted tokens.  ``loss_fn``'s
-forward is the plain chunked attention (``impl="ref"``), which autograd
-differentiates, as ``jax.grad`` differentiates ``repro``'s.
+left out, and the mean runs over the counted tokens; the MoE
+load-balance loss is added with ``aux_weight``, and a VLM's patch
+positions carry no loss.  ``loss_fn``'s forward is the plain chunked
+attention (``impl="ref"``), which autograd differentiates, as
+``jax.grad`` differentiates ``repro``'s.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from . import transformer
+from .ssm import mamba2_dims
 
 
 IGNORE = -1
@@ -41,13 +43,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
     return nll.sum() / n, n
 
 
-def loss_fn(model: nn.Module, cfg, batch: dict, *, remat: bool = False,
-            aux_weight: float = 0.01):
+def loss_fn(model: nn.Module, cfg, batch: dict, *, moe_impl: str = "einsum",
+            remat: bool = False, aux_weight: float = 0.01):
     """The training loss of ``model`` on ``batch`` ({"tokens", "labels"},
-    (B, S) each): (loss, {"ce", "aux", "tokens"}), loss = ce + aux_weight
-    * aux."""
-    logits, aux = model(batch["tokens"], impl="ref", remat=remat)
-    ce, n = cross_entropy(logits, batch["labels"], cfg.vocab)
+    (B, S) each, and enc-dec's "frames" or the VLM's "patches"): (loss,
+    {"ce", "aux", "tokens"}), loss = ce + aux_weight * aux.  The labels
+    align with the token positions."""
+    logits, aux = model(batch["tokens"], frames=batch.get("frames"),
+                        patches=batch.get("patches"), impl="ref",
+                        moe_impl=moe_impl, remat=remat)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:       # vlm: the patch positions
+        logits = logits[:, -labels.shape[1]:]
+    ce, n = cross_entropy(logits, labels, cfg.vocab)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux, "tokens": n}
 
 
@@ -57,15 +65,53 @@ def count_params(model: nn.Module) -> int:
 
 def count_params_analytic(cfg) -> dict:
     """Parameter counts straight from the config (no allocation), norms
-    excluded, as ``repro`` counts them: {"total": N, "active": N}."""
-    transformer.check_supported(cfg)
+    excluded, as ``repro`` counts them: {"total": N, "active": N_active};
+    active differs for MoE."""
+    transformer.block_type(cfg)
     d, L = cfg.d_model, cfg.n_layers
-    D = transformer.head_dim(cfg)
+    D = transformer.head_dim(cfg) if cfg.n_heads else 0
     embed = cfg.padded_vocab * d
-    attn = d * cfg.n_heads * D + 2 * d * cfg.n_kv * D + cfg.n_heads * D * d
-    ffn = (2 if cfg.mlp == "gelu" else 3) * d * cfg.d_ff
-    total = embed + L * (attn + ffn)
-    return {"total": int(total), "active": int(total)}
+
+    def attn_params():
+        if cfg.attn_impl == "mla":
+            return (d * cfg.q_lora
+                    + cfg.q_lora * cfg.n_heads * (cfg.d_nope + cfg.d_rope)
+                    + d * (cfg.kv_lora + cfg.d_rope)
+                    + cfg.kv_lora * cfg.n_heads * (cfg.d_nope + cfg.d_v)
+                    + cfg.n_heads * cfg.d_v * d)
+        return d * cfg.n_heads * D + 2 * d * cfg.n_kv * D + cfg.n_heads * D * d
+
+    def mamba_params():
+        d_in, H, conv_dim = mamba2_dims(d, cfg.ssm_expand, cfg.ssm_headdim,
+                                        cfg.ssm_groups, cfg.ssm_state)
+        d_proj = 2 * d_in + 2 * cfg.ssm_groups * cfg.ssm_state + H
+        return (d * d_proj + cfg.ssm_conv * conv_dim + conv_dim
+                + 3 * H + d_in + d_in * d)
+
+    def ffn_params(active: bool):
+        if not cfg.n_experts:
+            return (2 if cfg.mlp == "gelu" else 3) * d * cfg.d_ff
+        e = cfg.top_k if active else cfg.n_experts
+        shared = 3 * d * cfg.n_shared * cfg.d_ff if cfg.n_shared else 0
+        return e * 3 * d * cfg.d_ff + shared + d * cfg.n_experts
+
+    if cfg.family == "ssm":
+        per_layer_total = per_layer_active = mamba_params()
+    else:
+        a = attn_params() + (mamba_params() if cfg.family == "hybrid"
+                             else 0)
+        per_layer_total = a + ffn_params(False)
+        per_layer_active = a + ffn_params(True)
+    total = embed + L * per_layer_total
+    active = embed + L * per_layer_active
+    if cfg.family == "encdec":
+        enc = cfg.n_enc_layers * (attn_params()
+                                  + (2 if cfg.mlp == "gelu" else 3)
+                                  * d * cfg.d_ff)
+        xattn = L * attn_params()
+        total += enc + xattn
+        active += enc + xattn
+    return {"total": int(total), "active": int(active)}
 
 
 def model_flops(cfg, shape) -> float:

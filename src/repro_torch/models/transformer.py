@@ -1,23 +1,44 @@
-"""The dense decoder of the LM zoo (port of the dense family of
-``repro/models/transformer.py``): llama3.2-1b, yi-9b and granite-20b, GQA
-or MQA, SwiGLU or GELU MLP, tied embeddings.
+"""The architecture zoo: one transformer substrate, six families (port of
+``repro/models/transformer.py``).
+
+  dense   GQA/MQA/MHA decoder (llama3.2-1b, yi-9b, granite-20b) and the
+          MLA variant (minicpm3-4b), chosen by cfg.attn_impl
+  moe     top-k routed experts (+ shared experts): granite-moe-3b-a800m,
+          deepseek-moe-16b
+  ssm     attention-free Mamba2/SSD stack (mamba2-1.3b)
+  hybrid  parallel sliding-window attention + SSM heads per layer
+          (hymba-1.5b)
+  encdec  encoder-decoder with cross attention (whisper-large-v3; the
+          audio frontend stubbed: the batch carries frame embeddings)
+  vlm     decoder with prepended patch embeddings (internvl2-26b; the ViT
+          stubbed: the batch carries patch embeddings)
 
   Transformer(cfg, device=, gen=)            parameters (drawn from gen)
-  model.forward(tokens)          -> (logits (B, S, Vpad), aux); training
-                                    passes impl="ref" (models/model.py
-                                    ``loss_fn``)
-  model.prefill(tokens)          -> (logits (B, 1, Vpad) of the last
-                                     position, cache)
-  model.decode_step(cache, tokens, pos) -> (logits (B, 1, Vpad), cache)
+  model.forward(tokens, frames=, patches=)   -> (logits (B, S, Vpad),
+                                                aux); training passes
+                                                impl="ref" (``loss_fn``)
+  model.prefill(tokens, frames=, patches=)   -> (logits (B, 1, Vpad) of
+                                                the last position, cache)
+  model.decode_step(cache, tokens, pos)      -> (logits (B, 1, Vpad),
+                                                cache)
 
-The cache is ``repro``'s: {"k", "v"}, each (L, B, S, Hkv, D).  On a CUDA
-tensor every layer's full-sequence attention launches the CUDA
-flash_attention kernel (``impl="auto"``); ``impl="ref"`` keeps the plain
-chunked path, which a training forward takes: the kernel has no backward
-(nor has ``repro``'s Pallas kernel), and a forward under grad on its
-route raises.  The other families (moe, ssm, hybrid, encdec, vlm) and
-MLA attention are not ported yet (ROADMAP.md §1) and raise
-``NotImplementedError``.
+``frames`` (B, Se, d_model) is enc-dec's encoder input and ``patches``
+(B, n_patches, d_model) go before VLM's token embeddings, as in
+``repro``'s batch.  ``moe_impl`` ("einsum" by default, as ``repro``)
+picks the MoE path; aux is the layers' summed load-balance loss (0
+without experts).
+
+The cache is ``repro``'s, each leaf stacked over the layers (L, ...):
+{"k", "v"} (L, B, S, Hkv, D) for GQA, plus the read-only cross-attention
+{"xk", "xv"} (L, B, Se, Hkv, D) for enc-dec; {"c", "r"} (L, B, S,
+kv_lora / d_rope) for MLA; {"ssm" (L, B, H, P, N) fp32, "conv" (L, B,
+K-1, conv_dim)} for the SSM; the hybrid's ring {"k", "v"} (L, B, window,
+Hkv, D) beside the SSM leaves.  On a CUDA tensor every full-sequence
+GQA, MLA and cross attention launches the CUDA flash_attention kernel
+(``impl="auto"``); ``impl="ref"`` keeps the plain chunked path, which a
+training forward takes: the kernel has no backward (nor has ``repro``'s
+Pallas kernel), and a forward under grad on its route raises.  The SSM
+and the hybrid's sliding window run no kernel, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -27,14 +48,22 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 
-from .attention import GQAAttention
+from .attention import (GQAAttention, MLAAttention, cross_attention,
+                        decode_attention)
+from .hybrid import Hymba, hymba_apply, hymba_step
 from .layers import MLP, MLP2, embed, embed_init, param, rmsnorm, unembed
+from .moe import MoE
+from .ssm import Mamba2, mamba2_dims, mamba2_step
 
 # prefill's query tile: flash-structured attention re-streams K/V once per
 # q tile, so prefill (no backward) takes 2048-row tiles and a training
-# forward keeps 256 (``repro``'s _attn_full)
+# forward (and the encoder) keeps 256 (``repro``'s _attn_full)
 PREFILL_Q_CHUNK = 2048
 TRAIN_Q_CHUNK = 256
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+ATTN_IMPLS = ("gqa", "mla")
+# cache leaves that decode only reads
+READONLY = ("xk", "xv")
 
 
 def head_dim(cfg) -> int:
@@ -45,66 +74,241 @@ def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for an architecture the port does not
-    run yet."""
-    if cfg.family != "dense" or cfg.attn_impl != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with attention "
-            f"{cfg.attn_impl!r} is not ported yet; repro_torch runs the "
-            f"dense GQA decoders (ROADMAP.md §1 lists the rest in order)")
+def _norm(d: int, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(d, dtype=dtype, device=device))
 
 
-class DenseBlock(nn.Module):
-    """rmsnorm -> GQA attention -> residual -> rmsnorm -> MLP -> residual."""
+def _ffn(cfg, dtype, device):
+    """(name, module): the routed experts "moe" or the MLP "mlp"."""
+    if cfg.n_experts:
+        return "moe", MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                          cfg.n_shared, dtype, device)
+    ffn = MLP2 if cfg.mlp == "gelu" else MLP
+    return "mlp", ffn(cfg.d_model, cfg.d_ff, dtype, device)
+
+
+def _mamba(cfg, dtype, device) -> Mamba2:
+    return Mamba2(cfg.d_model, state=cfg.ssm_state, expand=cfg.ssm_expand,
+                  headdim=cfg.ssm_headdim, groups=cfg.ssm_groups,
+                  conv=cfg.ssm_conv, dtype=dtype, device=device)
+
+
+class _Block(nn.Module):
+    """What the blocks share: the FFN ("mlp" or "moe") and its apply,
+    (y, aux) with aux 0 for an MLP."""
+
+    def _add_ffn(self, cfg, dtype, device) -> None:
+        self.ffn_name, ffn = _ffn(cfg, dtype, device)
+        setattr(self, self.ffn_name, ffn)
+
+    def ffn(self, h: torch.Tensor, moe_impl: str):
+        if self.ffn_name == "moe":
+            return self.moe(h, impl=moe_impl)
+        return self.mlp(h), torch.zeros((), device=h.device)
+
+    @torch.no_grad()
+    def init_parameters(self, gen: torch.Generator) -> None:
+        for child in self.children():
+            child.init_parameters(gen)
+
+
+class DecoderBlock(_Block):
+    """dense / moe / vlm block, and enc-dec's decoder block: rmsnorm ->
+    GQA or MLA attention -> residual -> [rmsnorm -> cross attention ->
+    residual] -> rmsnorm -> MLP or MoE -> residual."""
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
         d = cfg.d_model
-        self.ln1 = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
-        self.ln2 = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+        self.mla = cfg.attn_impl == "mla"
+        self.ln1 = _norm(d, dtype, device)
+        self.ln2 = _norm(d, dtype, device)
+        if self.mla:
+            self.attn = MLAAttention(
+                d, cfg.n_heads, q_lora=cfg.q_lora, kv_lora=cfg.kv_lora,
+                d_nope=cfg.d_nope, d_rope=cfg.d_rope, d_v=cfg.d_v,
+                rope_theta=cfg.rope_theta, dtype=dtype, device=device)
+        else:
+            self.attn = GQAAttention(d, cfg.n_heads, cfg.n_kv, head_dim(cfg),
+                                     cfg.rope_theta, dtype, device)
+        self.cross = cfg.family == "encdec"
+        if self.cross:
+            self.ln_x = _norm(d, dtype, device)
+            self.xattn = GQAAttention(d, cfg.n_heads, cfg.n_kv,
+                                      head_dim(cfg), cfg.rope_theta, dtype,
+                                      device)
+        self._add_ffn(cfg, dtype, device)
+
+    def forward(self, x, positions, *, q_chunk: int, impl: str = "auto",
+                moe_impl: str = "einsum", enc_out=None):
+        """Returns (x, aux, this layer's cache leaves)."""
+        h = rmsnorm(x, self.ln1)
+        if self.mla:
+            a, (c, r) = self.attn.prefill(h, positions, q_chunk=q_chunk,
+                                          impl=impl)
+            cache = {"c": c, "r": r}
+        else:
+            a, k, v = self.attn.full(h, positions, q_chunk=q_chunk,
+                                     impl=impl)
+            cache = {"k": k, "v": v}
+        x = x + a
+        if self.cross:
+            o, xk, xv = self._cross(rmsnorm(x, self.ln_x), enc_out, impl)
+            x = x + o
+            cache.update(xk=xk, xv=xv)
+        y, aux = self.ffn(rmsnorm(x, self.ln2), moe_impl)
+        return x + y, aux, cache
+
+    def _cross(self, h, enc_out, impl: str):
+        """Cross attention of h (B, S, d) over the encoder's output (no
+        rotary positions): (out, xk, xv)."""
+        xa = self.xattn
+        B, S, _ = h.shape
+        Se = enc_out.shape[1]
+        q = (h @ xa.wq).reshape(B, S, xa.n_heads, xa.head_dim)
+        xk = (enc_out @ xa.wk).reshape(B, Se, xa.n_kv, xa.head_dim)
+        xv = (enc_out @ xa.wv).reshape(B, Se, xa.n_kv, xa.head_dim)
+        o = cross_attention(q, xk, xv, impl=impl)
+        return o.reshape(B, S, -1) @ xa.wo, xk, xv
+
+    def decode(self, x, c: dict, pos: int, moe_impl: str = "einsum"):
+        h = rmsnorm(x, self.ln1)
+        if self.mla:
+            x = x + self.attn.decode(h, c["c"], c["r"], pos)
+        else:
+            x = x + self.attn.decode(h, c["k"], c["v"], pos)
+        if self.cross:
+            xa = self.xattn
+            B = x.shape[0]
+            q = (rmsnorm(x, self.ln_x) @ xa.wq).reshape(B, 1, xa.n_heads,
+                                                         xa.head_dim)
+            o = decode_attention(q, c["xk"], c["xv"], c["xk"].shape[1])
+            x = x + o.reshape(B, 1, -1) @ xa.wo
+        y, _ = self.ffn(rmsnorm(x, self.ln2), moe_impl)
+        return x + y
+
+
+class SSMBlock(_Block):
+    """rmsnorm -> Mamba2 -> residual (no FFN)."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.ln1 = _norm(cfg.d_model, dtype, device)
+        self.mamba = _mamba(cfg, dtype, device)
+
+    def forward(self, x, positions, *, q_chunk: int, impl: str = "auto",
+                moe_impl: str = "einsum", enc_out=None):
+        h = rmsnorm(x, self.ln1)
+        y, (h_last, conv_tail) = self.mamba(h, chunk=min(256, h.shape[1]),
+                                            return_state=True)
+        return (x + y, torch.zeros((), device=x.device),
+                {"ssm": h_last, "conv": conv_tail})
+
+    def decode(self, x, c: dict, pos: int, moe_impl: str = "einsum"):
+        y, s_new, conv_new = mamba2_step(self.mamba, rmsnorm(x, self.ln1),
+                                         c["ssm"], c["conv"])
+        c["ssm"].copy_(s_new)
+        c["conv"].copy_(conv_new)
+        return x + y
+
+
+class HybridBlock(_Block):
+    """rmsnorm -> Hymba mixer -> residual -> rmsnorm -> MLP or MoE ->
+    residual."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = _norm(d, dtype, device)
+        self.ln2 = _norm(d, dtype, device)
+        self.mixer = Hymba(d, cfg.n_heads, cfg.n_kv, head_dim(cfg),
+                           window=cfg.window, rope_theta=cfg.rope_theta,
+                           ssm_state=cfg.ssm_state,
+                           ssm_headdim=cfg.ssm_headdim,
+                           ssm_expand=cfg.ssm_expand,
+                           ssm_groups=cfg.ssm_groups, dtype=dtype,
+                           device=device)
+        self._add_ffn(cfg, dtype, device)
+
+    def forward(self, x, positions, *, q_chunk: int, impl: str = "auto",
+                moe_impl: str = "einsum", enc_out=None):
+        mix, cache = hymba_apply(self.mixer, rmsnorm(x, self.ln1), positions,
+                                 return_state=True)
+        x = x + mix
+        y, aux = self.ffn(rmsnorm(x, self.ln2), moe_impl)
+        return x + y, aux, cache
+
+    def decode(self, x, c: dict, pos: int, moe_impl: str = "einsum"):
+        x = x + hymba_step(self.mixer, rmsnorm(x, self.ln1), c, pos)
+        y, _ = self.ffn(rmsnorm(x, self.ln2), moe_impl)
+        return x + y
+
+
+class EncoderLayer(_Block):
+    """Enc-dec's encoder layer: rmsnorm -> non-causal GQA attention ->
+    residual -> rmsnorm -> MLP -> residual."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = _norm(d, dtype, device)
         self.attn = GQAAttention(d, cfg.n_heads, cfg.n_kv, head_dim(cfg),
                                  cfg.rope_theta, dtype, device)
-        ffn = MLP2 if cfg.mlp == "gelu" else MLP
-        self.mlp = ffn(d, cfg.d_ff, dtype, device)
+        self.ln2 = _norm(d, dtype, device)
+        self.mlp = (MLP2 if cfg.mlp == "gelu" else MLP)(d, cfg.d_ff, dtype,
+                                                        device)
 
-    def forward(self, x, positions, *, q_chunk: int, impl: str = "auto"):
-        """Returns (x, k, v)."""
-        a, k, v = self.attn.full(rmsnorm(x, self.ln1), positions,
-                                 q_chunk=q_chunk, impl=impl)
-        x = x + a
-        return x + self.mlp(rmsnorm(x, self.ln2)), k, v
-
-    def decode(self, x, k_cache, v_cache, pos: int):
-        x = x + self.attn.decode(rmsnorm(x, self.ln1), k_cache, v_cache, pos)
+    def forward(self, x, positions, impl: str):
+        o, _, _ = self.attn.full(rmsnorm(x, self.ln1), positions,
+                                 q_chunk=TRAIN_Q_CHUNK, impl=impl,
+                                 causal=False)
+        x = x + o
         return x + self.mlp(rmsnorm(x, self.ln2))
 
 
-def _block_out(blk: DenseBlock, x, positions, impl: str):
-    """A training forward's block: its output alone (the cache's k and v
-    are prefill's)."""
-    return blk(x, positions, q_chunk=TRAIN_Q_CHUNK, impl=impl)[0]
+def block_type(cfg) -> type:
+    """The decoder block of ``cfg``'s family; ``ValueError`` for a family
+    or attention outside the zoo."""
+    if cfg.family not in FAMILIES or cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} with attention "
+                         f"{cfg.attn_impl!r} is not in the zoo (families "
+                         f"{FAMILIES}, attention {ATTN_IMPLS})")
+    return {"ssm": SSMBlock, "hybrid": HybridBlock}.get(cfg.family,
+                                                        DecoderBlock)
+
+
+def _block_out(blk, x, positions, impl: str, moe_impl: str, enc_out):
+    """A training forward's block: (x, aux); the cache leaves are
+    prefill's."""
+    x, aux, _ = blk(x, positions, q_chunk=TRAIN_Q_CHUNK, impl=impl,
+                    moe_impl=moe_impl, enc_out=enc_out)
+    return x, aux
 
 
 class Transformer(nn.Module):
-    """A dense decoder at ``cfg``'s widths and dtype on ``device`` (CUDA
-    unless the caller asks for the CPU).  With ``gen`` the weights are
-    drawn as ``repro``'s ``init_params`` draws them (N(0, 1) / sqrt(d_in)
-    for dense weights, N(0, 0.02^2) for the embedding, ones for the
-    norms); without it they are left for a state dict to fill."""
+    """A model of ``cfg``'s family at its widths and dtype on ``device``
+    (CUDA unless the caller asks for the CPU).  With ``gen`` the weights
+    are drawn as ``repro``'s ``init_params`` draws them (N(0, 1) /
+    sqrt(d_in) for dense weights, N(0, 0.02^2) for the embedding, ones
+    for the norms, and ``repro``'s own laws for the router, the experts
+    and the SSM); without it they are left for a state dict to fill."""
 
     def __init__(self, cfg, *, device=None,
                  gen: torch.Generator | None = None):
         super().__init__()
-        check_supported(cfg)
+        block = block_type(cfg)
         dev = _device.resolve(device)
         dtype = dtype_of(cfg)
         self.cfg = cfg
         self.embed = param((cfg.padded_vocab, cfg.d_model), dtype, dev)
-        self.layers = nn.ModuleList(DenseBlock(cfg, dtype, dev)
+        self.layers = nn.ModuleList(block(cfg, dtype, dev)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype,
-                                                  device=dev))
+        self.final_norm = _norm(cfg.d_model, dtype, dev)
+        if cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(
+                EncoderLayer(cfg, dtype, dev)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = _norm(cfg.d_model, dtype, dev)
         if gen is not None:
             self.init_parameters(gen)
 
@@ -117,64 +321,152 @@ class Transformer(nn.Module):
         self.embed.copy_(embed_init(gen, *self.embed.shape, self.embed.dtype,
                                     self.device))
         for blk in self.layers:
-            blk.attn.init_parameters(gen)
-            blk.mlp.init_parameters(gen)
+            blk.init_parameters(gen)
+        for blk in getattr(self, "enc_layers", ()):
+            blk.init_parameters(gen)
 
-    def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
-        B, S = tokens.shape
-        return torch.arange(S, device=tokens.device).expand(B, S)
+    @staticmethod
+    def _positions(x: torch.Tensor) -> torch.Tensor:
+        B, S = x.shape[:2]
+        return torch.arange(S, device=x.device).expand(B, S)
 
-    def forward(self, tokens: torch.Tensor, *, impl: str = "auto",
+    def _inputs(self, tokens, frames, patches, impl: str,
                 remat: bool = False):
-        """tokens (B, S) -> (logits (B, S, Vpad), aux); aux is 0 (the
-        dense family has no auxiliary loss).  Under grad, ``impl`` must be
-        "ref" on a CUDA tensor (the kernel has no backward; the training
-        loss passes it).  ``remat`` recomputes each decoder block in the
-        backward instead of keeping its activations
-        (``torch.utils.checkpoint``, non-reentrant), as ``repro`` wraps
-        its scan body in ``jax.checkpoint``."""
+        """The decoder's input x (B, S, d) (VLM: the patches first) and
+        enc-dec's encoder output (else None)."""
+        fam = self.cfg.family
         x = embed(self.embed, tokens)
-        positions = self._positions(tokens)
+        if fam == "vlm":
+            if patches is None:
+                raise ValueError(f"{self.cfg.name}: the vlm family needs "
+                                 f"patches (B, n_patches, d_model)")
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        enc_out = None
+        if fam == "encdec":
+            if frames is None:
+                raise ValueError(f"{self.cfg.name}: the encdec family needs "
+                                 f"frames (B, Se, d_model)")
+            enc_out = self._encode(frames, impl, remat)
+        return x, enc_out
+
+    def _encode(self, frames, impl: str, remat: bool):
+        """The encoder stack over the frame embeddings (non-causal)."""
+        x = frames.to(self.embed.dtype)
+        positions = self._positions(x)
+        for blk in self.enc_layers:
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, positions, impl, use_reentrant=False)
+            else:
+                x = blk(x, positions, impl)
+        return rmsnorm(x, self.enc_norm)
+
+    def forward(self, tokens: torch.Tensor, *,
+                frames: torch.Tensor | None = None,
+                patches: torch.Tensor | None = None, impl: str = "auto",
+                moe_impl: str = "einsum", remat: bool = False):
+        """tokens (B, S) -> (logits (B, S', Vpad), aux), S' = S plus the
+        VLM's patches; aux the summed MoE load-balance loss (fp32, 0
+        without experts).  Under grad, ``impl`` must be "ref" on a CUDA
+        tensor (the kernel has no backward; the training loss passes it).
+        ``remat`` recomputes each block in the backward instead of
+        keeping its activations (``torch.utils.checkpoint``,
+        non-reentrant), as ``repro`` wraps its scan bodies in
+        ``jax.checkpoint``."""
+        x, enc_out = self._inputs(tokens, frames, patches, impl, remat)
+        positions = self._positions(x)
+        aux = torch.zeros((), device=x.device)
         for blk in self.layers:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(_block_out, blk, x, positions, impl,
-                               use_reentrant=False)
+                x, a = checkpoint(_block_out, blk, x, positions, impl,
+                                  moe_impl, enc_out, use_reentrant=False)
             else:
-                x, _, _ = blk(x, positions, q_chunk=TRAIN_Q_CHUNK, impl=impl)
+                x, a = _block_out(blk, x, positions, impl, moe_impl, enc_out)
+            aux = aux + a
         logits = unembed(self.embed, rmsnorm(x, self.final_norm))
-        return logits, torch.zeros((), device=x.device)
+        return logits, aux
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
-        """Zero-filled decode cache {"k", "v"}, each (L, B, S, Hkv, D)."""
+        """The zero-filled decode cache of ``repro``'s ``init_cache`` (the
+        module docstring lists its leaves); enc-dec's xk and xv take
+        max_len positions, as ``repro``'s."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv, head_dim(cfg))
-        return {name: torch.zeros(shape, dtype=self.embed.dtype,
-                                  device=self.device) for name in ("k", "v")}
+        L, B, S = cfg.n_layers, batch_size, max_len
+        dtype, dev = self.embed.dtype, self.device
+
+        def zeros(*shape, dt=dtype):
+            return torch.zeros((L, B, *shape), dtype=dt, device=dev)
+
+        cache = {}
+        if cfg.family in ("ssm", "hybrid"):
+            _, H, conv_dim = mamba2_dims(cfg.d_model, cfg.ssm_expand,
+                                         cfg.ssm_headdim, cfg.ssm_groups,
+                                         cfg.ssm_state)
+            cache = {"ssm": zeros(H, cfg.ssm_headdim, cfg.ssm_state,
+                                  dt=torch.float32),
+                     "conv": zeros(cfg.ssm_conv - 1, conv_dim)}
+        if cfg.family == "ssm":
+            return cache
+        if cfg.family == "hybrid":
+            kv = (cfg.window, cfg.n_kv, head_dim(cfg))
+            return {"k": zeros(*kv), "v": zeros(*kv), **cache}
+        if cfg.attn_impl == "mla":
+            return {"c": zeros(S, cfg.kv_lora), "r": zeros(S, cfg.d_rope)}
+        kv = (S, cfg.n_kv, head_dim(cfg))
+        cache = {"k": zeros(*kv), "v": zeros(*kv)}
+        if cfg.family == "encdec":
+            cache.update(xk=zeros(*kv), xv=zeros(*kv))
+        return cache
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, impl: str = "auto"):
+    def extend_cache(self, filled: dict, max_len: int) -> dict:
+        """A cache of ``max_len`` positions that continues ``filled`` (a
+        prefill's): the per-position leaves (k and v but the hybrid's
+        ring, c and r) hold filled's positions first; the fixed-size
+        leaves (ring, SSM state, conv window) are copies of filled's, and
+        enc-dec's read-only xk and xv are filled's own."""
+        B = next(iter(filled.values())).shape[1]
+        cache = self.init_cache(B, max_len)
+        for name, leaf in filled.items():
+            if name in READONLY:
+                cache[name] = leaf
+            elif leaf.shape == cache[name].shape:
+                cache[name].copy_(leaf)
+            else:
+                cache[name][:, :, :leaf.shape[2]] = leaf
+        return cache
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *,
+                frames: torch.Tensor | None = None,
+                patches: torch.Tensor | None = None, impl: str = "auto",
+                moe_impl: str = "einsum"):
         """Serving prefill: one full-sequence pass that also fills the
         decode cache.  tokens (B, S) -> (logits (B, 1, Vpad) of the last
-        position, cache with S positions)."""
-        B, S = tokens.shape
-        cache = self.init_cache(B, S)
-        x = embed(self.embed, tokens)
-        positions = self._positions(tokens)
+        position, cache with the sequence's positions)."""
+        x, enc_out = self._inputs(tokens, frames, patches, impl)
+        positions = self._positions(x)
+        L = len(self.layers)
+        cache = {}
         for i, blk in enumerate(self.layers):
-            x, k, v = blk(x, positions, q_chunk=PREFILL_Q_CHUNK, impl=impl)
-            cache["k"][i] = k
-            cache["v"][i] = v
-        last = rmsnorm(x[:, S - 1:], self.final_norm)
+            x, _, leaves = blk(x, positions, q_chunk=PREFILL_Q_CHUNK,
+                               impl=impl, moe_impl=moe_impl, enc_out=enc_out)
+            for name, leaf in leaves.items():
+                if name not in cache:
+                    cache[name] = leaf.new_empty((L, *leaf.shape))
+                cache[name][i] = leaf
+        last = rmsnorm(x[:, -1:], self.final_norm)
         return unembed(self.embed, last), cache
 
     @torch.no_grad()
-    def decode_step(self, cache: dict, tokens: torch.Tensor, pos: int):
+    def decode_step(self, cache: dict, tokens: torch.Tensor, pos: int, *,
+                    moe_impl: str = "einsum"):
         """One token for every sequence: tokens (B, 1) at position ``pos``
-        (the number of cached positions) -> (logits (B, 1, Vpad), cache).
-        The cache is updated in place at ``pos`` (``repro`` carries it
-        through a fori_loop with donated buffers to the same effect) and
-        returned."""
+        (the number of positions before it, patches included) -> (logits
+        (B, 1, Vpad), cache).  The cache is updated in place (``repro``
+        carries it through a fori_loop with donated buffers to the same
+        effect; enc-dec's xk and xv are only read) and returned."""
         x = embed(self.embed, tokens)
         for i, blk in enumerate(self.layers):
-            x = blk.decode(x, cache["k"][i], cache["v"][i], pos)
+            x = blk.decode(x, {name: leaf[i] for name, leaf in cache.items()},
+                           pos, moe_impl=moe_impl)
         return unembed(self.embed, rmsnorm(x, self.final_norm)), cache

@@ -85,7 +85,8 @@ def _meta_like(tree):
 
 def train_loop(cfg, batch_fn: Callable[[int], Any], loop: LoopConfig, *,
                optimizer: AdamW | None = None, remat: bool = True,
-               retry: RetryPolicy | None = None, device=None,
+               moe_impl: str = "einsum", retry: RetryPolicy | None = None,
+               device=None,
                verbose: bool = False) -> tuple[TrainState, list[dict]]:
     """Run ``loop.steps`` steps of ``cfg`` on ``device`` (default
     ``cuda``) with checkpoint/restart; returns (state, history), one dict
@@ -97,7 +98,8 @@ def train_loop(cfg, batch_fn: Callable[[int], Any], loop: LoopConfig, *,
     optimizer = optimizer or AdamW()
     policy = retry or RetryPolicy()
     dev = _device.resolve(device)
-    step_fn = make_train_step(cfg, optimizer=optimizer, remat=remat)
+    step_fn = make_train_step(cfg, optimizer=optimizer, remat=remat,
+                              moe_impl=moe_impl)
 
     def generator() -> torch.Generator:
         g = torch.Generator(device=dev)

@@ -48,18 +48,21 @@ def init_state(cfg, optimizer: AdamW, *, generator: torch.Generator,
 
 
 def make_train_step(cfg, *, optimizer: AdamW | None = None,
-                    remat: bool = True, clip_norm: float = 1.0,
+                    remat: bool = True, moe_impl: str = "einsum",
+                    clip_norm: float = 1.0,
                     aux_weight: float = 0.01,
                     microbatches: int | None = None):
     """The step: (state, batch) -> (state, metrics).  ``batch`` is
-    {"tokens", "labels"} (B, S), on any device (copied to the
-    parameters'); ``microbatches`` defaults to cfg.train_microbatches and
-    must divide B."""
+    {"tokens", "labels"} (B, S) (and enc-dec's "frames" or the VLM's
+    "patches"), on any device (copied to the parameters');
+    ``moe_impl`` picks the MoE path; ``microbatches`` defaults to
+    cfg.train_microbatches and must divide B."""
     optimizer = optimizer or AdamW()
     mb = microbatches or getattr(cfg, "train_microbatches", 1) or 1
 
     def grads_of(model, names, params, batch):
-        loss, metrics = model_lib.loss_fn(model, cfg, batch, remat=remat,
+        loss, metrics = model_lib.loss_fn(model, cfg, batch,
+                                          moe_impl=moe_impl, remat=remat,
                                           aux_weight=aux_weight)
         grads = torch.autograd.grad(loss, params)
         return loss.detach(), metrics, dict(zip(names, grads))

@@ -9,7 +9,9 @@ front-padded shards (and on one relation slice of a member stack), and
 the BCSR grid sweep on a 1 x 1 NCCL grid; and the cross-k grid sweep on
 that grid, stopped and resumed from its checkpoints; and one train step
 of the reduced llama3.2-1b on the card, with the guard that keeps
-gradients off the attention kernel.
+gradients off the attention kernel; and the LM zoo's other families
+(MoE, MLA, SSM, hybrid, enc-dec, VLM) reduced on the card, with the
+kernel's MLA (padded) and cross-attention shapes.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -709,6 +711,87 @@ def test_prefill_on_card_launches_once_per_layer(cuda):
     assert rel_err(logits, ref_logits) <= 1e-4
     for name in ("k", "v"):
         assert rel_err(cache[name], ref_cache[name]) <= 1e-4
+
+
+# the LM zoo's two call shapes beyond the dense decoders': minicpm3-4b's
+# MLA heads (q/k 96 = 64 + 32, v 64) in zero-padded 128-wide buffers, and
+# whisper-large-v3's cross attention (non-causal, sq != skv)
+ZOO_FLASH_CASES = [dict(b=2, h=40, sq=2048, skv=2048, d=128, dqk=96, dv=64,
+                        causal=True),
+                   dict(b=2, h=20, sq=512, skv=2048, d=64, dqk=64, dv=64,
+                        causal=False)]
+
+
+@pytest.mark.parametrize("case", ZOO_FLASH_CASES, ids=["mla", "cross"])
+def test_flash_attention_zoo_shapes_on_card(cuda, case):
+    """bf16 on the tensor-core kernel, inputs as permuted (B, S, H, D)
+    views: within 1e-2 of the plain version on the same inputs; the
+    padded columns of the output are exactly 0 (v's are)."""
+    from repro_torch.kernels import flash_attention as fa
+    b, h, sq, skv, d = (case[k] for k in ("b", "h", "sq", "skv", "d"))
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv)
+    q, k, v = (torch.zeros((b, s, h, d), device=cuda, dtype=torch.bfloat16)
+               for s in (sq, skv, skv))
+    for x, cols in ((q, case["dqk"]), (k, case["dqk"]), (v, case["dv"])):
+        x[..., :cols] = torch.randn(x[..., :cols].shape, generator=gen,
+                                    device=cuda)
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    kw = dict(causal=case["causal"], sm_scale=case["dqk"] ** -0.5)
+    ops.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launch_count_by_variant() == {"sm90_bf16": 1, "fma_fp32": 0}
+    ref = tref.ref_attention(q, k, v, **kw)
+    assert rel_err(got.float(), ref.float()) <= 1e-2
+    assert not got[..., case["dv"]:].any()
+
+
+# the reduced families on the card in fp32 (the FMA kernel): the kernel's
+# launches per forward (0 for the SSM and the hybrid's sliding window)
+ZOO_GPU = ["deepseek-moe-16b", "granite-moe-3b-a800m", "minicpm3-4b",
+           "mamba2-1.3b", "hymba-1.5b", "whisper-large-v3", "internvl2-26b"]
+
+
+@pytest.mark.parametrize("name", ZOO_GPU)
+def test_zoo_forward_and_prefill_on_card(cuda, name):
+    """forward and prefill of the reduced family on the card, kernel
+    route against impl="ref": logits and every cache leaf within 1e-4;
+    flash_attention launched once per attention layer (MLA padded to
+    d = 32; enc-dec: the encoder, then self and cross attention per
+    decoder layer), the plain route not at all."""
+    from repro_torch.configs import REDUCED_ARCHS
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import make_prefill_step
+    cfg = REDUCED_ARCHS[name]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = Transformer(cfg, device=cuda, gen=gen)
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=cuda)
+    inputs = {}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.randn((2, 48, cfg.d_model), generator=gen,
+                                       device=cuda)
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.randn((2, cfg.n_patches, cfg.d_model),
+                                        generator=gen, device=cuda)
+    want = {"ssm": 0, "hybrid": 0,
+            "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}.get(
+        cfg.family, cfg.n_layers)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, aux = model(toks, **inputs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == want
+    with torch.no_grad():
+        ref_logits, ref_aux = model(toks, impl="ref", **inputs)
+    assert ops.launch_counts()["flash_attention"] == want
+    assert rel_err(logits, ref_logits) <= 1e-4
+    assert abs(float(aux) - float(ref_aux)) <= 1e-4 * max(1.0, float(aux))
+    last, cache = make_prefill_step(model)(toks, **inputs)
+    ref_last, ref_cache = make_prefill_step(model, impl="ref")(toks, **inputs)
+    assert ops.launch_counts()["flash_attention"] == 2 * want
+    assert rel_err(last, ref_last) <= 1e-4
+    for leaf in cache:
+        assert rel_err(cache[leaf], ref_cache[leaf]) <= 1e-4, leaf
 
 
 def test_traced_sweep_on_card_passes_check_trace(cuda, tmp_path):

@@ -583,7 +583,7 @@ def test_launch_train_reduced_on_cpu(capsys, tmp_path):
 @pytest.mark.parametrize("argv,err", [
     (["--arch", ARCH, "--reduced", "--mesh", "pod"], NotImplementedError),
     (["--arch", "whisper-large-v3", "--reduced"], SystemExit),
-    (["--arch", "mamba2-1.3b", "--reduced"], NotImplementedError),
+    (["--arch", "internvl2-26b", "--reduced"], SystemExit),
 ])
 def test_launch_train_refusals(argv, err):
     with pytest.raises(err):
