@@ -133,7 +133,7 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      kernel and one through the plain chunked path, 16 launches, logits
      and caches within LM_F32_TOL.  Then the slice through the CLI's entry
      point (``repro_torch.launch.decode_demo.main``), llama3.2-1b at full
-     width in bf16, --batch 4 --prompt-len 4096 --new-tokens 64 (after a
+     width in bf16, --batch 4 --prompt-len 4096 --new-tokens 16 (after a
      short warm-up run): the counters, zeroed just before, show one
      tensor-core flash_attention launch per layer (16) and no other
      kernel; prefill
@@ -148,18 +148,18 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      phase 3's sweep again through ``rescalk_run.main``, on phase 3's
      file at full width (n = 131072, m = 8, bs = 128, k = 2..5, r = 4,
      the fused kernels), untraced and then with ``--trace DIR
-     --sanitize``; the one cut is 60 MU iterations (TRACE_ITERS).
+     --sanitize``; the one cut is 30 MU iterations (TRACE_ITERS).
      ``scripts/check_trace.py DIR --report R --expect-metrics
      --expect-memory`` must exit 0 (a subprocess);
      memory.json's peak_device_bytes (the allocator's peak is reset just
      before the traced run) must be at least the resident
      operand, every per-rank entry measured with peak >= each of its
      parts, and every unit a positive device peak; metrics.npz's
-     rel_error trajectory holds 4 ranks x 60 iterations x 4 members
+     rel_error trajectory holds 4 ranks x 30 iterations x 4 members
      points; bcsr_xa_xta, bcsr_spmm and mu_update_a launched (counters
      zeroed just before), the report's mu_update_a count one per MU
      iteration; the same k_opt as the untraced run, per-k values within
-     1e-4 (at 60 iterations the selection can differ from phase 3's).
+     1e-4 (at 30 iterations the selection can differ from phase 3's).
      The span summary, the cost table (achieved GFLOP/s per unit against
      the paper's model) and the traced ms per MU iteration beside the
      untraced run's (and phase 3's beside RECORDED_BCSR_MS) are
@@ -210,7 +210,7 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      ones).
  11. Checkpoints, retry and faults (after phase 10, in the same temporary
      directory; the card's name and power limit printed first), on phase
-     10's operand at k = 2..5, r = 4, 60 MU iterations (phase 9's cut).
+     10's operand at k = 2..5, r = 4, 30 MU iterations (phase 9's cut).
      (a) Through ``rescalk_run.main`` in this process, the counters zeroed
      just before each run and read just after: the sweep under
      ``torch.use_deterministic_algorithms(True, warn_only=True)``, which
@@ -241,7 +241,7 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      limit printed first), on one 1 x 1 NCCL grid (``make_grid(data=1,
      model=1)``, destroyed at the end), ``SweepScheduler(cfg, grid=grid)``
      with the counters zeroed just before each sweep and read just after,
-     k = 2..5, r = 4, the fused kernels; the one cut is 60 MU iterations
+     k = 2..5, r = 4, the fused kernels; the one cut is 30 MU iterations
      (phases 9 and 11's).  (a) Phase 6's dense operand (n = 16384, m = 8,
      planted k = 4, noise 0.01, seed 0; X 8.59 GB, a unit's 4 members
      34.36 GB): the per-k sweep, fused_xa_xtb and mu_update_a once per MU
@@ -276,7 +276,7 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      counters are zeroed just before each run and read just after: the
      train path launches no kernel (the attention backward is the plain
      chunked path's, as in ``repro``).  (a) ``launch.train.main``
-     (``--steps 12 --batch 4 --seq 4096 --remat --device cuda``) under
+     (``--steps 8 --batch 4 --seq 4096 --remat --device cuda``) under
      ``torch.use_deterministic_algorithms(True)``: every loss and
      grad_norm finite, the mean loss of the last 4 steps below the first
      4's; ms per step after the first, tokens/s, the model-FLOPs share of
@@ -284,8 +284,8 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      ``make_train_step(microbatches=2)`` against one batch from the same
      state: loss and grad_norm within TRAIN_MB_TOL.  (d) a forward with
      impl="cuda" under grad raises.  (b) under deterministic algorithms,
-     8 steps with ``ckpt_dir``, save_every 4 and a raise-transient fault
-     on ``train/step`` hit 6, which restores step 4 and replays: every
+     5 steps with ``ckpt_dir``, save_every 3 and a raise-transient fault
+     on ``train/step`` hit 4, which restores step 3 and replays: every
      loss equals that of the same step of (a), the uninterrupted run (the
      same stream, seed, lr and remat), bit for bit; the checkpoints'
      bytes, save and restore seconds printed.  Then one step under
@@ -314,7 +314,7 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      deepseek-moe-16b (28 layers, d_model 2048, 16 heads of 128, 64
      routed experts top-6 + 2 shared, d_ff 1408, vocab 102400; 16.67B
      parameters, 33.34 GB) through ``decode_demo.main`` (--batch 4
-     --prompt-len 4096 --new-tokens 32, ``moe_impl="einsum"``), the
+     --prompt-len 4096 --new-tokens 16, ``moe_impl="einsum"``), the
      counters zeroed just before and its expert choices recorded
      (``RouteTape``): 28 ``sm90_bf16`` launches in the prefill and no
      other kernel; prefill ms and tok/s, decode ms per step, the device
@@ -332,7 +332,7 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      capacity and the busiest expert's load per layer.  Then the
      prefill and 8 decode steps under ``torch.profiler``.  (b)
      minicpm3-4b, granite-moe-3b-a800m, mamba2-1.3b and hymba-1.5b through
-     ``decode_demo.main`` (--batch 2 --prompt-len 2048 --new-tokens 16),
+     ``decode_demo.main`` (--batch 2 --prompt-len 2048 --new-tokens 8),
      whisper-large-v3 (2048 frames, 512 tokens) and internvl2-26b (256
      patches, 1792 tokens) through ``decode_demo.serve`` on a built
      model (the demo refuses enc-dec and VLM, as ``repro``'s): each with
@@ -340,6 +340,38 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      all ``sm90_bf16``), no other kernel, and the plain path within
      ZOO_TOL (granite-moe held as deepseek-moe-16b in (a)).  Depth
      is not cut; the cuts are the batch and the sequence (PERF.md §4).
+ 15. The LM on the process grid (after phase 14; the card's name and
+     power limit printed first), llama3.2-1b at its published widths in
+     bf16, weights from seed 0 and prompts from seed 1 (decode_demo's).
+     (a) A 1 x 1 NCCL LM grid (``make_lm_grid(data=1, model=1)``,
+     destroyed at the end), the model placed on it
+     (``params_shardings``): ``decode_demo.serve(model, prompts, 32,
+     grid=grid)`` at 4 x 4096 after a short warm-up, the counters
+     zeroed just before: 16 ``sm90_bf16`` launches and no other kernel;
+     then the single-device path on the same weights fed the grid's
+     tokens: last-position and step logits within GRID_ONE_TOL, every
+     greedy token equal; the collectives of a grid prefill and of a
+     decode step, prefill and decode times and the device peak printed.
+     3 grid train steps (``make_train_step(cfg, grid=grid)``, ZeRO-1
+     state from ``init_state(grid=)``) at 4 x 4096 with remat on
+     ``batch_at`` batches, after 3 single-device steps from the same
+     seed and batches: each loss within GRID_LOSS_TOL, the parameters
+     after the last step within 2 * lr per step, no kernel launched; the
+     collectives per step, ms per step and both device peaks printed.
+     ``ef_psum`` on a CUDA tensor equals its plain formula (the int8
+     round trip of g + err, on a group of one).  (b) A 1 x 2 LM grid of
+     two spawned processes on the one card, gloo on CUDA tensors
+     (``spawn_grid(..., device="cuda")``; NCCL refuses two ranks on one
+     GPU), tensor parallel over "model": ``decode_demo.serve`` at 2 x
+     2048 and 16 tokens on each rank: 16 ``sm90_bf16`` launches per rank
+     on 16 query and 4 KV heads (every call's heads recorded), both
+     ranks' tokens equal; against the single-device path fed the
+     grid's tokens (in this process): logits within LM_BF16_TOL,
+     greedy tokens equal in at least GRID_TP_SAME of the steps; the
+     collectives per prefill and per decode step, times and each rank's
+     device peak printed.  The cuts: prefill_32k's 32 x 32768 to 4 x
+     4096 and train_4k's batch 256 to 4 ((a)), 2 x 2048 ((b)); depth and
+     widths are not cut (PERF.md §4).
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -409,7 +441,7 @@ FLASH_CHECK = dict(b=2, dtypes=("float32", "bfloat16"),
                    sq=(1, 37, 256, 1000), skv=(37, 1000, 4096))
 FLASH_SCALES = (dict(b=4, hq=32, hkv=8, s=4096, d=64),
                 dict(b=1, hq=32, hkv=8, s=32768, d=64))
-LM = dict(arch="llama3.2-1b", batch=4, prompt=4096, new_tokens=64,
+LM = dict(arch="llama3.2-1b", batch=4, prompt=4096, new_tokens=16,
           parity_batch=2, parity_len=1024)
 # bf16 flash_attention against the plain version: the kernel rounds p to
 # bf16 for p @ v, per 128-key tile, and the output to bf16
@@ -430,7 +462,7 @@ DENSE = dict(n=16384, m=8, k_true=4, k_min=2, k_max=5, r=4, iters=300,
 # phase 9: the traced BCSR sweep's one cut (FULL runs 300), and phase 3's
 # untraced time per MU iteration that PERF.md records for this script on
 # NVIDIA H100 80GB HBM3 at 700.00 W (the untraced path must not move)
-TRACE_ITERS = 60
+TRACE_ITERS = 30
 RECORDED_BCSR_MS = 11.56
 TRACE_PROFILE_REPS = 10   # MU iterations per timing of one traced step
 TRACE_ROUNDS = 3          # serve rounds: untraced, to a file, in memory
@@ -452,10 +484,10 @@ PARTITION_GRID = 2          # (c): phase 3's file on a 2 x 2 layout
 PADDING_KS = (4, 5)         # (c): the shards through both BCSR kernels
 
 # phase 11: the chaos drill of the CLI at full width on phase 10's operand
-# (k = 2..5, 60 MU iterations as phase 9; the one cut), and the ms per MU
+# (k = 2..5, 30 MU iterations as phase 9; the one cut), and the ms per MU
 # iteration of earlier phases that PERF.md records for the previous
 # release of this script on NVIDIA H100 80GB HBM3 at 700.00 W
-DRILL = dict(spec=VIRTUAL["spec"], k_min=2, k_max=5, r=4, iters=60)
+DRILL = dict(spec=VIRTUAL["spec"], k_min=2, k_max=5, r=4, iters=30)
 DRILL_TIMEOUT = 600
 RECORDED_MS = {"phase 3": 11.63, "phase 6": 14.39, "phase 7": 14.24,
                "phase 7 grid mode": 17.12, "phase 10 (a)": 11.63,
@@ -464,15 +496,15 @@ RECORDED_MS = {"phase 3": 11.63, "phase 6": 14.39, "phase 7": 14.24,
 # phase 6's dense width and on phase 10's operand; the one cut is 60 MU
 # iterations (phase 9's and phase 11's)
 GRID_SWEEP = dict(n=16384, m=8, k_true=4, noise=0.01, seed=0, k_min=2,
-                  k_max=5, r=4, iters=60, regress_iters=100, grid_chunk=4)
+                  k_max=5, r=4, iters=30, regress_iters=100, grid_chunk=4)
 # ms per MU iteration of this run, by phase (filled as the phases run)
 MS_PER_ITER: dict[str, float] = {}
 
 
 # phase 13: LM training at llama3.2-1b's published widths, train_4k's
 # sequence (4096) with the global batch cut from 256 to 4, --remat
-TRAIN = dict(arch="llama3.2-1b", batch=4, seq=4096, steps=12, lr=1e-3,
-             restart_steps=8, save_every=4, fault_hit=6, microbatches=2)
+TRAIN = dict(arch="llama3.2-1b", batch=4, seq=4096, steps=8, lr=1e-3,
+             restart_steps=5, save_every=3, fault_hit=4, microbatches=2)
 # two microbatches against one batch in bf16: each half's loss and
 # gradients round to bf16 in another grouping
 TRAIN_MB_TOL = 2e-2
@@ -491,11 +523,11 @@ TRADE = dict(n=24, m=12, k=3, seed=7, k_min=2, k_max=5, r=4, iters=300,
 # flash_attention at minicpm3-4b's MLA shape (96/64 padded to 128) and
 # whisper-large-v3's cross shape
 ZOO_SERVE = dict(arch="deepseek-moe-16b", batch=4, prompt=4096,
-                 new_tokens=32)
+                 new_tokens=16)
 ZOO_PROFILE_STEPS = 8
 ZOO_DEMOS = ("minicpm3-4b", "granite-moe-3b-a800m", "mamba2-1.3b",
              "hymba-1.5b")
-ZOO_DEMO = dict(batch=2, prompt=2048, new_tokens=16)
+ZOO_DEMO = dict(batch=2, prompt=2048, new_tokens=8)
 ZOO_LIBRARY = {"whisper-large-v3": dict(batch=2, frames=2048, tokens=512),
                "internvl2-26b": dict(batch=2, tokens=1792)}
 ZOO_FLASH = (dict(name="MLA", b=2, h=40, sq=2048, skv=2048, d=128, dqk=96,
@@ -510,6 +542,31 @@ ZOO_TOL = 5e-2
 # Past the first flipped choice two runs diverge chaotically, so two bf16
 # attentions' distances from the plain path agree in size, not in value
 ZOO_FREE_SLACK = 1.5
+
+
+# phase 15: the LM on the process grid, llama3.2-1b at its published
+# widths in bf16 (seed 0).  (a) a 1 x 1 NCCL grid: serve (prefill_32k's
+# 32 x 32768 cut to 4 x 4096, 32 tokens) and train (train_4k's batch 256
+# cut to 4, seq 4096, --remat, 3 steps) against the single-device path
+# from the same weights, and ef_psum at wq's shape; (b) a 1 x 2 grid of
+# two processes on the one card (gloo on CUDA tensors: NCCL refuses two
+# ranks on one GPU), tensor parallel: 2 x 2048, 16 tokens
+GRID_LM = dict(arch="llama3.2-1b", layers=16, batch=4, prompt=4096,
+               new_tokens=32, train_batch=4, train_seq=4096, train_steps=3,
+               lr=1e-3, ef_shape=(2048, 2048))
+GRID_TP = dict(model=2, batch=2, prompt=2048, new_tokens=16, heads=(16, 4))
+# (a) the 1 x 1 grid runs the single-device arithmetic (no collective in
+# the forward; the train step's gradients pass a group of one and its
+# global norm sums the same squares in another order): logits within
+# this, every greedy token equal; losses within GRID_LOSS_TOL and the
+# parameters within 2 * lr per step (an AdamW step moves a parameter by
+# about lr * sign(g), which a near-zero g's rounding can flip)
+GRID_ONE_TOL = 1e-2
+GRID_LOSS_TOL = 1e-3
+# (b) tensor parallel in bf16 sums the row-parallel products' partials in
+# another order: phase 8's LM_BF16_TOL, and at least this share of the
+# greedy tokens equal
+GRID_TP_SAME = 0.9
 
 
 def log(msg: str) -> None:
@@ -2222,7 +2279,7 @@ def phase_telemetry(tmp: Path, sweep, served) -> None:
     cfg = dict(FULL, iters=TRACE_ITERS)
     res3, rep3 = sweep
     # the traced sweep's result is held to the untraced one at the same
-    # iterations (the selection at 60 iterations need not be phase 3's)
+    # iterations (the selection at 30 iterations need not be phase 3's)
     base, base_rep = run_sweep(tmp / "planted.npz", tmp / "untraced.json",
                                "auto", cfg)
     tdir, report = tmp / "trace_sweep", tmp / "traced.json"
@@ -3675,6 +3732,304 @@ def phase_zoo(dev, smi: str) -> None:
         free()
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the LM on the process grid
+# ---------------------------------------------------------------------------
+
+def seeded_llama(arch: str, batch: int, prompt: int, dev):
+    """decode_demo.run's model and prompts: weights from seed 0, prompts
+    from seed 1, on ``dev``."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.transformer import Transformer
+    cfg = ARCHS[arch]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = Transformer(cfg, device=dev, gen=gen)
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                            device=dev)
+    return model, prompts
+
+
+def forced_single(model, prompts, tokens):
+    """The single-device path on ``model`` (whole parameters) fed
+    ``tokens`` (B, T + 1): (last-position logits, [each step's
+    logits])."""
+    import torch
+    from repro_torch.train import make_prefill_step, make_serve_step
+    logits, filled = make_prefill_step(model)(prompts)
+    P, T = prompts.shape[1], tokens.shape[1] - 1
+    with torch.inference_mode():
+        cache = model.extend_cache(filled, P + T)
+    del filled
+    serve = make_serve_step(model)
+    steps = []
+    for t in range(T):
+        step, cache = serve(cache, tokens[:, t:t + 1], P + t)
+        steps.append(step)
+    return logits, steps
+
+
+def grid_serve_counts(model, grid, prompts) -> tuple[int, int]:
+    """The collectives of one grid prefill of ``prompts`` and of one
+    decode step after it (run before the timed serve: its warm-up)."""
+    from repro_torch.models.model import greedy_sample
+    from repro_torch.train import make_prefill_step, make_serve_step
+    c0 = grid.collectives
+    logits, cache = make_prefill_step(model, grid=grid,
+                                      max_len=prompts.shape[1] + 1)(prompts)
+    c1 = grid.collectives
+    make_serve_step(model, grid=grid)(
+        cache, greedy_sample(logits, model.cfg.vocab), prompts.shape[1])
+    return c1 - c0, grid.collectives - c1
+
+
+def lm_grid_serve(grid, dev, smi: str) -> None:
+    """Phase 15 (a), serving (see the module docstring)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import decode_demo
+    from repro_torch.train.serve_step import params_shardings
+    g = GRID_LM
+    B, P, T = g["batch"], g["prompt"], g["new_tokens"]
+    model, prompts = seeded_llama(g["arch"], B, P, dev)
+    cfg = model.cfg
+    params_shardings(grid, model)
+    pre_c, step_c = grid_serve_counts(model, grid, prompts[:, :256])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    res = decode_demo.serve(model, prompts, T, grid=grid)
+    launches = ops.launch_counts()
+    by_variant = fa.launch_count_by_variant()
+    require(launches["flash_attention"] == cfg.n_layers
+            and not any(n for k, n in launches.items()
+                        if k != "flash_attention"),
+            f"(a) the grid serve launched {launches}, want "
+            f"{cfg.n_layers} flash_attention and nothing else")
+    require(by_variant == {"sm90_bf16": cfg.n_layers, "fma_fp32": 0},
+            f"(a) the grid prefill launched {by_variant}")
+    require(bool(torch.isfinite(res.prefill_logits).all())
+            and bool(torch.isfinite(res.step_logits).all()),
+            "(a) non-finite logits")
+    pre, steps, same = _against(res.prefill_logits,
+                                list(res.step_logits.split(1, dim=1)),
+                                *forced_single(model, prompts, res.tokens),
+                                cfg.vocab)
+    require(pre <= GRID_ONE_TOL and steps <= GRID_ONE_TOL,
+            f"(a) grid against single device: prefill {pre:.3e}, steps "
+            f"{steps:.3e} (> {GRID_ONE_TOL})")
+    require(same == B * T, f"(a) greedy tokens equal in {same} of {B * T}")
+    log(f"[lmgrid] (a) 1 x 1 grid serve, {cfg.name} {cfg.dtype}: prefill "
+        f"{B}x{P} {res.prefill_ms:.1f} ms, {launches['flash_attention']} "
+        f"flash_attention launches ({by_variant}); decode {T} steps "
+        f"{res.decode_ms / T:.2f} ms/step; collectives per prefill "
+        f"{pre_c}, per decode step {step_c}; peak device memory "
+        f"{res.peak_bytes / 1e9:.2f} GB; on {smi}")
+    log(f"[lmgrid] (a) against the single-device path fed the grid's "
+        f"tokens: last-position logits relative difference {pre:.3e}, "
+        f"steps at most {steps:.3e}; greedy tokens equal in {same} of "
+        f"{B * T}")
+    del res, model
+    torch.cuda.empty_cache()
+
+
+def lm_grid_train(grid, dev, smi: str) -> None:
+    """Phase 15 (a), training (see the module docstring)."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenStreamConfig, batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_state, make_train_step
+    g = GRID_LM
+    cfg = ARCHS[g["arch"]]
+    ds = TokenStreamConfig(vocab=cfg.vocab, batch=g["train_batch"],
+                           seq=g["train_seq"])
+    batches = [batch_at(ds, s) for s in range(g["train_steps"])]
+    opt = AdamW(lr=g["lr"])
+
+    def run(on_grid):
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init_state(cfg, opt, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev,
+            grid=grid if on_grid else None)
+        step = make_train_step(cfg, grid=grid if on_grid else None,
+                               optimizer=opt, remat=True)
+        hist = []
+        for b in batches:
+            c0 = grid.collectives
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            loss = float(m["loss"])
+            hist.append(dict(loss=loss, grad_norm=float(m["grad_norm"]),
+                             ms=1e3 * (time.perf_counter() - t0),
+                             collectives=grid.collectives - c0))
+        params = {n: p.detach().cpu()
+                  for n, p in state.params.named_parameters()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        del state
+        torch.cuda.empty_cache()
+        return hist, params, peak
+
+    ops.reset_launch_counts()
+    one, ref, peak1 = run(False)
+    got, params, peak = run(True)
+    no_launches("(a) grid train", ops.launch_counts())
+    for a, b in zip(got, one):
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        require(math.isfinite(a["loss"]) and rel <= GRID_LOSS_TOL,
+                f"(a) grid train loss {a['loss']} against {b['loss']}")
+    worst = max(float((params[n].float() - ref[n].float()).abs().max())
+                for n in ref)
+    atol = 2 * g["lr"] * g["train_steps"]
+    require(worst <= atol, f"(a) grid train parameters {worst:.3e} from "
+                           f"the single-device step's (> {atol})")
+    log(f"[lmgrid] (a) 1 x 1 grid train, batch {g['train_batch']} x seq "
+        f"{g['train_seq']}, --remat: losses "
+        + " ".join(f"{h['loss']:.5f}" for h in got) + " against "
+        + " ".join(f"{h['loss']:.5f}" for h in one) + "; grad_norm "
+        + " ".join(f"{h['grad_norm']:.4f}" for h in got) + " against "
+        + " ".join(f"{h['grad_norm']:.4f}" for h in one)
+        + f"; parameters after {g['train_steps']} steps at most "
+        f"{worst:.3e} apart; ms per step " + " ".join(
+            f"{h['ms']:.1f}" for h in got) + " (single device " + " ".join(
+            f"{h['ms']:.1f}" for h in one) + "); collectives per step "
+        + " ".join(str(h["collectives"]) for h in got)
+        + f"; peak device memory {peak / 1e9:.2f} GB (single device "
+        f"{peak1 / 1e9:.2f}); on {smi}")
+
+
+def lm_grid_ef_psum(grid, dev) -> None:
+    """Phase 15 (a): ef_psum on a CUDA tensor against its plain formula
+    (on a group of one: the int8 round trip of g + err)."""
+    import torch
+    from repro_torch.optim import compression
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g = torch.randn(GRID_LM["ef_shape"], generator=gen, device=dev)
+    err = 1e-3 * torch.randn(GRID_LM["ef_shape"], generator=gen, device=dev)
+    c0 = grid.collectives
+    mean, new_err = compression.ef_psum(g, err, grid, "data")
+    c, want_err = compression.ef_compress(g, err)
+    require(torch.equal(mean, compression.decompress(c))
+            and torch.equal(new_err, want_err),
+            "(a) ef_psum on the card differs from its plain formula")
+    log(f"[lmgrid] (a) ef_psum on a {tuple(g.shape)} CUDA tensor: equal to "
+        f"the int8 round trip of g + err, residual equal; "
+        f"{grid.collectives - c0} collectives (MAX of the scale, int32 "
+        f"SUM)")
+
+
+def tp_cell(grid, arch: str, batch: int, prompt: int, new: int) -> dict:
+    """Phase 15 (b), one cell of the 1 x 2 grid (a spawned process on the
+    card): the seeded model placed on the grid, served through
+    decode_demo.serve after a warm-up; what it launched, on which heads,
+    and what it returned."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import decode_demo
+    from repro_torch.train.serve_step import params_shardings
+    dev = grid.device
+    model, prompts = seeded_llama(arch, batch, prompt, dev)
+    params_shardings(grid, model)
+    pre_c, step_c = grid_serve_counts(model, grid, prompts[:, :256])
+    heads = []
+    flash = ops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        heads.append((q.shape[1], k.shape[1]))
+        return flash(q, k, v, **kw)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    ops.flash_attention = recorded
+    try:
+        res = decode_demo.serve(model, prompts, new, grid=grid)
+    finally:
+        ops.flash_attention = flash
+    launches = ops.launch_counts()
+    variants = fa.launch_count_by_variant()
+    return {"prefill": res.prefill_logits.float().cpu(),
+            "steps": res.step_logits.float().cpu(),
+            "tokens": res.tokens.cpu(), "launches": launches,
+            "variants": variants, "heads": heads,
+            "prefill_ms": res.prefill_ms, "decode_ms": res.decode_ms,
+            "peak": res.peak_bytes, "collectives": (pre_c, step_c)}
+
+
+def lm_grid_tp(tmp: Path, dev, smi: str) -> None:
+    """Phase 15 (b) (see the module docstring)."""
+    import torch
+    from repro_torch.launch.mesh import spawn_grid
+    g, t = GRID_LM, GRID_TP
+    B, P, T = t["batch"], t["prompt"], t["new_tokens"]
+    t0 = time.perf_counter()
+    cells = spawn_grid(tp_cell, tmp / "lm_tp", data=1, model=t["model"],
+                       lm=True, device="cuda",
+                       args=(g["arch"], B, P, T), timeout_s=600)
+    wall = time.perf_counter() - t0
+    L = len(cells[0]["heads"])
+    for r, c in enumerate(cells):
+        require(c["launches"]["flash_attention"] == L == g["layers"]
+                and c["variants"] == {"sm90_bf16": L, "fma_fp32": 0},
+                f"(b) rank {r} launched {c['launches']} {c['variants']}")
+        require(set(c["heads"]) == {t["heads"]},
+                f"(b) rank {r} attended (query, KV) heads "
+                f"{sorted(set(c['heads']))}, want {t['heads']}")
+        require(torch.equal(c["tokens"], cells[0]["tokens"]),
+                "(b) the two model ranks' tokens differ")
+    model, prompts = seeded_llama(g["arch"], B, P, dev)
+    tokens = cells[0]["tokens"].to(dev)
+    pre, steps, same = _against(
+        cells[0]["prefill"].to(dev),
+        list(cells[0]["steps"].to(dev).split(1, dim=1)),
+        *forced_single(model, prompts, tokens), model.cfg.vocab)
+    del model
+    torch.cuda.empty_cache()
+    require(pre <= LM_BF16_TOL and steps <= LM_BF16_TOL,
+            f"(b) TP = 2 against one device: prefill {pre:.3e}, steps "
+            f"{steps:.3e} (> {LM_BF16_TOL})")
+    require(same >= GRID_TP_SAME * B * T,
+            f"(b) greedy tokens equal in {same} of {B * T}")
+    c = cells[0]
+    log(f"[lmgrid] (b) 1 x 2 grid (gloo on CUDA tensors, two processes on "
+        f"one card): each rank {L} sm90_bf16 launches on {t['heads'][0]} "
+        f"query and {t['heads'][1]} KV heads; prefill {B}x{P} "
+        + " / ".join(f"{x['prefill_ms']:.1f}" for x in cells)
+        + " ms, decode " + " / ".join(f"{x['decode_ms'] / T:.2f}"
+                                     for x in cells)
+        + f" ms/step (ranks 0 / 1); collectives per prefill "
+        f"{c['collectives'][0]}, per decode step {c['collectives'][1]}; "
+        f"peak device memory per rank " + " / ".join(
+            f"{x['peak'] / 1e9:.2f}" for x in cells)
+        + f" GB; {wall:.1f}s wall with start-up; on {smi}")
+    log(f"[lmgrid] (b) against the single-device path fed the grid's "
+        f"tokens: last-position logits {pre:.3e}, steps at most "
+        f"{steps:.3e} (within {LM_BF16_TOL}); greedy tokens equal in "
+        f"{same} of {B * T}")
+
+
+def phase_lm_grid(tmp: Path, dev, smi: str) -> None:
+    """Phase 15 (see the module docstring)."""
+    import torch
+    from repro_torch.launch.mesh import make_lm_grid
+    log(f"[lmgrid] {smi}")
+    t0 = time.perf_counter()
+    grid = make_lm_grid(data=1, model=1)
+    try:
+        lm_grid_serve(grid, dev, smi)
+        lm_grid_train(grid, dev, smi)
+        lm_grid_ef_psum(grid, dev)
+    finally:
+        grid.destroy()
+    torch.cuda.empty_cache()
+    log(f"[lmgrid] (a) {time.perf_counter() - t0:.1f}s wall")
+    lm_grid_tp(tmp, dev, smi)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3717,6 +4072,9 @@ def main() -> int:
     rows.append(phase_lm(dev, smi))
     torch.cuda.empty_cache()
     phase_zoo(dev, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_lm_grid(Path(tmp), dev, smi)
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if row[key] is not None:

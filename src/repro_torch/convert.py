@@ -17,7 +17,8 @@ carry across:
   * a ``KResult`` (``k_result``), a ``FactorBundle``
     (``factor_bundle``) and a cross-k ``GridChunk`` (``grid_chunk``);
   * the LM zoo's parameter pytree, any family, as the state dict of the
-    port's ``Transformer`` (``lm_params_from_repro``).
+    port's ``Transformer`` (``lm_params_from_repro``), or one LM grid
+    cell's blocks of it (``lm_grid_params_from_repro``).
 
 ``repro``'s dense member draws and k_max-padded states need no helper:
 ``selection.ArrayDraws`` takes the arrays as they are, and
@@ -169,6 +170,19 @@ def lm_params_from_repro(params, cfg, device=None) -> dict[str, torch.Tensor]:
     if "enc_norm" in params:
         state["enc_norm"] = t(params["enc_norm"])
     return state
+
+
+def lm_grid_params_from_repro(params, cfg, grid: Grid, device=None
+                              ) -> dict[str, torch.Tensor]:
+    """This LM grid cell's blocks of ``lm_params_from_repro``'s state dict
+    (``dist.sharding.param_specs``; contiguous, on ``device``), the state
+    dict of a model placed on ``grid`` (``train.serve_step.
+    params_shardings``).  ``grid`` needs no process groups."""
+    from repro_torch.models.transformer import lm_placement
+    placement = lm_placement(grid, cfg)
+    dev = _device.resolve(device)
+    return {n: placement.local(n, x).to(dev).contiguous()
+            for n, x in lm_params_from_repro(params, cfg, "cpu").items()}
 
 
 def to_numpy(x) -> np.ndarray:

@@ -13,14 +13,16 @@ DEFAULT_DEVICE = "cuda"
 
 def resolve(device: str | torch.device | None = None) -> torch.device:
     """The torch device an entry point runs on.  ``None`` means ``cuda``;
-    asking for CUDA on a machine without it raises."""
+    asking for CUDA on a machine without it raises.  ``meta`` (tensors
+    with shapes and no storage) serves shape queries such as
+    ``models.transformer.param_shapes``."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' (CLI: --device cpu) to run the "
             "plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 

@@ -16,8 +16,15 @@ path is ``repro``'s default, "einsum".
 
 Decode continues from the prefill's cache (``Transformer.extend_cache``
 to prompt + new-tokens positions); ``repro``'s demo decodes against a
-fresh zero cache instead.  ``repro``'s ``--mesh`` is not defined here
-(ROADMAP.md §1).
+fresh zero cache instead.
+
+``--mesh pod`` / ``multipod`` serve on ``repro``'s production grid (16 x
+16, or 2 x 16 x 16; ``launch.mesh.make_production_grid``): one process
+per cell under ``torchrun`` (256 or 512 ranks; any other world is
+refused), the dense GQA decoders only (``train.serve_step``: parameters
+placed, the prefill's cache sequence-sharded over "model"); each cell
+prints its own rows' numbers.  ``serve(model, prompts, n, grid=grid)``
+is the same on a placed model and any LM grid.
 """
 from __future__ import annotations
 
@@ -31,9 +38,11 @@ from repro_torch import device as _device
 from repro_torch.configs import ARCHS, REDUCED_ARCHS
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_production_grid
 from repro_torch.models.model import greedy_sample
 from repro_torch.models.transformer import Transformer
 from repro_torch.train import make_prefill_step, make_serve_step
+from repro_torch.train.serve_step import params_shardings
 
 
 @dataclasses.dataclass
@@ -62,6 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--mesh", default="none",
+                    choices=("none", "pod", "multipod"),
+                    help="production grids: 256 / 512 ranks under torchrun")
     return ap
 
 
@@ -74,7 +86,10 @@ def run(args) -> DemoResult:
     cfg = (REDUCED_ARCHS if args.reduced else ARCHS)[args.arch]
     if cfg.family in ("encdec", "vlm"):
         raise SystemExit("token-only server targets decoder-only archs")
-    dev = _device.resolve(args.device)
+    grid = None
+    if args.mesh != "none":
+        grid = make_production_grid(multi_pod=args.mesh == "multipod")
+    dev = grid.device if grid is not None else _device.resolve(args.device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev)
@@ -83,18 +98,30 @@ def run(args) -> DemoResult:
     gen.manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
-    return serve(model, prompts, args.new_tokens)
+    if grid is None:
+        return serve(model, prompts, args.new_tokens)
+    try:
+        return serve(params_shardings(grid, model), prompts, args.new_tokens,
+                     grid=grid)
+    finally:
+        grid.destroy()
 
 
 def serve(model: Transformer, prompts: torch.Tensor, new_tokens: int,
-          **inputs) -> DemoResult:
+          grid=None, **inputs) -> DemoResult:
     """The demo's serving on a built model: a timed prefill of ``prompts``
     (B, P) (with enc-dec's ``frames`` or the VLM's ``patches`` in
     ``inputs``), then ``new_tokens`` timed greedy decode steps from its
-    cache.  Prints what it measured."""
+    cache.  Prints what it measured.  With ``grid`` (an LM grid, the model
+    placed on it: ``train.serve_step.params_shardings``) the prefill
+    takes the global prompts and the cache, logits and tokens are this
+    cell's rows; ``inputs`` are refused there."""
     cfg, dev = model.cfg, model.device
     B, Pn, T = *prompts.shape, new_tokens
-    prefill = make_prefill_step(model)
+    if grid is not None and inputs:
+        raise ValueError("serve(grid=) takes token prompts only")
+    start = Pn + (inputs["patches"].shape[1] if "patches" in inputs else 0)
+    prefill = make_prefill_step(model, grid=grid, max_len=start + T)
     launches0 = ops.launch_counts()["flash_attention"]
     variants0 = _flash.launch_count_by_variant()
     _sync(dev)
@@ -110,12 +137,15 @@ def serve(model: Transformer, prompts: torch.Tensor, new_tokens: int,
     print(f"flash_attention launches in the prefill: {launches} "
           f"({cfg.n_layers} layers; {by_variant})")
 
-    start = Pn + (inputs["patches"].shape[1] if "patches" in inputs else 0)
-    step_fn = make_serve_step(model)
-    with torch.inference_mode():
-        cache = model.extend_cache(filled, start + T)
+    step_fn = make_serve_step(model, grid=grid)
+    if grid is None:
+        with torch.inference_mode():
+            cache = model.extend_cache(filled, start + T)
+    else:
+        cache = filled
     del filled
     tok = greedy_sample(logits, cfg.vocab)
+    B = tok.shape[0]                 # on a grid: this cell's rows
     tokens, steps = [tok], []
     _sync(dev)
     t0 = time.perf_counter()

@@ -16,11 +16,22 @@ localhost port itself:
 ``spawn_grid`` runs a function on every cell of a CPU gloo grid, one
 spawned process per cell, and returns what each returned; the tests use
 it for the 2 x 2 and 2 x (2 x 2) grids.
+
+The LM's grids (``make_lm_grid``: any (pods, data, model), with the
+batch groups) have ``repro``'s two builders beside them:
+``make_production_grid`` (16 x 16, or 2 x 16 x 16 with ``multi_pod``)
+joins the world ``torchrun`` started, one process per cell (256 or 512
+ranks; any other world size is refused, as ``repro``'s production mesh
+fails on fewer devices), and ``make_debug_grid`` is a small one:
+
+    torchrun --nproc-per-node 8 --nnodes 32 ... \
+        -m repro_torch.launch.train --arch llama3.2-1b --mesh pod
 """
 from __future__ import annotations
 
 import datetime
 import multiprocessing
+import os
 import pickle
 import socket
 import time
@@ -47,7 +58,7 @@ def free_port() -> int:
 def make_grid(pods: int | None = None, data: int = 1, model: int = 1,
               backend: str | None = None, *, rank: int = 0,
               init_method: str | None = None, device=None,
-              timeout_s: float = DEFAULT_TIMEOUT_S) -> Grid:
+              timeout_s: float = DEFAULT_TIMEOUT_S, lm: bool = False) -> Grid:
     """This process's cell of a (pods, data, model) grid: ``data`` rows by
     ``model`` columns, ``pods`` (default 1) copies for the ensemble's
     member split.  ``device`` defaults to ``cuda``; ``backend`` to NCCL on
@@ -55,9 +66,11 @@ def make_grid(pods: int | None = None, data: int = 1, model: int = 1,
     joins one of world size pods * data * model at ``init_method``
     (required above one process; a free localhost port for one), and the
     grid's ``destroy`` ends it again.  Every process must call this with
-    the same shape: the groups are created in one order on all ranks."""
+    the same shape: the groups are created in one order on all ranks.
+    ``lm`` makes an LM grid (any shape, the batch groups; the RESCAL grid
+    must be square)."""
     pods_n = 1 if pods is None else pods
-    check_shape(pods_n, data, model)
+    check_shape(pods_n, data, model, square=not lm)
     world = pods_n * data * model
     dev = _device.resolve(device)
     if backend is None:
@@ -81,24 +94,64 @@ def make_grid(pods: int | None = None, data: int = 1, model: int = 1,
                          f"processes, the grid needs {world}")
     rank = dist.get_rank()
     groups = {}
-    for axis, ranks in group_ranks(pods_n, data, model):
+    for axis, ranks in group_ranks(pods_n, data, model, lm=lm):
         g = dist.new_group(ranks=ranks)
         if rank in ranks:
             groups[axis] = g
     return Grid.at_rank(rank, pods_n, data, model, dev, groups,
-                        owns_default_group=owns)
+                        owns_default_group=owns, lm=lm)
+
+
+def make_lm_grid(pods: int | None = None, data: int = 1, model: int = 1,
+                 backend: str | None = None, **kw) -> Grid:
+    """``make_grid`` for the LM (``lm=True``): any (pods, data, model)."""
+    return make_grid(pods, data, model, backend, lm=True, **kw)
+
+
+def make_debug_grid(data: int = 2, model: int = 2, pod: int | None = None,
+                    **kw) -> Grid:
+    """A small LM grid (``repro``'s ``make_debug_mesh``)."""
+    return make_lm_grid(pod, data, model, **kw)
+
+
+PRODUCTION = {False: (None, 16, 16), True: (2, 16, 16)}
+
+
+def make_production_grid(*, multi_pod: bool = False,
+                         backend: str | None = None,
+                         timeout_s: float = DEFAULT_TIMEOUT_S) -> Grid:
+    """``repro``'s production mesh as an LM grid: 16 x 16 ("data",
+    "model"), or 2 x 16 x 16 with ``multi_pod``, one process per cell in
+    the world ``torchrun`` started (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT`` in the environment),
+    each on ``cuda:LOCAL_RANK``.  Any other world size is refused with
+    the size it needs."""
+    pods, data, model = PRODUCTION[multi_pod]
+    need = (pods or 1) * data * model
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != need:
+        raise ValueError(
+            f"the {'multi-pod ' if multi_pod else ''}production grid "
+            f"({'2 x ' if multi_pod else ''}16 x 16) needs a torchrun world "
+            f"of {need} ranks, one process per cell; this process's world "
+            f"has {world}")
+    device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return make_lm_grid(pods, data, model, backend,
+                        rank=int(os.environ["RANK"]), init_method="env://",
+                        device=device, timeout_s=timeout_s)
 
 
 def _grid_worker(fn: Callable, rank: int, shape: tuple, init_method: str,
-                 args: tuple, out: str) -> None:
+                 args: tuple, out: str, lm: bool = False,
+                 device: str = "cpu") -> None:
     """One cell of ``spawn_grid``: build the grid, run fn, pickle
     ("ok", result) or ("error", traceback) to ``out``."""
     torch.set_num_threads(1)
     try:
         pods, data, model = shape
         grid = make_grid(pods, data, model, "gloo", rank=rank,
-                         init_method=init_method, device="cpu",
-                         timeout_s=120)
+                         init_method=init_method, device=device,
+                         timeout_s=120, lm=lm)
         try:
             payload = ("ok", fn(grid, *args))
         finally:
@@ -111,9 +164,14 @@ def _grid_worker(fn: Callable, rank: int, shape: tuple, init_method: str,
 
 def spawn_grid(fn: Callable, tmp_dir, *, pods: int | None = None,
                data: int = 2, model: int = 2, args: tuple = (),
-               timeout_s: float = 300) -> list:
-    """Run ``fn(grid, *args)`` on every cell of a CPU gloo grid, one
-    spawned process per cell, and return the results in rank order.
+               timeout_s: float = 300, lm: bool = False,
+               device: str = "cpu") -> list:
+    """Run ``fn(grid, *args)`` on every cell of a gloo grid, one spawned
+    process per cell, and return the results in rank order.  ``lm``
+    spawns an LM grid (``make_lm_grid``); ``device`` is every cell's
+    ("cuda": gloo's collectives on CUDA tensors, every cell on the
+    current card, the one way to put two cells on one GPU: NCCL refuses
+    two ranks on one device).
 
     ``fn`` must be importable by name from a module that the workers can
     import (they start from a fresh interpreter); arguments and results
@@ -121,7 +179,7 @@ def spawn_grid(fn: Callable, tmp_dir, *, pods: int | None = None,
     that raises fails the call with its traceback; a grid that does not
     finish within ``timeout_s`` is terminated."""
     pods_n = 1 if pods is None else pods
-    check_shape(pods_n, data, model)
+    check_shape(pods_n, data, model, square=not lm)
     world = pods_n * data * model
     tmp = Path(tmp_dir)
     tmp.mkdir(parents=True, exist_ok=True)
@@ -130,7 +188,7 @@ def spawn_grid(fn: Callable, tmp_dir, *, pods: int | None = None,
     outs = [tmp / f"rank{r}.pkl" for r in range(world)]
     procs = [ctx.Process(target=_grid_worker,
                          args=(fn, r, (pods, data, model), init_method, args,
-                               str(outs[r])))
+                               str(outs[r]), lm, device))
              for r in range(world)]
     for p in procs:
         p.start()

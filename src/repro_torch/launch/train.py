@@ -8,10 +8,16 @@ Runs on the H100 by default; ``--device cpu`` runs the same path on the
 CPU.  The published widths train on the card (llama3.2-1b at seq 4096
 needs ``--remat``).  Every decoder-only family trains (dense, MLA,
 MoE, SSM, hybrid); the MoE path is "dense" with ``--reduced`` and
-"scatter" otherwise, as ``repro``'s launcher picks it.  ``repro``'s
-``--mesh`` is defined, but only "none" runs here: the production meshes
-wait for the LM mesh (ROADMAP.md §1 item 5(d)).  The enc-dec and VLM
-archs exit as ``repro``'s launcher does.
+"scatter" otherwise, as ``repro``'s launcher picks it.  The enc-dec and
+VLM archs exit as ``repro``'s launcher does.
+
+``--mesh pod`` / ``multipod`` train on ``repro``'s production grid (16
+x 16, or 2 x 16 x 16; ``launch.mesh.make_production_grid``): one
+process per cell under ``torchrun`` (256 or 512 ranks, each on
+``cuda:LOCAL_RANK``; any other world is refused), the dense GQA
+decoders tensor and data parallel with ZeRO-1 moments (the other
+families raise: their grid forward is ROADMAP.md §1 item 5(d)'s next
+step).  ``--device`` is then the grid's.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import argparse
 
 from repro_torch.configs import ARCHS, REDUCED_ARCHS
 from repro_torch.data import TokenStreamConfig, batch_at
+from repro_torch.launch.mesh import make_production_grid
 from repro_torch.models.model import count_params_analytic
 from repro_torch.optim import AdamW
 from repro_torch.train import LoopConfig, train_loop
@@ -37,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--mesh", default="none",
                     choices=("none", "pod", "multipod"),
-                    help="production meshes (not ported: only 'none' runs)")
+                    help="production grids: 256 / 512 ranks under torchrun")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap
 
@@ -50,19 +57,23 @@ def main(argv=None) -> list[dict]:
         raise SystemExit(f"{cfg.name}: token-stream trainer targets "
                          "decoder-only archs; see tests for frontend-stub "
                          "training of encdec/vlm")
+    grid = None
     if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the LM mesh is not ported yet "
-            f"(ROADMAP.md §1 item 5(d)); use --mesh none")
+        grid = make_production_grid(multi_pod=args.mesh == "multipod")
     n = count_params_analytic(cfg)["total"]
     print(f"train {cfg.name}: {n / 1e6:.1f}M params, mesh={args.mesh}")
     ds = TokenStreamConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq)
     loop = LoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                       save_every=args.save_every, log_every=10)
-    _, history = train_loop(cfg, lambda s: batch_at(ds, s), loop,
-                            optimizer=AdamW(lr=args.lr), remat=args.remat,
-                            moe_impl="dense" if args.reduced else "scatter",
-                            device=args.device, verbose=True)
+    try:
+        _, history = train_loop(
+            cfg, lambda s: batch_at(ds, s), loop, optimizer=AdamW(lr=args.lr),
+            remat=args.remat, moe_impl="dense" if args.reduced else "scatter",
+            device=args.device, grid=grid,
+            verbose=grid is None or grid.rank == 0)
+    finally:
+        if grid is not None:
+            grid.destroy()
     if history:
         print(f"done: loss {history[0]['loss']:.4f} -> "
               f"{history[-1]['loss']:.4f}")

@@ -24,9 +24,18 @@ decode attention in XLA, outside its kernel (whose contract has no
 window), so their ports are plain PyTorch on every device: no kernel is
 bypassed.
 
+On an LM grid (``gqa_plan``, ``gqa_grid_full``, ``gqa_grid_decode``,
+``decode_attention(group=)``) GQA runs tensor parallel over "model" as
+``repro``'s ``constrain_heads`` places it, its collectives derived from
+the parameter specs; a grid prefill still attends through the CUDA
+kernel, on each rank's heads.
+
 Layouts: activations (B, S, H, D); caches (B, S, Hkv, D).
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 from torch import nn
@@ -135,21 +144,41 @@ def _chunked(q, k, v, *, causal, q_offset, chunk, q_chunk, sm_scale):
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos: int, *,
+                     group=None) -> torch.Tensor:
     """q (B, 1, Hq, D) against caches (B, S, Hkv, D) whose first ``pos``
     positions are filled (pos >= 1) -> (B, 1, Hq, D).
 
     ``repro`` scores the whole cache and masks positions >= pos to -1e30;
     their p is exp(-1e30 - m) = 0, so scoring only the first ``pos``
     positions gives the same result.  Plain PyTorch: ``repro`` computes
-    this outside any Pallas kernel too."""
-    return _attend_one(q, k_cache[:, :pos], v_cache[:, :pos])
+    this outside any Pallas kernel too.
+
+    With ``group`` (a grid axis, ``dist.sharding.AxisGroup``; ``repro``'s
+    ``axis_name``) the cache's S axis is sharded over that axis: this
+    rank holds positions index * S .. index * S + S - 1, attends to them
+    with ``repro``'s finite mask (a rank whose chunk starts at or past
+    ``pos`` has no live key; its m is -1e30 and its weight exp(m - m_g)
+    is 0, where an empty slice would give -inf - -inf = NaN), and the
+    partial (m, l, acc) are combined over the group: an all-reduce MAX of
+    m, then SUMs of l and acc rescaled by exp(m - m_g)."""
+    if group is None:
+        return _attend_one(q, k_cache[:, :pos], v_cache[:, :pos])
+    S = k_cache.shape[1]
+    valid = group.index * S + torch.arange(S, device=q.device) < pos
+    m, l, acc = _attend_partial(q, k_cache, v_cache, valid)
+    m_g = group.pmax(m)
+    w = torch.exp(m - m_g)
+    l = group.psum(l * w)
+    acc = group.psum(acc * w)
+    return _finish(q, acc, l)
 
 
-def _attend_one(q, k, v, valid=None) -> torch.Tensor:
-    """One query position q (B, 1, Hq, D) against k and v (B, S, Hkv, D),
-    keys where ``valid`` (S,) is false masked to -1e30: scores and p @ v
-    accumulate in fp32, p is cast to v's dtype first."""
+def _attend_partial(q, k, v, valid=None):
+    """The softmax statistics of one query position q (B, 1, Hq, D)
+    against k and v (B, S, Hkv, D), keys where ``valid`` (S,) is false
+    masked to -1e30: (m, l, acc) in fp32, per (B, Hkv, group) query;
+    scores and p @ v accumulate in fp32, p is cast to v's dtype first."""
     B, _, Hq, D = q.shape
     Hkv = k.shape[2]
     qg = (q * torch.tensor(D ** -0.5, dtype=q.dtype)).reshape(
@@ -161,8 +190,20 @@ def _attend_one(q, k, v, valid=None) -> torch.Tensor:
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).float(), v.float())
+    return m, l, acc
+
+
+def _finish(q, acc, l) -> torch.Tensor:
+    B, _, Hq, D = q.shape
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def _attend_one(q, k, v, valid=None) -> torch.Tensor:
+    """One query position q (B, 1, Hq, D) against k and v (B, S, Hkv, D)
+    (``_attend_partial``'s mask and precision) -> (B, 1, Hq, D)."""
+    _, l, acc = _attend_partial(q, k, v, valid)
+    return _finish(q, acc, l)
 
 
 def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
@@ -280,6 +321,180 @@ class GQAAttention(nn.Module):
         v_cache[:, pos] = v[:, 0]
         o = decode_attention(q, k_cache, v_cache, pos + 1)
         return o.reshape(B, 1, -1) @ self.wo
+
+
+# ---------------------------------------------------------------------------
+# GQA on an LM grid (tensor parallel over "model")
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GQAPlan:
+    """How one GQA layer splits over the "model" axis, derived from the
+    parameter specs (``dist.sharding.param_specs``): which of wq, wk (and
+    wv) and wo are sharded, and, when the heads divide the axis
+    (``repro``'s ``constrain_heads``), this rank's query heads
+    [q0, q0 + nq) and the KV heads [kv0, kv0 + nkv) they read.
+    ``kv_local``: wk's column block on this rank is exactly those KV
+    heads, so no gather is needed; ``kv_index``: the local KV head of each
+    local query head where they do not group evenly (else None)."""
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    wq: bool
+    wk: bool
+    wo: bool
+    heads_local: bool
+    q0: int
+    nq: int
+    kv0: int
+    nkv: int
+    kv_local: bool
+    kv_index: tuple | None
+
+
+def gqa_plan(n_heads: int, n_kv: int, head_dim: int, tp, *, wq: bool,
+             wk: bool, wo: bool) -> GQAPlan:
+    """The plan of a GQA layer on ``tp``'s model axis (``GQAPlan``).  A
+    sharded wk need not hold whole heads: at model = 16 llama3.2-1b's wk
+    (2048 x 512) gives each rank 32 columns, half a 64-wide KV head, so
+    its KV heads are gathered before use."""
+    M, m = tp.size, tp.index
+    heads_local = M > 1 and n_heads % M == 0
+    if not heads_local:
+        return GQAPlan(n_heads, n_kv, head_dim, wq, wk, wo, False, 0,
+                       n_heads, 0, n_kv, False, None)
+    g = n_heads // n_kv
+    nq = n_heads // M
+    q0 = m * nq
+    kv0 = q0 // g
+    nkv = (q0 + nq - 1) // g + 1 - kv0
+    kv_local = (wk and n_kv % M == 0 and nkv == n_kv // M
+                and kv0 == m * nkv)
+    index = tuple((q0 + t) // g - kv0 for t in range(nq))
+    even = nq % nkv == 0 and index == tuple(t // (nq // nkv)
+                                            for t in range(nq))
+    return GQAPlan(n_heads, n_kv, head_dim, wq, wk, wo, True, q0, nq, kv0,
+                   nkv, kv_local, None if even else index)
+
+
+def _heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    B, S = x.shape[:2]
+    return x.reshape(B, S, n, -1)
+
+
+def gqa_grid_full(attn: GQAAttention, h: torch.Tensor,
+                  positions: torch.Tensor, plan: GQAPlan, tp, *,
+                  q_chunk: int, impl: str = "auto", causal: bool = True,
+                  need_kv: bool = False):
+    """GQA over the whole sequence on the grid: h (B, S, d), whole on
+    every model rank -> (out (B, S, d), whole on every rank, and, with
+    ``need_kv``, k and v (B, S, Hkv, D) with every KV head, as the cache
+    holds them; else None, None).  ``attn`` holds this rank's blocks of
+    wq, wk, wv (columns) and wo (rows).
+
+    Heads divide the axis: each rank attends its query heads against
+    their KV heads (its own column block of wk/wv when that is exactly
+    those heads, else the gathered K/V's), through ``chunked_attention``
+    (the CUDA kernel on a CUDA tensor), and the row-parallel wo's partial
+    products are all-reduced.  Else (``constrain_heads``'s fallback):
+    q, k and v are gathered whole; with S a multiple of the axis each
+    rank attends its own block of S / model queries (``q_offset``)
+    against the whole K/V and the outputs are gathered over the
+    sequence; otherwise every rank attends every query."""
+    B, S, _ = h.shape
+    D = plan.head_dim
+    hs = tp.split_use(h) if plan.wq or plan.wk else h
+
+    def proj(w, sharded):
+        return hs @ w if sharded else h @ w
+
+    q, k, v = proj(attn.wq, plan.wq), proj(attn.wk, plan.wk), \
+        proj(attn.wv, plan.wk)
+    rope = functools.partial(apply_rope, positions=positions,
+                             theta=attn.rope_theta)
+    k_all = v_all = None
+    if plan.heads_local:
+        if plan.wq:
+            ql = _heads(q, plan.nq)
+        else:
+            ql = _heads(tp.split_use(q)[..., plan.q0 * D:
+                                        (plan.q0 + plan.nq) * D], plan.nq)
+        ql = rope(ql)
+        if plan.kv_local:
+            kl, vl = rope(_heads(k, plan.nkv)), _heads(v, plan.nkv)
+            if need_kv:
+                k_all, v_all = tp.gather(kl, 2), tp.gather(vl, 2)
+        else:
+            kf = rope(_heads(tp.gather(k, -1) if plan.wk else k, plan.n_kv))
+            vf = _heads(tp.gather(v, -1) if plan.wk else v, plan.n_kv)
+            if need_kv:
+                k_all, v_all = kf, vf
+            sl = slice(plan.kv0, plan.kv0 + plan.nkv)
+            kl, vl = tp.split_use(kf)[:, :, sl], tp.split_use(vf)[:, :, sl]
+        if plan.kv_index is not None:
+            idx = torch.tensor(plan.kv_index, device=h.device)
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        o = chunked_attention(ql, kl, vl, causal=causal, q_chunk=q_chunk,
+                              impl=impl).reshape(B, S, plan.nq * D)
+        if plan.wo:
+            out = tp.reduce(o @ attn.wo)
+        else:
+            out = tp.gather(o, -1) @ attn.wo
+        return out, k_all, v_all
+    qf = rope(_heads(tp.gather(q, -1) if plan.wq else q, plan.n_heads))
+    kf = rope(_heads(tp.gather(k, -1) if plan.wk else k, plan.n_kv))
+    vf = _heads(tp.gather(v, -1) if plan.wk else v, plan.n_kv)
+    if tp.size > 1 and S > 1 and S % tp.size == 0:
+        r0, n = tp.block(S)
+        o = chunked_attention(tp.split_use(qf)[:, r0:r0 + n],
+                              tp.split_use(kf), tp.split_use(vf),
+                              causal=causal, q_offset=r0, q_chunk=q_chunk,
+                              impl=impl)
+        of = tp.gather(o.reshape(B, n, -1), 1)
+    else:
+        of = chunked_attention(qf, kf, vf, causal=causal, q_chunk=q_chunk,
+                               impl=impl).reshape(B, S, -1)
+    if plan.wo:
+        c0, nc = tp.block(of.shape[-1])
+        out = tp.reduce(tp.split_use(of)[..., c0:c0 + nc] @ attn.wo)
+    else:
+        out = of @ attn.wo
+    return out, (kf if need_kv else None), (vf if need_kv else None)
+
+
+def gqa_grid_decode(attn: GQAAttention, h: torch.Tensor,
+                    k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+                    plan: GQAPlan, tp, seq=None) -> torch.Tensor:
+    """One token h (B, 1, d) at ``pos`` on the grid: q, k and v gathered
+    whole over "model" (every head), the new K/V written into the
+    caches (B, S_local, Hkv, D) on the rank that holds position ``pos``
+    (``seq``: the axis the caches' S is sharded over, else None: each
+    holds every position), ``decode_attention`` combined over ``seq``,
+    then this rank's heads through the row-parallel wo and an
+    all-reduce.  No autograd: serving only."""
+    B = h.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=h.device)
+
+    def whole(w, sharded, n):
+        x = h @ w
+        return _heads(tp.gather(x, -1) if sharded else x, n)
+
+    q = apply_rope(whole(attn.wq, plan.wq, plan.n_heads), positions,
+                   attn.rope_theta)
+    k = apply_rope(whole(attn.wk, plan.wk, plan.n_kv), positions,
+                   attn.rope_theta)
+    v = whole(attn.wv, plan.wk, plan.n_kv)
+    S = k_cache.shape[1]
+    owner, at = divmod(pos, S) if seq is not None else (None, pos)
+    if seq is None or seq.index == owner:
+        k_cache[:, at] = k[:, 0]
+        v_cache[:, at] = v[:, 0]
+    o = decode_attention(q, k_cache, v_cache, pos + 1,
+                         group=seq).reshape(B, 1, -1)
+    if plan.wo:
+        c0, nc = tp.block(o.shape[-1])
+        return tp.reduce(o[..., c0:c0 + nc] @ attn.wo)
+    return o @ attn.wo
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@
 Weights keep ``repro``'s orientation: a dense weight is (d_in, d_out) and
 is applied as ``x @ w``, the embedding table is (vocab, d_model) and the
 unembedding is tied to it.  ``repro``'s ``constrain`` calls are sharding
-hints, no-ops on one device, and are not carried over.  Draws come from a
+hints, no-ops on one device; on an LM grid the ``*_grid`` functions
+make the collectives they imply by hand (``dist.tp``): the
+column/row-parallel MLP, the vocab-parallel embedding and the
+vocab-sharded logits.  Draws come from a
 ``torch.Generator`` (``repro``'s ``jax.random`` keys cannot be
 reproduced), so parity tests load ``repro``'s parameters through
 ``convert.lm_params_from_repro``.
@@ -130,3 +133,47 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: logits = x @ table^T."""
     return x @ table.T
+
+
+# ---------------------------------------------------------------------------
+# On an LM grid (tensor parallel over "model"; ``dist.tp``)
+# ---------------------------------------------------------------------------
+
+def mlp_grid(mlp: nn.Module, h: torch.Tensor, tp, sharded: bool
+             ) -> torch.Tensor:
+    """The MLP on the grid: h (B, S, d), whole on every model rank.
+    Sharded (wi and wg column-parallel, wo row-parallel), each rank
+    computes its block of d_ff features and the partial products of wo
+    are all-reduced; else every rank computes the whole MLP."""
+    if not sharded:
+        return mlp(h)
+    hs = tp.split_use(h)
+    if isinstance(mlp, MLP):
+        a = F.silu(hs @ mlp.wg) * (hs @ mlp.wi)
+    else:
+        a = F.gelu(hs @ mlp.wi, approximate="tanh")
+    return tp.reduce(a @ mlp.wo)
+
+
+def embed_grid(table: torch.Tensor, tokens: torch.Tensor, tp,
+               sharded: bool) -> torch.Tensor:
+    """Vocab-parallel lookup: each rank holds rows [index * V_l, (index +
+    1) * V_l) of the table, looks up the ids in its range, writes zero
+    for the others, and the ranks' rows are all-reduced."""
+    if not sharded:
+        return embed(table, tokens)
+    lo, n = tp.index * table.shape[0], table.shape[0]
+    ids = tokens - lo
+    inside = (ids >= 0) & (ids < n)
+    x = embed(table, ids.clamp(0, n - 1))
+    return tp.reduce(torch.where(inside[..., None], x, 0))
+
+
+def unembed_grid(table: torch.Tensor, x: torch.Tensor, tp, sharded: bool
+                 ) -> torch.Tensor:
+    """Tied unembedding on the grid: logits (..., V_l) of this rank's
+    vocab rows when the table is sharded (``repro``'s ``constrain(logits,
+    BATCH, None, MODEL)``), else all of them."""
+    if not sharded:
+        return unembed(table, x)
+    return unembed(table, tp.split_use(x))

@@ -26,21 +26,46 @@ from .ssm import mamba2_dims
 IGNORE = -1
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
+                  tp=None):
     """Padded-vocab causal CE: logits (B, S, Vpad), labels (B, S) with
     ``IGNORE`` for positions without a loss -> (mean loss, n_tokens), both
-    0-d tensors (fp32, int64)."""
-    Vp = logits.shape[-1]
-    logits = logits.float()
-    if Vp > vocab:
-        real = torch.arange(Vp, device=logits.device) < vocab
-        logits = torch.where(real, logits, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.clamp_min(0).unsqueeze(-1))[..., 0]
-    counted = labels != IGNORE
-    nll = torch.where(counted, lse - picked, 0.0)
+    0-d tensors (fp32, int64).  With ``tp`` (``dist.tp.TensorParallel``)
+    the logits are this rank's vocab block (``token_nll``)."""
+    nll, counted = token_nll(logits, labels, vocab, tp)
     n = counted.sum().clamp_min(1)
     return nll.sum() / n, n
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
+              tp=None):
+    """Each position's negative log-likelihood (0 where not counted) and
+    the mask of counted positions.  With ``tp`` the logits (B, S, V_l)
+    are rank index's vocab rows [index * V_l, (index + 1) * V_l) over the
+    "model" axis: the logsumexp is distributed (an all-reduce MAX of the
+    row maxima, then a SUM of exp), and the target's logit comes from the
+    rank that holds it (a SUM of one value and zeros); the padded ids
+    are masked to -1e30 on their rank."""
+    V = logits.shape[-1]
+    lo = 0 if tp is None else tp.index * V
+    logits = logits.float()
+    if lo + V > vocab:
+        real = lo + torch.arange(V, device=logits.device) < vocab
+        logits = torch.where(real, logits, -1e30)
+    target = labels.clamp_min(0)
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, target.unsqueeze(-1))[..., 0]
+    else:
+        m = tp.pmax(logits.amax(dim=-1))
+        lse = m + torch.log(tp.reduce(
+            torch.exp(logits - m[..., None]).sum(dim=-1)))
+        t = target - lo
+        inside = (t >= 0) & (t < V)
+        own = logits.gather(-1, t.clamp(0, V - 1).unsqueeze(-1))[..., 0]
+        picked = tp.reduce(torch.where(inside, own, 0.0))
+    counted = labels != IGNORE
+    return torch.where(counted, lse - picked, 0.0), counted
 
 
 def loss_fn(model: nn.Module, cfg, batch: dict, *, moe_impl: str = "einsum",
@@ -57,6 +82,28 @@ def loss_fn(model: nn.Module, cfg, batch: dict, *, moe_impl: str = "einsum",
         logits = logits[:, -labels.shape[1]:]
     ce, n = cross_entropy(logits, labels, cfg.vocab)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux, "tokens": n}
+
+
+def grid_loss_fn(gm, batch: dict, *, remat: bool = False,
+                 moe_impl: str = "einsum", aux_weight: float = 0.01):
+    """The training loss of a ``GridTransformer`` on this cell's rows of
+    ``batch`` ({"tokens", "labels"}, (B_l, S) each): (this cell's share
+    of the loss, {"ce", "aux", "tokens"}).  The share is its tokens'
+    summed NLL over the global batch's counted tokens (an all-reduce over
+    ("pod", "data")), so the shares' gradients, summed over the batch
+    group, are the global mean's, and ``ce`` (the shares summed; no
+    gradient) is ``repro``'s mean over the global batch."""
+    logits, aux = gm.forward(batch["tokens"], impl="ref", remat=remat,
+                             moe_impl=moe_impl)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
+    tp = gm.tp if gm.dense and gm.vocab_sharded else None
+    nll, counted = token_nll(logits, labels, gm.cfg.vocab, tp)
+    n = gm.batch.psum(counted.sum())
+    share = nll.sum() / n.clamp_min(1) + aux_weight * aux / gm.batch.size
+    ce = gm.batch.psum(share.detach()) - aux_weight * aux.detach()
+    return share, {"ce": ce, "aux": aux.detach(), "tokens": n}
 
 
 def count_params(model: nn.Module) -> int:

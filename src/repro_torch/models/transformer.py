@@ -39,19 +39,32 @@ GQA, MLA and cross attention launches the CUDA flash_attention kernel
 training forward takes: the kernel has no backward (nor has ``repro``'s
 Pallas kernel), and a forward under grad on its route raises.  The SSM
 and the hybrid's sliding window run no kernel, as in ``repro``.
+
+On an LM grid a model placed there (``train.serve_step.
+params_shardings``) runs through ``GridTransformer``, ``repro``'s
+forward/prefill/decode_step under a mesh; ``param_shapes`` is
+``repro``'s parameter tree's shapes, what the placement rules read.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
+from repro_torch.dist.sharding import (BATCH_AXIS, MODEL_AXIS, Grid,
+                                       LMPlacement, cache_specs, local_block,
+                                       shard_batch, stacked_shapes)
+from repro_torch.dist.tp import TensorParallel
 
 from .attention import (GQAAttention, MLAAttention, cross_attention,
-                        decode_attention)
+                        decode_attention, gqa_grid_decode, gqa_grid_full,
+                        gqa_plan)
 from .hybrid import Hymba, hymba_apply, hymba_step
-from .layers import MLP, MLP2, embed, embed_init, param, rmsnorm, unembed
+from .layers import (MLP, MLP2, embed, embed_grid, embed_init, mlp_grid,
+                     param, rmsnorm, unembed, unembed_grid)
 from .moe import MoE
 from .ssm import Mamba2, mamba2_dims, mamba2_step
 
@@ -470,3 +483,223 @@ class Transformer(nn.Module):
             x = blk.decode(x, {name: leaf[i] for name, leaf in cache.items()},
                            pos, moe_impl=moe_impl)
         return unembed(self.embed, rmsnorm(x, self.final_norm)), cache
+
+
+# ---------------------------------------------------------------------------
+# Shapes, and the model on an LM grid
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _named_shapes(cfg) -> tuple:
+    model = Transformer(cfg, device="meta")
+    return tuple((n, tuple(p.shape)) for n, p in model.named_parameters())
+
+
+def named_shapes(cfg) -> dict[str, tuple]:
+    """The global shape of each of the port's parameters ({name: shape};
+    built on the meta device, no storage)."""
+    return dict(_named_shapes(cfg))
+
+
+def param_shapes(cfg) -> dict[str, tuple]:
+    """``repro``'s parameter tree's shapes ({"/"-path: shape}, layer
+    stacks with their leading L axis; ``repro``'s ``param_shapes``),
+    from the port's model without allocating it: what the placement
+    rules (``dist.sharding.param_specs``) read."""
+    return stacked_shapes(named_shapes(cfg))
+
+
+def grid_supported(cfg) -> bool:
+    """Whether the grid forward takes ``cfg`` on a grid of more than one
+    cell: the dense GQA decoders (llama3.2-1b, yi-9b, granite-20b)."""
+    return cfg.family == "dense" and cfg.attn_impl == "gqa"
+
+
+def lm_placement(grid: Grid, cfg) -> LMPlacement:
+    """Where each of ``cfg``'s parameters lives on ``grid``; refuses a
+    family the grid forward does not take on a grid of several cells."""
+    if grid.size > 1 and not grid_supported(cfg):
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family ({cfg.attn_impl} "
+            f"attention) runs on a 1 x 1 grid only; its grid forward is "
+            f"not ported yet (ROADMAP.md §1 item 5(d)); the dense GQA "
+            f"decoders run on any LM grid")
+    if not grid.lm:
+        raise ValueError("the LM runs on an LM grid (Grid(lm=True), "
+                         "launch.mesh.make_lm_grid)")
+    return LMPlacement(grid, named_shapes(cfg))
+
+
+class GridTransformer:
+    """A ``Transformer`` whose parameters are placed on an LM grid
+    (``train.serve_step.params_shardings``), run as ``repro`` runs it on
+    its mesh: tensor parallel over "model" (Megatron column / row
+    parallel projections, vocab-parallel embedding and logits, heads
+    split as ``constrain_heads`` splits them), data parallel over ("pod",
+    "data"), the decode cache's sequence over "model" (``cache_specs``).
+    The residual stream between blocks is whole on every model rank (an
+    all-reduce after each row-parallel product); ``repro`` keeps it
+    sequence-sharded, which gives the same values.
+
+      forward(tokens)                   -> (logits (B_l, S, V_l), aux)
+      prefill(tokens, max_len)          -> (logits (B_l, 1, Vpad), cache)
+      decode_step(cache, tokens, pos)   -> (logits (B_l, 1, Vpad), cache)
+      init_cache(batch, max_len)        -> cache (this cell's blocks)
+
+    ``forward`` takes this cell's rows and gives its vocab block of the
+    logits (the training loss reads them sharded); ``prefill`` takes the
+    global batch and keeps this cell's rows (``batch_shardings``);
+    ``decode_step`` takes and gives this cell's rows, with every vocab
+    id.  The MoE, MLA, SSM, hybrid, enc-dec and VLM families run on a
+    1 x 1 grid only, through the model's own methods."""
+
+    def __init__(self, model: Transformer, grid: Grid,
+                 placement: LMPlacement | None = None):
+        cfg = model.cfg
+        self.model, self.grid, self.cfg = model, grid, cfg
+        self.placement = placement or lm_placement(grid, cfg)
+        for name, p in model.named_parameters():
+            if tuple(p.shape) != self.placement.local_shape(name):
+                raise ValueError(
+                    f"{name} {tuple(p.shape)} is not this cell's block "
+                    f"{self.placement.local_shape(name)}: place the model "
+                    f"first (train.serve_step.params_shardings(grid, "
+                    f"model))")
+        self.tp = TensorParallel(grid)
+        self.batch = grid.axis(BATCH_AXIS)
+        self.dense = grid_supported(cfg)
+        if self.dense:
+            pl = self.placement
+            sh = pl.model_sharded
+            self.plan = gqa_plan(cfg.n_heads, cfg.n_kv, head_dim(cfg),
+                                 self.tp, wq=sh("layers.0.attn.wq"),
+                                 wk=sh("layers.0.attn.wk"),
+                                 wo=sh("layers.0.attn.wo"))
+            self.mlp_sharded = sh("layers.0.mlp.wo")
+            if sh("layers.0.mlp.wi") != self.mlp_sharded:
+                raise ValueError(f"{cfg.name}: the MLP's wi and wo must be "
+                                 f"split alike")
+            self.vocab_sharded = sh("embed")
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def _block(self, i: int, x, positions, impl: str, q_chunk: int,
+               need_kv: bool = False):
+        blk = self.model.layers[i]
+        a, k, v = gqa_grid_full(blk.attn, rmsnorm(x, blk.ln1), positions,
+                                self.plan, self.tp, q_chunk=q_chunk,
+                                impl=impl, need_kv=need_kv)
+        x = x + a
+        x = x + mlp_grid(blk.mlp, rmsnorm(x, blk.ln2), self.tp,
+                         self.mlp_sharded)
+        return x, k, v
+
+    def _train_block(self, i: int, x, positions, impl: str):
+        return self._block(i, x, positions, impl, TRAIN_Q_CHUNK)[0]
+
+    def forward(self, tokens: torch.Tensor, *, impl: str = "ref",
+                remat: bool = False, moe_impl: str = "einsum"):
+        """tokens (B_l, S), this cell's rows -> (logits (B_l, S, V_l), this
+        rank's vocab block, and aux).  Training's forward: ``impl`` "ref"
+        (the plain chunked attention, which autograd differentiates)."""
+        if not self.dense:
+            return self.model(tokens, impl=impl, remat=remat,
+                              moe_impl=moe_impl)
+        m = self.model
+        x = embed_grid(m.embed, tokens, self.tp, self.vocab_sharded)
+        positions = m._positions(x)
+        for i in range(len(m.layers)):
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(self._train_block, i, x, positions, impl,
+                               use_reentrant=False)
+            else:
+                x = self._train_block(i, x, positions, impl)
+        logits = unembed_grid(m.embed, rmsnorm(x, m.final_norm), self.tp,
+                              self.vocab_sharded)
+        return logits, torch.zeros((), device=x.device)
+
+    def _whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.vocab_sharded:
+            return self.tp.gather(logits, -1)
+        return logits
+
+    def init_cache(self, batch_size: int, max_len: int) -> dict:
+        """This cell's blocks of the zero decode cache of a global batch
+        of ``batch_size`` sequences and ``max_len`` positions
+        (``cache_specs``: batch over the data axes, positions over
+        "model"; ``ValueError`` when max_len is not a multiple of the
+        model axis, which would put "model" on the heads)."""
+        if not self.dense:
+            return self.model.init_cache(batch_size, max_len)
+        cfg = self.cfg
+        kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv, head_dim(cfg))
+        spec = cache_specs(self.grid, {"k": kv})["k"]
+        if self.tp.size > 1 and spec[2] != MODEL_AXIS:
+            raise ValueError(
+                f"the decode cache's {max_len} positions are not a "
+                f"multiple of the model axis ({self.tp.size}); the grid "
+                f"decode needs them sharded over it (cache_specs)")
+        shape = local_block(self.grid, torch.empty(kv, device="meta"),
+                            spec).shape
+        return {n: torch.zeros(shape, dtype=self.model.embed.dtype,
+                               device=self.device) for n in ("k", "v")}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: int | None = None, *,
+                impl: str = "auto", moe_impl: str = "einsum"):
+        """Serving prefill of the global batch ``tokens`` (B, S): this
+        cell's rows go through the layers (attention through the CUDA
+        kernel on a CUDA tensor, on this rank's heads), each layer's K/V
+        gathered whole over "model" and this cell's block of positions
+        kept.  Returns (logits (B_l, 1, Vpad) of the last position, the
+        cache of ``max_len`` (default S) positions rounded up to a
+        multiple of the model axis, this cell's blocks)."""
+        B, S = tokens.shape
+        M = self.tp.size
+        max_len = -(-(max_len or S) // M) * M
+        if not self.dense:
+            logits, filled = self.model.prefill(tokens, impl=impl,
+                                                moe_impl=moe_impl)
+            return logits, self.model.extend_cache(filled, max_len)
+        cache = self.init_cache(B, max_len)
+        m = self.model
+        x = embed_grid(m.embed, shard_batch(self.grid, {"t": tokens})["t"],
+                       self.tp, self.vocab_sharded)
+        positions = m._positions(x)
+        s_l = cache["k"].shape[2]
+        p0 = self.tp.index * s_l if self.tp.size > 1 else 0
+        n = max(0, min(S, p0 + s_l) - p0)
+        for i in range(len(m.layers)):
+            x, k, v = self._block(i, x, positions, impl, PREFILL_Q_CHUNK,
+                                  need_kv=True)
+            cache["k"][i, :, :n] = k[:, p0:p0 + n]
+            cache["v"][i, :, :n] = v[:, p0:p0 + n]
+        last = unembed_grid(m.embed, rmsnorm(x[:, -1:], m.final_norm),
+                            self.tp, self.vocab_sharded)
+        return self._whole_vocab(last), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor, pos: int, *,
+                    moe_impl: str = "einsum"):
+        """One token for this cell's rows: tokens (B_l, 1) at position
+        ``pos`` -> (logits (B_l, 1, Vpad), cache updated in place).  Each
+        layer gathers q, k and v whole over "model", writes k and v on the
+        rank that holds ``pos``, combines the sequence-sharded attention
+        (``decode_attention(group=)``), and runs its heads through wo."""
+        if not self.dense:
+            return self.model.decode_step(cache, tokens, pos,
+                                          moe_impl=moe_impl)
+        m = self.model
+        seq = self.grid.axis(MODEL_AXIS) if self.tp.size > 1 else None
+        x = embed_grid(m.embed, tokens, self.tp, self.vocab_sharded)
+        for i, blk in enumerate(m.layers):
+            x = x + gqa_grid_decode(blk.attn, rmsnorm(x, blk.ln1),
+                                    cache["k"][i], cache["v"][i], pos,
+                                    self.plan, self.tp, seq)
+            x = x + mlp_grid(blk.mlp, rmsnorm(x, blk.ln2), self.tp,
+                             self.mlp_sharded)
+        logits = unembed_grid(m.embed, rmsnorm(x, m.final_norm), self.tp,
+                              self.vocab_sharded)
+        return self._whole_vocab(logits), cache

@@ -4,9 +4,10 @@ with an fp32 scale (amax / 127), and error feedback that carries each
 step's quantization residual into the next, so the sum of what was sent
 plus the carried error equals the sum of the raw gradients.
 
-``repro``'s ``ef_psum``, the compressed all-reduce of the data-parallel
-path (a ``shard_map`` collective), is not ported: it waits for the LM
-mesh (ROADMAP.md §1 item 5(d)).  ``compress``/``decompress`` also serve
+``ef_psum`` is ``repro``'s compressed all-reduce with error feedback
+over one axis of a process grid (``repro``'s is a ``shard_map``
+collective over a mesh axis): the building block only, which neither
+package's train step calls.  ``compress``/``decompress`` also serve
 standalone, e.g. to shrink a checkpoint.
 """
 from __future__ import annotations
@@ -41,6 +42,24 @@ def ef_compress(g: torch.Tensor, err: torch.Tensor
     target = g.float() + err
     c = compress(target)
     return c, target - decompress(c)
+
+
+def ef_psum(g: torch.Tensor, err: torch.Tensor, grid, axis: str
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compressed mean of g over ``axis`` of ``grid``
+    (``dist.sharding.Grid``) with error feedback: (mean in g's dtype,
+    new_err).  The ranks agree on one scale (an all-reduce MAX of each
+    one's amax of g + err), each quantizes g + err to int8 with it and
+    keeps the residual, and the int8 payloads are summed exactly in
+    int32 (exact for up to 2^23 summands)."""
+    target = g.float() + err
+    amax = grid.pmax(torch.max(torch.abs(target)), axis)
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.clamp(torch.round(target / scale), -127, 127).to(torch.int8)
+    new_err = target - q.float() * scale
+    qsum = grid.psum(q.to(torch.int32), axis)
+    mean = qsum.float() * scale / grid.axis_size(axis)
+    return mean.to(g.dtype), new_err
 
 
 def init_error(params: dict) -> dict:

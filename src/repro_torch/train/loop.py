@@ -19,6 +19,19 @@ A restore copies the checkpoint into the live state's tensors (its
 second state.  Saves and restores are ``train/save`` and
 ``train/restore`` spans (``obs.trace``); the run's last step is saved
 once (``repro`` writes it again when it falls on ``save_every``).
+
+On an LM grid (``grid=``, ``repro``'s ``mesh=``) the step is the grid
+step and a checkpoint holds the global arrays, as ``repro``'s global
+format does: every cell takes part in gathering the parameters (over
+"model") and the moments (over "data", then "model"), rank 0 writes
+them, and the cells wait for each other (``Grid.agree``) before the
+next step.  A restore reads the global arrays on every cell and keeps
+this cell's blocks.  The cells must share the checkpoint directory, and
+``async_save`` is refused there (the other cells could restore before
+rank 0's write ends).  A fault must strike every cell alike (the
+``train/step`` seam fires on every cell at the same hit): an error on
+one cell only leaves the others waiting in a collective until the
+group's timeout.
 """
 from __future__ import annotations
 
@@ -31,6 +44,8 @@ import torch
 from repro_torch import ckpt
 from repro_torch import device as _device
 from repro_torch.dist.elastic import StragglerMonitor
+from repro_torch.dist.sharding import Grid
+from repro_torch.models.transformer import lm_placement, named_shapes
 from repro_torch.obs import trace as obs
 from repro_torch.optim import AdamW
 from repro_torch.resilience import RetryPolicy, faults
@@ -52,26 +67,41 @@ class LoopConfig:
     async_save: bool = False
 
 
-def state_tree(state: TrainState) -> dict:
+def state_tree(state: TrainState, grid: Grid | None = None) -> dict:
     """The state as a tree of tensors for ``ckpt``: {"params": {name:
-    tensor}, "opt": {"m", "v", "count"}, "step"}."""
-    return {"params": {n: p.detach()
-                       for n, p in state.params.named_parameters()},
-            "opt": {"m": state.opt.m, "v": state.opt.v,
-                    "count": state.opt.count},
+    tensor}, "opt": {"m", "v", "count"}, "step"}; on ``grid`` the global
+    arrays, gathered (every cell must call this)."""
+    named = dict(state.params.named_parameters())
+    if grid is None:
+        return {"params": {n: p.detach() for n, p in named.items()},
+                "opt": {"m": state.opt.m, "v": state.opt.v,
+                        "count": state.opt.count},
+                "step": state.step}
+    pl = lm_placement(grid, state.params.cfg)
+    params = {n: pl.gather_param(n, p.detach()) for n, p in named.items()}
+    moments = {part: {n: pl.gather_moment(n, getattr(state.opt, part).get(n),
+                                          p.detach())
+                      for n, p in named.items()} for part in ("m", "v")}
+    return {"params": params,
+            "opt": {**moments, "count": state.opt.count},
             "step": state.step}
 
 
-def load_tree(state: TrainState, tree: dict) -> TrainState:
+def load_tree(state: TrainState, tree: dict, grid: Grid | None = None
+              ) -> TrainState:
     """Copy a restored tree (``state_tree``'s layout, on any device) into
-    ``state``'s tensors in place; returns the state with the restored
-    count and step."""
+    ``state``'s tensors in place (on ``grid``, this cell's blocks of the
+    global arrays); returns the state with the restored count and
+    step."""
+    pl = None if grid is None else lm_placement(grid, state.params.cfg)
     with torch.no_grad():
         for name, p in state.params.named_parameters():
-            p.copy_(tree["params"][name])
+            x = tree["params"][name]
+            p.copy_(x if pl is None else pl.local(name, x))
         for part in ("m", "v"):
             for name, x in getattr(state.opt, part).items():
-                x.copy_(tree["opt"][part][name])
+                y = tree["opt"][part][name]
+                x.copy_(y if pl is None else pl.place_owned(name, y))
     opt = state.opt._replace(count=tree["opt"]["count"].to(torch.int32))
     return TrainState(params=state.params, opt=opt,
                       step=tree["step"].to(torch.int64))
@@ -83,23 +113,44 @@ def _meta_like(tree):
     return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
 
 
+def _global_like(state: TrainState) -> dict:
+    """``state_tree(state, grid)``'s layout on the meta device, from the
+    global shapes (no collective)."""
+    shapes = named_shapes(state.params.cfg)
+    dtypes = {n: p.dtype for n, p in state.params.named_parameters()}
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    moments = {n: meta(s, torch.float32) for n, s in shapes.items()}
+    return {"params": {n: meta(s, dtypes[n]) for n, s in shapes.items()},
+            "opt": {"m": moments, "v": dict(moments),
+                    "count": meta((), torch.int32)},
+            "step": meta((), torch.int64)}
+
+
 def train_loop(cfg, batch_fn: Callable[[int], Any], loop: LoopConfig, *,
                optimizer: AdamW | None = None, remat: bool = True,
                moe_impl: str = "einsum", retry: RetryPolicy | None = None,
-               device=None,
+               device=None, grid: Grid | None = None,
                verbose: bool = False) -> tuple[TrainState, list[dict]]:
     """Run ``loop.steps`` steps of ``cfg`` on ``device`` (default
-    ``cuda``) with checkpoint/restart; returns (state, history), one dict
-    of floats per executed step (replayed steps appear again).
+    ``cuda``; on ``grid``, the grid's device) with checkpoint/restart;
+    returns (state, history), one dict of floats per executed step
+    (replayed steps appear again).
 
-    batch_fn(step) -> batch (a pure function of step).  ``retry``
-    classifies errors and gives the backoff between restarts (the budget
-    is loop.max_restarts, not the policy's attempts)."""
+    batch_fn(step) -> batch (a pure function of step; on a grid the
+    global batch, the same on every cell).  ``retry`` classifies errors
+    and gives the backoff between restarts (the budget is
+    loop.max_restarts, not the policy's attempts)."""
     optimizer = optimizer or AdamW()
     policy = retry or RetryPolicy()
-    dev = _device.resolve(device)
-    step_fn = make_train_step(cfg, optimizer=optimizer, remat=remat,
-                              moe_impl=moe_impl)
+    dev = grid.device if grid is not None else _device.resolve(device)
+    if grid is not None and loop.async_save and loop.ckpt_dir:
+        raise ValueError("async_save is refused on a grid: the other cells "
+                         "could restore before rank 0's write ends")
+    step_fn = make_train_step(cfg, grid=grid, optimizer=optimizer,
+                              remat=remat, moe_impl=moe_impl)
 
     def generator() -> torch.Generator:
         g = torch.Generator(device=dev)
@@ -107,9 +158,9 @@ def train_loop(cfg, batch_fn: Callable[[int], Any], loop: LoopConfig, *,
         return g
 
     def fresh(state: TrainState | None) -> TrainState:
-        if state is None:
+        if state is None or grid is not None:
             return init_state(cfg, optimizer, generator=generator(),
-                              device=dev)
+                              device=dev, grid=grid)
         state.params.init_parameters(generator())
         for part in (state.opt.m, state.opt.v):
             for x in part.values():
@@ -123,10 +174,11 @@ def train_loop(cfg, batch_fn: Callable[[int], Any], loop: LoopConfig, *,
         if loop.ckpt_dir and ckpt.latest_step(loop.ckpt_dir) is not None:
             if state is None:
                 state = fresh(None)
+            like = (_meta_like(state_tree(state)) if grid is None
+                    else _global_like(state))
             with obs.span("train/restore"):
-                tree, step = ckpt.restore(loop.ckpt_dir,
-                                          _meta_like(state_tree(state)))
-                return load_tree(state, tree), step
+                tree, step = ckpt.restore(loop.ckpt_dir, like)
+                return load_tree(state, tree, grid), step
         return fresh(state), 0
 
     pending: list[ckpt.AsyncSave] = []
@@ -142,11 +194,14 @@ def train_loop(cfg, batch_fn: Callable[[int], Any], loop: LoopConfig, *,
     def save_state(step: int, state: TrainState) -> None:
         surface_pending()
         with obs.span("train/save", step=step, async_save=loop.async_save):
+            tree = state_tree(state, grid)
             if loop.async_save:
-                pending.append(ckpt.save_async(loop.ckpt_dir, step,
-                                               state_tree(state)))
-            else:
-                ckpt.save(loop.ckpt_dir, step, state_tree(state))
+                pending.append(ckpt.save_async(loop.ckpt_dir, step, tree))
+            elif grid is None or grid.rank == 0:
+                ckpt.save(loop.ckpt_dir, step, tree)
+            del tree
+            if grid is not None:
+                grid.agree([step])          # the files exist for every cell
         saved[0] = step
 
     state, start = try_restore(None)

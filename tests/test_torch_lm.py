@@ -576,11 +576,12 @@ def repro_demo_parser(monkeypatch):
 def test_decode_demo_flags_match_repro(monkeypatch):
     theirs = {a.dest: a for a in repro_demo_parser(monkeypatch)._actions}
     mine = {a.dest: a for a in decode_demo.build_parser()._actions}
-    for dest in ("arch", "reduced", "batch", "prompt_len", "new_tokens"):
+    for dest in ("arch", "reduced", "batch", "prompt_len", "new_tokens",
+                 "mesh"):
         assert mine[dest].default == theirs[dest].default, dest
         assert mine[dest].required == theirs[dest].required, dest
     assert list(mine["arch"].choices) == list(theirs["arch"].choices)
-    assert "mesh" not in mine
+    assert list(mine["mesh"].choices) == list(theirs["mesh"].choices)
     assert mine["device"].default == "cuda"
 
 

@@ -581,7 +581,7 @@ def test_launch_train_reduced_on_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--arch", ARCH, "--reduced", "--mesh", "pod"], NotImplementedError),
+    (["--arch", ARCH, "--reduced", "--mesh", "pod"], ValueError),
     (["--arch", "whisper-large-v3", "--reduced"], SystemExit),
     (["--arch", "internvl2-26b", "--reduced"], SystemExit),
 ])
