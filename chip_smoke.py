@@ -372,6 +372,33 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      device peak printed.  The cuts: prefill_32k's 32 x 32768 to 4 x
      4096 and train_4k's batch 256 to 4 ((a)), 2 x 2048 ((b)); depth and
      widths are not cut (PERF.md §4).
+ 16. The LM zoo's other families on the process grid (after phase 15;
+     the card's name and power limit printed first), at their published
+     widths and depths in bf16, weights from seed 0 and prompts from
+     seed 1 (decode_demo's).  (a) deepseek-moe-16b: the single-device
+     path first (``decode_demo.serve`` at 4 x 4096 and 16 tokens after
+     a warm-up, its routing recorded; only its logits and tokens kept),
+     then the model placed on a 1 x 1 NCCL LM grid and served there
+     (``serve(..., grid=grid)``, counters zeroed just before): 28
+     ``sm90_bf16`` launches and no other kernel; its logits within
+     GRID_ONE_TOL of the single device's and every greedy token equal,
+     on its own routing, or else fed the single device's tokens on its
+     recorded routing (``RouteTape``); the flipped share of the
+     prefill's top-6 sets, the collectives per prefill and per decode
+     step, the times and the peak printed.  (b) A 1 x 2 grid of two
+     processes on the card (gloo on CUDA tensors): granite-moe-3b-a800m
+     (20 experts per rank) and minicpm3-4b (20 MLA heads per rank,
+     padded to 128) at 2 x 2048 and 8 tokens, each served on its own
+     routing (32 and 62 ``sm90_bf16`` launches per rank, every call's
+     heads recorded) and then fed the single device's tokens (run first
+     in this process; the MoE on its recorded routing, handed to each
+     rank): logits within LM_BF16_TOL and at least GRID_TP_SAME of the
+     greedy tokens equal; then 2 granite-moe train steps at 2 x 1024
+     with remat, each step's loss and grad norm against the single
+     device's 2 steps from the same seed-0 state and batches (run first
+     in this process): within GRID_LOSS_TOL at the first step and
+     GRID_ZOO_UPDATED_TOL after the first update; no kernel launched; ms per step,
+     collectives and each rank's peak printed.  The cuts: phase 14's (PERF.md §4).
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -567,6 +594,26 @@ GRID_LOSS_TOL = 1e-3
 # another order: phase 8's LM_BF16_TOL, and at least this share of the
 # greedy tokens equal
 GRID_TP_SAME = 0.9
+
+
+# phase 16: the LM zoo's other families on the process grid, bf16, seed 0.
+# (a) deepseek-moe-16b on a 1 x 1 NCCL grid at phase 14 (a)'s cut; (b) a
+# 1 x 2 grid of two processes on the card: granite-moe-3b-a800m (20
+# experts per rank) and minicpm3-4b (20 MLA heads per rank) at phase 14
+# (b)'s cut, then 2 granite-moe train steps at 2 x 1024 with --remat,
+# each step's loss and grad norm against the single device's steps from
+# the same state and batches: the first step's within GRID_LOSS_TOL, the
+# second's within GRID_ZOO_UPDATED_TOL.  AdamW's first update moves every
+# parameter with a nonzero gradient by about lr whatever the gradient's
+# size, so bf16 rounding in a small gradient (tensor parallel sums in
+# another order) can reverse a whole step: PERF.md §7 has the readings
+# of the tree and of two planted faults that this pair tells apart
+GRID_ZOO = dict(arch="deepseek-moe-16b", batch=4, prompt=4096,
+                new_tokens=16)
+GRID_ZOO_TP = dict(model=2, archs=("granite-moe-3b-a800m", "minicpm3-4b"),
+                   batch=2, prompt=2048, new_tokens=8, train_batch=2,
+                   train_seq=1024, train_steps=2, lr=1e-3)
+GRID_ZOO_UPDATED_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -2133,7 +2180,7 @@ def demo_vs_plain(res, tag: str, tape: RouteTape | None = None) -> dict:
         G, gs, k = ids.shape
         C = moe.capacity(gs, k, E, moe.CAPACITY_FACTOR)
         onehot = F.one_hot(ids, E).float()
-        _, kept = moe.slots(onehot, C)
+        kept = moe.slots(ids.reshape(-1, k), E, gs) < C
         out["dropped"].append((int((~kept).sum()), kept.numel()))
         out["busiest"].append(float(onehot.sum((1, 2)).amax(-1).mean()) / C)
     return out
@@ -4030,6 +4077,389 @@ def phase_lm_grid(tmp: Path, dev, smi: str) -> None:
     lm_grid_tp(tmp, dev, smi)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the LM zoo's other families on the process grid
+# ---------------------------------------------------------------------------
+
+def grid_fed(model, grid, prompts, tokens):
+    """The grid path on a placed model fed ``tokens`` (B, T + 1), this
+    cell's rows: (last-position logits, [each step's logits])."""
+    from repro_torch.dist.sharding import shard_batch
+    from repro_torch.train import make_prefill_step, make_serve_step
+    P, T = prompts.shape[1], tokens.shape[1] - 1
+    logits, cache = make_prefill_step(model, grid=grid, max_len=P + T)(
+        prompts)
+    rows = shard_batch(grid, {"t": tokens})["t"]
+    serve = make_serve_step(model, grid=grid)
+    steps = []
+    for t in range(T):
+        step, cache = serve(cache, rows[:, t:t + 1], P + t)
+        steps.append(step)
+    return logits, steps
+
+
+def flipped_share(ids, ref_ids, layers: int) -> float:
+    """The share of (token, layer) pairs of the first ``layers`` routing
+    calls (a prefill's) whose top-k expert sets differ."""
+    flips = [(a.sort(-1).values != b.sort(-1).values).any(-1).float()
+             for a, b in zip(ids[:layers], ref_ids[:layers])]
+    return float(sum(f.sum() for f in flips) / sum(f.numel() for f in flips))
+
+
+def recorded_tape(ids, dev) -> RouteTape:
+    """A ``RouteTape`` that replays ``ids`` (another run's) on ``dev``."""
+    tape = RouteTape()
+    tape.ids = [i.to(dev) for i in ids]
+    tape.replay()
+    return tape
+
+
+def lm_grid_zoo_serve(dev, smi: str) -> int:
+    """Phase 16 (a) (see the module docstring); returns the grid
+    prefill's flash_attention launches."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import decode_demo
+    from repro_torch.launch.mesh import make_lm_grid
+    from repro_torch.train.serve_step import params_shardings
+    g = GRID_ZOO
+    B, P, T = g["batch"], g["prompt"], g["new_tokens"]
+    t0 = time.perf_counter()
+    model, prompts = seeded_llama(g["arch"], B, P, dev)
+    cfg = model.cfg
+    log(f"[lmgridzoo] (a) {cfg.name} drawn in "
+        f"{time.perf_counter() - t0:.1f}s; the single-device path first "
+        f"(its logits and tokens kept), after a warm-up")
+    decode_demo.serve(model, prompts[:, :256], 2)
+    torch.cuda.empty_cache()
+    with RouteTape() as one_tape:
+        one = decode_demo.serve(model, prompts, T)
+    ref = (one.prefill_logits, list(one.step_logits.split(1, dim=1)))
+    ref_tokens, one_ms = one.tokens, (one.prefill_ms, one.decode_ms)
+    del one
+    torch.cuda.empty_cache()
+    grid = make_lm_grid(data=1, model=1)
+    try:
+        params_shardings(grid, model)
+        pre_c, step_c = grid_serve_counts(model, grid, prompts[:, :256])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        with RouteTape() as grid_tape:
+            res = decode_demo.serve(model, prompts, T, grid=grid)
+        launches = ops.launch_counts()
+        by_variant = fa.launch_count_by_variant()
+        L = cfg.n_layers
+        require(launches["flash_attention"] == L == res.flash_launches
+                and not any(n for k, n in launches.items()
+                            if k != "flash_attention"),
+                f"(a) the grid serve launched {launches}, want {L} "
+                f"flash_attention and nothing else")
+        require(by_variant == {"sm90_bf16": L, "fma_fp32": 0},
+                f"(a) the grid prefill launched {by_variant}")
+        require(bool(torch.isfinite(res.prefill_logits).all())
+                and bool(torch.isfinite(res.step_logits).all()),
+                "(a) non-finite logits")
+        moe_layers = sum(1 for blk in model.layers
+                         if blk.ffn_name == "moe")
+        flipped = flipped_share(grid_tape.ids, one_tape.ids, moe_layers)
+        own = _against(res.prefill_logits,
+                       list(res.step_logits.split(1, dim=1)), *ref,
+                       cfg.vocab)
+        held = "its own routing"
+        pre, steps, same = own
+        if not (torch.equal(res.tokens, ref_tokens)
+                and max(pre, steps) <= GRID_ONE_TOL):
+            with recorded_tape(one_tape.ids, dev) as tape:
+                forced = grid_fed(model, grid, prompts, ref_tokens)
+            require(tape.replayed_all(), "(a) the replay's routing calls "
+                    "differ from the single device's")
+            pre, steps, same = _against(*forced, *ref, cfg.vocab)
+            held = "the single device's recorded routing, fed its tokens"
+        require(pre <= GRID_ONE_TOL and steps <= GRID_ONE_TOL,
+                f"(a) grid against single device ({held}): prefill "
+                f"{pre:.3e}, steps {steps:.3e} (> {GRID_ONE_TOL})")
+        require(same == B * T, f"(a) greedy tokens equal in {same} of "
+                f"{B * T} ({held})")
+        log(f"[lmgridzoo] (a) 1 x 1 grid serve, {cfg.name} {cfg.dtype} "
+            f"({sum(p.numel() for p in model.parameters()) / 1e9:.2f}B "
+            f"parameters): prefill {B}x{P} {res.prefill_ms:.1f} ms "
+            f"(single device {one_ms[0]:.1f}), {launches['flash_attention']}"
+            f" flash_attention launches ({by_variant}); decode {T} steps "
+            f"{res.decode_ms / T:.2f} ms/step (single device "
+            f"{one_ms[1] / T:.2f}); collectives per prefill {pre_c}, per "
+            f"decode step {step_c}; peak device memory "
+            f"{res.peak_bytes / 1e9:.2f} GB; on {smi}")
+        log(f"[lmgridzoo] (a) against the single-device path on "
+            f"{held}: last-position logits relative difference {pre:.3e}, "
+            f"steps at most {steps:.3e}; greedy tokens equal in {same} of "
+            f"{B * T}; own routing: {own[0]:.3e} / {own[1]:.3e}, tokens "
+            f"equal {own[2]}, top-{cfg.top_k} sets flipped in the prefill "
+            f"{100 * flipped:.3f}% of the (token, layer) pairs")
+        profile_grid_prefill(model, grid, prompts)
+    finally:
+        grid.destroy()
+    del res, model
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def profile_grid_prefill(model, grid, prompts, top: int = 10) -> None:
+    """Phase 16 (a): the 1 x 1 grid's prefill and the single-device
+    prefill on the same placed model, each once more under
+    torch.profiler: wall, device busy time and idle share, and the
+    ``top`` kernels by device time."""
+    import torch
+    from repro_torch.train import make_prefill_step
+    for label, step in (("grid", make_prefill_step(model, grid=grid)),
+                        ("single device", make_prefill_step(model))):
+        wall, busy, events = profiled(lambda: step(prompts), host=False)
+        log(f"[lmgridzoo] (a) profiled {label} prefill: wall "
+            f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
+            f"({100 * (1 - busy / wall):.1f}% idle)")
+        for e in events[:top]:
+            log(f"[lmgridzoo]   {e.device_time_total / 1e3:9.3f} ms "
+                f"{100 * e.device_time_total / 1e6 / busy:5.1f}%  "
+                f"x{e.count:<5d} {e.key[:70]}")
+        torch.cuda.empty_cache()
+
+
+def zoo_tp_cell(grid, refs: dict) -> dict:
+    """Phase 16 (b), one cell of the 1 x 2 grid (a spawned process on the
+    card): each arch seeded, placed and served through decode_demo.serve
+    after a warm-up (what it launched, on which heads, its times and
+    peak), then fed the single device's tokens (an MoE on its recorded
+    routing); then the granite-moe train steps."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import decode_demo
+    from repro_torch.train.serve_step import params_shardings
+    t = GRID_ZOO_TP
+    dev = grid.device
+    out = {}
+    flash = ops.flash_attention
+    for arch, ref in refs.items():
+        model, prompts = seeded_llama(arch, t["batch"], t["prompt"], dev)
+        params_shardings(grid, model)
+        pre_c, step_c = grid_serve_counts(model, grid, prompts[:, :256])
+        heads = []
+
+        def recorded(q, k, v, **kw):
+            heads.append((q.shape[1], k.shape[1]))
+            return flash(q, k, v, **kw)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        ops.flash_attention = recorded
+        try:
+            res = decode_demo.serve(model, prompts, t["new_tokens"],
+                                    grid=grid)
+        finally:
+            ops.flash_attention = flash
+        launches, variants = ops.launch_counts(), fa.launch_count_by_variant()
+        tape = recorded_tape(ref["ids"], dev)
+        with tape:
+            logits, steps = grid_fed(model, grid, prompts,
+                                     ref["tokens"].to(dev))
+        out[arch] = {"prefill": logits.float().cpu(),
+                     "steps": torch.cat(steps, 1).float().cpu(),
+                     "own_tokens": res.tokens.cpu(), "launches": launches,
+                     "variants": variants, "heads": heads,
+                     "replayed": tape.replayed_all() or not ref["ids"],
+                     "prefill_ms": res.prefill_ms,
+                     "decode_ms": res.decode_ms, "peak": res.peak_bytes,
+                     "collectives": (pre_c, step_c)}
+        del model, res, logits, steps
+        torch.cuda.empty_cache()
+    out["train"] = zoo_tp_train(grid)
+    return out
+
+
+def zoo_train(cfg, dev, grid=None) -> tuple[list, object]:
+    """GRID_ZOO_TP's train steps of ``cfg`` from the seed-0 state on the
+    token stream's first batches, on one device or ``grid``, with
+    --remat: each step's loss, grad norm, ms and collectives; and the
+    last state."""
+    import torch
+    from repro_torch.data import TokenStreamConfig, batch_at
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_state, make_train_step
+    t = GRID_ZOO_TP
+    ds = TokenStreamConfig(vocab=cfg.vocab, batch=t["train_batch"],
+                           seq=t["train_seq"])
+    opt = AdamW(lr=t["lr"])
+    state = init_state(cfg, opt, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev, grid=grid)
+    step = make_train_step(cfg, grid=grid, optimizer=opt, remat=True)
+    hist = []
+    for s in range(t["train_steps"]):
+        c0 = grid.collectives if grid is not None else 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch_at(ds, s))
+        loss = float(m["loss"])
+        hist.append(dict(loss=loss, grad_norm=float(m["grad_norm"]),
+                         ms=1e3 * (time.perf_counter() - t0),
+                         collectives=(grid.collectives - c0
+                                      if grid is not None else 0)))
+    return hist, state
+
+
+def zoo_tp_train(grid) -> dict:
+    """Phase 16 (b)'s granite-moe train steps on one cell of the 1 x 2
+    grid: their history, the kernels launched and the peak."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    dev = grid.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    hist, state = zoo_train(ARCHS[GRID_ZOO_TP["archs"][0]], dev, grid)
+    del state
+    return {"hist": hist, "launches": ops.launch_counts(),
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def zoo_single_refs(dev) -> tuple[dict, list]:
+    """Phase 16 (b)'s single-device references, in this process before
+    the grid starts: each arch served (its routing recorded) and kept on
+    the host; then granite-moe's train steps from the grid's seed-0
+    state on the grid's batches, with the grid's step (grid=None),
+    optimizer and --remat: each step's loss and grad norm."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import decode_demo
+    t = GRID_ZOO_TP
+    refs = {}
+    for arch in t["archs"]:
+        model, prompts = seeded_llama(arch, t["batch"], t["prompt"], dev)
+        with RouteTape() as tape:
+            one = decode_demo.serve(model, prompts, t["new_tokens"])
+        refs[arch] = {"prefill": one.prefill_logits.float().cpu(),
+                      "steps": one.step_logits.float().cpu(),
+                      "tokens": one.tokens.cpu(),
+                      "ids": [i.cpu() for i in tape.ids]}
+        del model, one, tape
+        torch.cuda.empty_cache()
+    hist, state = zoo_train(ARCHS[t["archs"][0]], dev)
+    del state
+    torch.cuda.empty_cache()
+    return refs, hist
+
+
+def lm_grid_zoo_tp(tmp: Path, dev, smi: str) -> None:
+    """Phase 16 (b) (see the module docstring)."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import spawn_grid
+    t = GRID_ZOO_TP
+    B, T = t["batch"], t["new_tokens"]
+    refs, one = zoo_single_refs(dev)
+    t0 = time.perf_counter()
+    cells = spawn_grid(zoo_tp_cell, tmp / "zoo_tp", data=1,
+                       model=t["model"], lm=True, device="cuda",
+                       args=(refs,), timeout_s=900)
+    wall = time.perf_counter() - t0
+    for arch, ref in refs.items():
+        cfg = ARCHS[arch]
+        L = cfg.n_layers
+        want = ((cfg.n_heads // 2, cfg.n_kv // 2) if cfg.attn_impl == "gqa"
+                else (cfg.n_heads // 2, cfg.n_heads // 2))
+        for r, c in enumerate(x[arch] for x in cells):
+            require(c["launches"]["flash_attention"] == L
+                    and c["variants"] == {"sm90_bf16": L, "fma_fp32": 0}
+                    and not any(n for k, n in c["launches"].items()
+                                if k != "flash_attention"),
+                    f"(b) {arch} rank {r} launched {c['launches']} "
+                    f"{c['variants']}")
+            require(set(c["heads"]) == {want}, f"(b) {arch} rank {r} "
+                    f"attended (query, KV) heads {sorted(set(c['heads']))},"
+                    f" want {want}")
+            require(c["replayed"], f"(b) {arch} rank {r}: the recorded "
+                    f"routing was not replayed call for call")
+        c = cells[0][arch]
+        require(torch.equal(c["own_tokens"], cells[1][arch]["own_tokens"]),
+                f"(b) {arch}: the two model ranks' tokens differ")
+        pre, steps, same = _against(
+            c["prefill"], list(c["steps"].split(1, dim=1)), ref["prefill"],
+            list(ref["steps"].split(1, dim=1)), cfg.vocab)
+        held = ("on the single device's recorded routing, " if ref["ids"]
+                else "")
+        require(pre <= LM_BF16_TOL and steps <= LM_BF16_TOL,
+                f"(b) {arch} TP = 2 against one device ({held}fed its "
+                f"tokens): prefill {pre:.3e}, steps {steps:.3e} (> "
+                f"{LM_BF16_TOL})")
+        require(same >= GRID_TP_SAME * B * T,
+                f"(b) {arch}: greedy tokens equal in {same} of {B * T}")
+        own_same = int((c["own_tokens"] == ref["tokens"]).sum())
+        log(f"[lmgridzoo] (b) {arch} on the 1 x 2 grid (gloo on CUDA "
+            f"tensors): each rank {L} sm90_bf16 launches on {want[0]} query "
+            f"and {want[1]} KV heads; prefill {B}x{t['prompt']} "
+            + " / ".join(f"{x[arch]['prefill_ms']:.1f}" for x in cells)
+            + " ms, decode " + " / ".join(
+                f"{x[arch]['decode_ms'] / T:.2f}" for x in cells)
+            + f" ms/step (ranks 0 / 1); collectives per prefill "
+            f"{c['collectives'][0]}, per decode step {c['collectives'][1]}; "
+            f"peak device memory per rank " + " / ".join(
+                f"{x[arch]['peak'] / 1e9:.2f}" for x in cells)
+            + f" GB; on {smi}")
+        log(f"[lmgridzoo] (b) {arch} against the single device ({held}fed "
+            f"its tokens): last-position logits {pre:.3e}, steps at most "
+            f"{steps:.3e} (within {LM_BF16_TOL}); greedy tokens equal in "
+            f"{same} of {B * T}; on its own routing and tokens, "
+            f"{own_same} of {B * (T + 1)} tokens equal the single "
+            f"device's")
+    hist = [x["train"]["hist"] for x in cells]
+    for r, x in enumerate(cells):
+        no_launches(f"(b) grid train rank {r}", x["train"]["launches"])
+        require(all(math.isfinite(h["loss"]) for h in x["train"]["hist"]),
+                f"(b) rank {r}: a non-finite train loss")
+    require(all(a["loss"] == b["loss"] for a, b in zip(*hist)),
+            "(b) the two model ranks' train losses differ")
+    rels = {(key, s): abs(g[key] - o[key]) / abs(o[key])
+            for key in ("loss", "grad_norm")
+            for s, (g, o) in enumerate(zip(hist[0], one))}
+    log(f"[lmgridzoo] (b) {t['archs'][0]} tensor-parallel training on the "
+        f"1 x 2 grid, batch {t['train_batch']} x seq {t['train_seq']}, "
+        f"--remat: losses " + " ".join(f"{h['loss']:.5f}" for h in hist[0])
+        + " against the single device's " + " ".join(
+            f"{h['loss']:.5f}" for h in one) + "; grad_norm " + " ".join(
+            f"{h['grad_norm']:.4f}" for h in hist[0]) + " against "
+        + " ".join(f"{h['grad_norm']:.4f}" for h in one)
+        + "; relative differences " + ", ".join(
+            f"{k} {s + 1} {r:.3e}" for (k, s), r in rels.items())
+        + f" (within {GRID_LOSS_TOL} at step 1, {GRID_ZOO_UPDATED_TOL} "
+        f"after an update); ms per step "
+        + " / ".join(" ".join(f"{h['ms']:.1f}" for h in x) for x in hist)
+        + " (ranks 0 / 1); collectives per step "
+        + " ".join(str(h["collectives"]) for h in hist[0])
+        + "; peak device memory per rank " + " / ".join(
+            f"{x['train']['peak'] / 1e9:.2f}" for x in cells)
+        + f" GB; {wall:.1f}s wall with start-up; on {smi}")
+    for (key, s), rel in rels.items():
+        tol = GRID_LOSS_TOL if s == 0 else GRID_ZOO_UPDATED_TOL
+        require(rel <= tol, f"(b) grid train step {s + 1} {key} "
+                f"{hist[0][s][key]} against the single device's "
+                f"{one[s][key]} ({rel:.3e} > {tol})")
+
+
+def phase_lm_grid_zoo(tmp: Path, dev, smi: str) -> int:
+    """Phase 16 (see the module docstring); returns (a)'s flash_attention
+    launches per grid prefill."""
+    import torch
+    log(f"[lmgridzoo] {smi}")
+    t0 = time.perf_counter()
+    launches = lm_grid_zoo_serve(dev, smi)
+    torch.cuda.empty_cache()
+    log(f"[lmgridzoo] (a) {time.perf_counter() - t0:.1f}s wall")
+    lm_grid_zoo_tp(tmp, dev, smi)
+    log(f"[lmgridzoo] phase 16 {time.perf_counter() - t0:.1f}s wall")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4075,6 +4505,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase_lm_grid(Path(tmp), dev, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_lm_grid_zoo(Path(tmp), dev, smi)
+    # flash_attention's launches: this slice's main path, a grid prefill
+    # of deepseek-moe-16b (phase 16 (a))
+    next(r for r in rows if r["name"] == "flash_attention")[
+        "launches"] = launches
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if row[key] is not None:

@@ -618,12 +618,15 @@ class ParamPlacement:
     """One port parameter on an LM grid: its global shape, its
     tensor-parallel spec, its moments' spec (without a layer axis), and
     ``owner``, the data index that holds this layer's moments whole when
-    ZeRO-1 put "data" on the layer stack (else None)."""
+    ZeRO-1 put "data" on the layer stack (else None).  ``halves``: the
+    experts' fused ``wgi``, ``repro``'s ``wg`` and ``wi`` side by side on
+    the last dim, each placed by ``repro``'s ``wg`` spec."""
     name: str
     shape: tuple
     spec: Spec
     moment: Spec
     owner: int | None
+    halves: bool = False
 
     def dim_of(self, spec: Spec, axis: str) -> int | None:
         return next((d for d, e in enumerate(spec) if e == axis), None)
@@ -645,7 +648,8 @@ class LMPlacement:
         self.params: dict[str, ParamPlacement] = {}
         for name, shape in shapes.items():
             path, layer = repro_path(name)
-            if path.endswith("/moe/wgi"):
+            fused = path.endswith("/moe/wgi")
+            if fused:
                 path = path[:-len("wgi")] + "wg"
             spec, moment, owner = pspecs[path], ospecs[path], None
             if layer is not None:
@@ -653,8 +657,9 @@ class LMPlacement:
                 if moment[0] == DATA_AXIS:
                     owner = layer // (L // grid.rows)
                 spec, moment = Spec(*spec[1:]), Spec(*moment[1:])
-            self.params[name] = ParamPlacement(name, tuple(shape), spec,
-                                               moment, owner)
+            self.params[name] = ParamPlacement(
+                name, tuple(shape), spec, moment, owner,
+                halves=fused and spec[-1] == MODEL_AXIS)
 
     def __getitem__(self, name: str) -> ParamPlacement:
         return self.params[name]
@@ -666,8 +671,14 @@ class LMPlacement:
                      for n, e in zip(pp.shape, pp.spec))
 
     def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """The block of a parameter's global value this cell holds."""
-        return local_block(self.grid, full, self.params[name].spec)
+        """The block of a parameter's global value this cell holds (for
+        ``wgi`` split on d_ff, this cell's block of wg beside its block
+        of wi: a copy)."""
+        pp = self.params[name]
+        if pp.halves:
+            return torch.cat([local_block(self.grid, h, pp.spec)
+                              for h in full.chunk(2, dim=-1)], dim=-1)
+        return local_block(self.grid, full, pp.spec)
 
     def model_sharded(self, name: str) -> bool:
         return MODEL_AXIS in self.params[name].spec
@@ -706,9 +717,13 @@ class LMPlacement:
     def gather_param(self, name: str, local: torch.Tensor) -> torch.Tensor:
         """A parameter's global value from the local blocks (over
         "model")."""
-        d = self.params[name].dim_of(self.params[name].spec, MODEL_AXIS)
+        pp = self.params[name]
+        d = pp.dim_of(pp.spec, MODEL_AXIS)
         if d is None:
             return local
+        if pp.halves:
+            return torch.cat([self.grid.all_gather(h, MODEL_AXIS, d)
+                              for h in local.chunk(2, dim=-1)], dim=-1)
         return self.grid.all_gather(local, MODEL_AXIS, d)
 
     def gather_moment(self, name: str, part: torch.Tensor | None,

@@ -21,6 +21,12 @@ rank's share of a split computation carries only that share's.
     rank gets the whole.  Forward: all-gather.  Backward: this rank's
     block of the (whole) gradient.
 
+One more for the batch axes (``global_sum``): a sum over the cells
+that hold different rows of the batch (the MoE's balance-loss sums,
+which ``repro`` takes over the global batch), whose gradient is summed
+over them too: every cell adds the same global value to its loss share,
+so each local term's gradient is the sum of the shares'.
+
 Every call makes its collective, counted on the grid's
 ``collectives``; the forward's run in the forward and the backward's in
 the backward (and again in the backward's recomputation under
@@ -32,7 +38,7 @@ import dataclasses
 
 import torch
 
-from .sharding import MODEL_AXIS, Grid
+from .sharding import MODEL_AXIS, AxisGroup, Grid
 
 
 class _SplitUse(torch.autograd.Function):
@@ -65,6 +71,23 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.j * ctx.n, ctx.n), None, None
+
+
+class _GlobalSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.psum(g), None
+
+
+def global_sum(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """x summed over ``group`` (an axis of the grid), forward and
+    backward (module docstring)."""
+    return _GlobalSum.apply(x, group)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,10 +21,11 @@ fresh zero cache instead.
 ``--mesh pod`` / ``multipod`` serve on ``repro``'s production grid (16 x
 16, or 2 x 16 x 16; ``launch.mesh.make_production_grid``): one process
 per cell under ``torchrun`` (256 or 512 ranks; any other world is
-refused), the dense GQA decoders only (``train.serve_step``: parameters
-placed, the prefill's cache sequence-sharded over "model"); each cell
+refused), every arch the demo serves (``train.serve_step``: parameters
+placed, the prefill's cache in ``cache_specs``' blocks); each cell
 prints its own rows' numbers.  ``serve(model, prompts, n, grid=grid)``
-is the same on a placed model and any LM grid.
+is the same on a placed model and any LM grid, enc-dec's frames and the
+VLM's patches included.
 """
 from __future__ import annotations
 
@@ -115,11 +116,9 @@ def serve(model: Transformer, prompts: torch.Tensor, new_tokens: int,
     cache.  Prints what it measured.  With ``grid`` (an LM grid, the model
     placed on it: ``train.serve_step.params_shardings``) the prefill
     takes the global prompts and the cache, logits and tokens are this
-    cell's rows; ``inputs`` are refused there."""
+    cell's rows (``inputs`` are the global batch's too)."""
     cfg, dev = model.cfg, model.device
     B, Pn, T = *prompts.shape, new_tokens
-    if grid is not None and inputs:
-        raise ValueError("serve(grid=) takes token prompts only")
     start = Pn + (inputs["patches"].shape[1] if "patches" in inputs else 0)
     prefill = make_prefill_step(model, grid=grid, max_len=start + T)
     launches0 = ops.launch_counts()["flash_attention"]

@@ -14,10 +14,10 @@ VLM archs exit as ``repro``'s launcher does.
 ``--mesh pod`` / ``multipod`` train on ``repro``'s production grid (16
 x 16, or 2 x 16 x 16; ``launch.mesh.make_production_grid``): one
 process per cell under ``torchrun`` (256 or 512 ranks, each on
-``cuda:LOCAL_RANK``; any other world is refused), the dense GQA
-decoders tensor and data parallel with ZeRO-1 moments (the other
-families raise: their grid forward is ROADMAP.md §1 item 5(d)'s next
-step).  ``--device`` is then the grid's.
+``cuda:LOCAL_RANK``; any other world is refused), every arch this
+launcher trains, tensor and data parallel with ZeRO-1 moments (the MoE
+experts EXPERT-else-ff, its groups and balance loss the global
+batch's).  ``--device`` is then the grid's.
 """
 from __future__ import annotations
 

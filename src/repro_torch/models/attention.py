@@ -4,8 +4,7 @@ single-token ``decode_attention`` against a cache, the ``GQAAttention``
 block, the banded ``sliding_window_attention`` and its ring-buffer decode
 ``ring_decode_attention`` (the hybrid family), the non-causal
 ``cross_attention`` (enc-dec), and MLA, multi-head latent attention
-(``MLAAttention``: ``mla_latents``, ``mla_queries``, ``mla_prefill``,
-``mla_decode``).
+(``MLAAttention``: ``mla_latents``, ``mla_prefill``, ``mla_decode``).
 
 ``repro`` keeps two routes to one function: the Pallas kernel
 ``kernels/flash_attention.py`` on the TPU and the chunked online softmax
@@ -28,7 +27,8 @@ On an LM grid (``gqa_plan``, ``gqa_grid_full``, ``gqa_grid_decode``,
 ``decode_attention(group=)``) GQA runs tensor parallel over "model" as
 ``repro``'s ``constrain_heads`` places it, its collectives derived from
 the parameter specs; a grid prefill still attends through the CUDA
-kernel, on each rank's heads.
+kernel, on each rank's heads.  MLA's prefill and decode take an
+``MLAPlan`` the same way; one device is their plan-less case.
 
 Layouts: activations (B, S, H, D); caches (B, S, Hkv, D).
 """
@@ -166,7 +166,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return _attend_one(q, k_cache[:, :pos], v_cache[:, :pos])
     S = k_cache.shape[1]
     valid = group.index * S + torch.arange(S, device=q.device) < pos
-    m, l, acc = _attend_partial(q, k_cache, v_cache, valid)
+    return _attend_group(q, k_cache, v_cache, valid, group)
+
+
+def _attend_group(q, k, v, valid, group) -> torch.Tensor:
+    """``_attend_one`` over keys sharded along ``group``: each rank's
+    partial (m, l, acc) over its keys, combined (an all-reduce MAX of m,
+    then SUMs of l and acc rescaled by exp(m - m_g))."""
+    m, l, acc = _attend_partial(q, k, v, valid)
     m_g = group.pmax(m)
     w = torch.exp(m - m_g)
     l = group.psum(l * w)
@@ -248,15 +255,22 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
 
 def ring_decode_attention(q: torch.Tensor, k_ring: torch.Tensor,
                           v_ring: torch.Tensor, pos: int,
-                          window: int) -> torch.Tensor:
+                          window: int, *, group=None) -> torch.Tensor:
     """Decode against a ring-buffer sliding-window cache: q (B, 1, Hq, D),
     k_ring and v_ring (B, W, Hkv, D), W = window, slot j holding the most
     recent position p with p % W == j (keys rotated at their own
     positions).  Slot j's position is pos - ((pos - j) mod W); a slot
-    whose position is negative (warm-up) is masked."""
-    slots = torch.arange(window, device=q.device)
+    whose position is negative (warm-up) is masked.  With ``group`` the
+    ring's slots are sharded along it (this rank holds slots index * W_l
+    .. index * W_l + W_l - 1) and the partials are combined as
+    ``decode_attention(group=)`` combines them."""
+    W_l = k_ring.shape[1]
+    first = group.index * W_l if group is not None else 0
+    slots = first + torch.arange(W_l, device=q.device)
     valid = pos - torch.remainder(pos - slots, window) >= 0
-    return _attend_one(q, k_ring, v_ring, valid)
+    if group is None:
+        return _attend_one(q, k_ring, v_ring, valid)
+    return _attend_group(q, k_ring, v_ring, valid, group)
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -357,8 +371,9 @@ def gqa_plan(n_heads: int, n_kv: int, head_dim: int, tp, *, wq: bool,
     """The plan of a GQA layer on ``tp``'s model axis (``GQAPlan``).  A
     sharded wk need not hold whole heads: at model = 16 llama3.2-1b's wk
     (2048 x 512) gives each rank 32 columns, half a 64-wide KV head, so
-    its KV heads are gathered before use."""
-    M, m = tp.size, tp.index
+    its KV heads are gathered before use.  ``tp`` None: one device, where
+    nothing is split."""
+    M, m = (tp.size, tp.index) if tp is not None else (1, 0)
     heads_local = M > 1 and n_heads % M == 0
     if not heads_local:
         return GQAPlan(n_heads, n_kv, head_dim, wq, wk, wo, False, 0,
@@ -383,14 +398,20 @@ def _heads(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def gqa_grid_full(attn: GQAAttention, h: torch.Tensor,
-                  positions: torch.Tensor, plan: GQAPlan, tp, *,
+                  positions: torch.Tensor | None, plan: GQAPlan, tp, *,
                   q_chunk: int, impl: str = "auto", causal: bool = True,
-                  need_kv: bool = False):
+                  need_kv: bool = False, kv_in: torch.Tensor | None = None,
+                  rope: bool = True, attend=None):
     """GQA over the whole sequence on the grid: h (B, S, d), whole on
     every model rank -> (out (B, S, d), whole on every rank, and, with
-    ``need_kv``, k and v (B, S, Hkv, D) with every KV head, as the cache
-    holds them; else None, None).  ``attn`` holds this rank's blocks of
-    wq, wk, wv (columns) and wo (rows).
+    ``need_kv``, k and v (B, Skv, Hkv, D) with every KV head, as the
+    cache holds them; else None, None).  ``attn`` holds this rank's
+    blocks of wq, wk, wv (columns) and wo (rows).  ``kv_in`` (B, Skv,
+    d): what k and v project from (cross attention: the encoder's
+    output; default h); ``rope``: rotate q and k at ``positions`` (cross
+    attention does not); ``attend(q, k, v)`` takes the place of
+    ``chunked_attention`` (the hybrid's sliding window), and then the
+    fallback attends every query on every rank.
 
     Heads divide the axis: each rank attends its query heads against
     their KV heads (its own column block of wk/wv when that is exactly
@@ -403,15 +424,23 @@ def gqa_grid_full(attn: GQAAttention, h: torch.Tensor,
     sequence; otherwise every rank attends every query."""
     B, S, _ = h.shape
     D = plan.head_dim
-    hs = tp.split_use(h) if plan.wq or plan.wk else h
+    src = h if kv_in is None else kv_in
+    if kv_in is None:
+        hs = ks = tp.split_use(h) if plan.wq or plan.wk else h
+    else:
+        hs = tp.split_use(h) if plan.wq else h
+        ks = tp.split_use(kv_in) if plan.wk else kv_in
+    q = hs @ attn.wq if plan.wq else h @ attn.wq
+    k, v = ((ks @ attn.wk, ks @ attn.wv) if plan.wk else
+            (src @ attn.wk, src @ attn.wv))
+    def rot(t):
+        return apply_rope(t, positions, attn.rope_theta) if rope else t
 
-    def proj(w, sharded):
-        return hs @ w if sharded else h @ w
-
-    q, k, v = proj(attn.wq, plan.wq), proj(attn.wk, plan.wk), \
-        proj(attn.wv, plan.wk)
-    rope = functools.partial(apply_rope, positions=positions,
-                             theta=attn.rope_theta)
+    attend_given = attend is not None
+    if not attend_given:
+        def attend(qa, ka, va):
+            return chunked_attention(qa, ka, va, causal=causal,
+                                     q_chunk=q_chunk, impl=impl)
     k_all = v_all = None
     if plan.heads_local:
         if plan.wq:
@@ -419,13 +448,13 @@ def gqa_grid_full(attn: GQAAttention, h: torch.Tensor,
         else:
             ql = _heads(tp.split_use(q)[..., plan.q0 * D:
                                         (plan.q0 + plan.nq) * D], plan.nq)
-        ql = rope(ql)
+        ql = rot(ql)
         if plan.kv_local:
-            kl, vl = rope(_heads(k, plan.nkv)), _heads(v, plan.nkv)
+            kl, vl = rot(_heads(k, plan.nkv)), _heads(v, plan.nkv)
             if need_kv:
                 k_all, v_all = tp.gather(kl, 2), tp.gather(vl, 2)
         else:
-            kf = rope(_heads(tp.gather(k, -1) if plan.wk else k, plan.n_kv))
+            kf = rot(_heads(tp.gather(k, -1) if plan.wk else k, plan.n_kv))
             vf = _heads(tp.gather(v, -1) if plan.wk else v, plan.n_kv)
             if need_kv:
                 k_all, v_all = kf, vf
@@ -434,17 +463,16 @@ def gqa_grid_full(attn: GQAAttention, h: torch.Tensor,
         if plan.kv_index is not None:
             idx = torch.tensor(plan.kv_index, device=h.device)
             kl, vl = kl[:, :, idx], vl[:, :, idx]
-        o = chunked_attention(ql, kl, vl, causal=causal, q_chunk=q_chunk,
-                              impl=impl).reshape(B, S, plan.nq * D)
+        o = attend(ql, kl, vl).reshape(B, S, plan.nq * D)
         if plan.wo:
             out = tp.reduce(o @ attn.wo)
         else:
             out = tp.gather(o, -1) @ attn.wo
         return out, k_all, v_all
-    qf = rope(_heads(tp.gather(q, -1) if plan.wq else q, plan.n_heads))
-    kf = rope(_heads(tp.gather(k, -1) if plan.wk else k, plan.n_kv))
+    qf = rot(_heads(tp.gather(q, -1) if plan.wq else q, plan.n_heads))
+    kf = rot(_heads(tp.gather(k, -1) if plan.wk else k, plan.n_kv))
     vf = _heads(tp.gather(v, -1) if plan.wk else v, plan.n_kv)
-    if tp.size > 1 and S > 1 and S % tp.size == 0:
+    if not attend_given and tp.size > 1 and S > 1 and S % tp.size == 0:
         r0, n = tp.block(S)
         o = chunked_attention(tp.split_use(qf)[:, r0:r0 + n],
                               tp.split_use(kf), tp.split_use(vf),
@@ -452,8 +480,7 @@ def gqa_grid_full(attn: GQAAttention, h: torch.Tensor,
                               impl=impl)
         of = tp.gather(o.reshape(B, n, -1), 1)
     else:
-        of = chunked_attention(qf, kf, vf, causal=causal, q_chunk=q_chunk,
-                               impl=impl).reshape(B, S, -1)
+        of = attend(qf, kf, vf).reshape(B, S, -1)
     if plan.wo:
         c0, nc = tp.block(of.shape[-1])
         out = tp.reduce(tp.split_use(of)[..., c0:c0 + nc] @ attn.wo)
@@ -473,28 +500,46 @@ def gqa_grid_decode(attn: GQAAttention, h: torch.Tensor,
     then this rank's heads through the row-parallel wo and an
     all-reduce.  No autograd: serving only."""
     B = h.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=h.device)
-
-    def whole(w, sharded, n):
-        x = h @ w
-        return _heads(tp.gather(x, -1) if sharded else x, n)
-
-    q = apply_rope(whole(attn.wq, plan.wq, plan.n_heads), positions,
-                   attn.rope_theta)
-    k = apply_rope(whole(attn.wk, plan.wk, plan.n_kv), positions,
-                   attn.rope_theta)
-    v = whole(attn.wv, plan.wk, plan.n_kv)
+    q, k, v = gqa_grid_qkv1(attn, h, pos, plan, tp)
     S = k_cache.shape[1]
     owner, at = divmod(pos, S) if seq is not None else (None, pos)
     if seq is None or seq.index == owner:
         k_cache[:, at] = k[:, 0]
         v_cache[:, at] = v[:, 0]
-    o = decode_attention(q, k_cache, v_cache, pos + 1,
-                         group=seq).reshape(B, 1, -1)
-    if plan.wo:
+    o = decode_attention(q, k_cache, v_cache, pos + 1, group=seq)
+    return grid_out(o.reshape(B, 1, -1), attn.wo, plan.wo, tp)
+
+
+def grid_heads(h: torch.Tensor, w: torch.Tensor, sharded: bool, n: int,
+               tp) -> torch.Tensor:
+    """A column-parallel projection h @ w gathered whole over "model",
+    as n heads (B, S, n, D); no autograd (decode)."""
+    x = h @ w
+    return _heads(tp.gather(x, -1) if sharded else x, n)
+
+
+def gqa_grid_qkv1(attn: GQAAttention, h: torch.Tensor, pos: int,
+                  plan: GQAPlan, tp):
+    """One token's q (B, 1, Hq, D), k and v (B, 1, Hkv, D), every head,
+    gathered whole over "model"; q and k rotated at ``pos``."""
+    positions = torch.full((h.shape[0], 1), pos, dtype=torch.int64,
+                           device=h.device)
+    q = apply_rope(grid_heads(h, attn.wq, plan.wq, plan.n_heads, tp),
+                   positions, attn.rope_theta)
+    k = apply_rope(grid_heads(h, attn.wk, plan.wk, plan.n_kv, tp),
+                   positions, attn.rope_theta)
+    return q, k, grid_heads(h, attn.wv, plan.wk, plan.n_kv, tp)
+
+
+def grid_out(o: torch.Tensor, wo: torch.Tensor, sharded: bool, tp
+             ) -> torch.Tensor:
+    """The row-parallel output projection of o (..., H * D), whole on
+    every model rank: this rank's block of o's columns through its rows
+    of wo, all-reduced (or o @ wo where wo is whole)."""
+    if sharded:
         c0, nc = tp.block(o.shape[-1])
-        return tp.reduce(o[..., c0:c0 + nc] @ attn.wo)
-    return o @ attn.wo
+        return tp.reduce(o[..., c0:c0 + nc] @ wo)
+    return o @ wo
 
 
 # ---------------------------------------------------------------------------
@@ -542,87 +587,236 @@ class MLAAttention(nn.Module):
         return mla_decode(self, x, pos, c_cache, r_cache)
 
 
-def mla_latents(p: MLAAttention, x: torch.Tensor, positions: torch.Tensor):
-    """The compressed cache payload: (c_kv (B, S, kv_lora), k_rope (B, S,
-    d_rope)), k_rope rotated."""
+@dataclasses.dataclass(frozen=True)
+class MLAPlan:
+    """How an MLA layer splits over "model", from the parameter specs:
+    which of wq_down, wq_up, wkv_down, wkv_up (columns) and wo (rows) are
+    sharded, and ``heads_local``: H divides the axis, so this rank's
+    column blocks of wq_up and wkv_up and its row block of wo are exactly
+    its H / M heads (else a block may hold part of a head: minicpm3-4b's
+    40 heads at model 16 are 2.5 per rank).  ``WHOLE``: nothing split,
+    as on one device."""
+    wq_down: bool = False
+    wq_up: bool = False
+    wkv_down: bool = False
+    wkv_up: bool = False
+    wo: bool = False
+    heads_local: bool = False
+
+
+WHOLE = MLAPlan()
+
+
+def mla_plan(n_heads: int, tp, **sharded: bool) -> MLAPlan:
+    """The plan of an MLA layer on ``tp``'s model axis (``MLAPlan``)."""
+    local = (tp.size > 1 and n_heads % tp.size == 0 and sharded["wq_up"]
+             and sharded["wkv_up"] and sharded["wo"])
+    return MLAPlan(heads_local=local, **sharded)
+
+
+def _whole_cols(tp, x: torch.Tensor, w: torch.Tensor, sharded: bool,
+                xs: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ w whole on every model rank: this rank's columns gathered
+    where w is column-split (``xs``: x already marked ``split_use``)."""
+    if not sharded:
+        return x @ w
+    return tp.gather((tp.split_use(x) if xs is None else xs) @ w, -1)
+
+
+def mla_latents(p: MLAAttention, x: torch.Tensor, positions: torch.Tensor,
+                plan: MLAPlan = WHOLE, tp=None, xs=None):
+    """The compressed cache payload, whole on every model rank: (c_kv (B,
+    S, kv_lora), k_rope (B, S, d_rope)), k_rope rotated.  The norm and
+    the rotation need whole rows, so on a grid wkv_down's column blocks
+    (latent and rope columns mixed) are gathered first."""
     B, S, _ = x.shape
-    down = x @ p.wkv_down
+    down = _whole_cols(tp, x, p.wkv_down, plan.wkv_down, xs)
     c_kv = rmsnorm(down[..., :p.kv_lora], p.kv_norm)
-    k_rope = down[..., p.kv_lora:].reshape(B, S, 1, p.d_rope)
-    k_rope = apply_rope(k_rope, positions, p.rope_theta)
+    k_rope = apply_rope(down[..., p.kv_lora:].reshape(B, S, 1, p.d_rope),
+                        positions, p.rope_theta)
     return c_kv, k_rope.reshape(B, S, p.d_rope)
 
 
-def mla_queries(p: MLAAttention, x: torch.Tensor, positions: torch.Tensor):
-    """(q_nope (B, S, H, d_nope), q_rope (B, S, H, d_rope)), q_rope
-    rotated."""
-    B, S, _ = x.shape
-    cq = rmsnorm(x @ p.wq_down, p.q_norm)
-    q = (cq @ p.wq_up).reshape(B, S, p.n_heads, p.d_nope + p.d_rope)
-    return q[..., :p.d_nope], apply_rope(q[..., p.d_nope:], positions,
-                                         p.rope_theta)
-
-
 def mla_prefill(p: MLAAttention, x: torch.Tensor, positions: torch.Tensor,
-                *, q_chunk: int = 256, impl: str = "auto"):
+                *, q_chunk: int = 256, impl: str = "auto",
+                plan: MLAPlan = WHOLE, tp=None):
     """Training/prefill MLA: K and V decompressed, causal attention with
-    the scale 1 / sqrt(d_nope + d_rope).  Returns (out (B, S, d),
-    (c_kv, k_rope)), the latents for the cache.  On the kernel's route q,
-    k and v are written into zero buffers of one head dim the kernel
-    builds (module docstring); ``ValueError`` when none holds them."""
+    the scale 1 / sqrt(d_nope + d_rope).  x (B, S, d) -> (out (B, S, d),
+    (c_kv, k_rope)), the latents for the cache.  On the kernel's route
+    q, k and v are written into zero buffers of one head dim the kernel
+    builds (module docstring); ``ValueError`` when none holds them.
+
+    On an LM grid (``plan`` on ``tp``'s "model" axis; x and the outputs
+    whole on every model rank) the latents and q's latent (wq_down's
+    gathered columns) are whole, normalized and rotated on every rank.
+    Heads local: each rank decompresses and attends its H / M heads and
+    its wo rows' partial products are all-reduced.  Else (a head split
+    between ranks): q and K/V are gathered whole, each rank attends its
+    block of S / model queries when S divides (else every query), and
+    its block of the output's columns goes through its rows of wo."""
     B, S, _ = x.shape
     H, dn, dr, dv = p.n_heads, p.d_nope, p.d_rope, p.d_v
-    c_kv, k_rope = mla_latents(p, x, positions)
-    q_nope, q_rope = mla_queries(p, x, positions)
-    kv = (c_kv @ p.wkv_up).reshape(B, S, H, dn + dv)
-    k_nope, v = kv[..., :dn], kv[..., dn:]
+    xs = tp.split_use(x) if plan.wq_down or plan.wkv_down else None
+    c_kv, k_rope = mla_latents(p, x, positions, plan, tp, xs)
+    cq = rmsnorm(_whole_cols(tp, x, p.wq_down, plan.wq_down, xs), p.q_norm)
+    rope = functools.partial(apply_rope, positions=positions,
+                             theta=p.rope_theta)
+    if plan.heads_local:
+        Hl = H // tp.size
+        q = (tp.split_use(cq) @ p.wq_up).reshape(B, S, Hl, dn + dr)
+        kv = (tp.split_use(c_kv) @ p.wkv_up).reshape(B, S, Hl, dn + dv)
+        o = mla_attend(q[..., :dn], rope(q[..., dn:]), kv[..., :dn],
+                       tp.split_use(k_rope), kv[..., dn:], q_chunk=q_chunk,
+                       impl=impl)
+        return tp.reduce(o.reshape(B, S, Hl * dv) @ p.wo), (c_kv, k_rope)
+    q = _whole_cols(tp, cq, p.wq_up, plan.wq_up).reshape(B, S, H, dn + dr)
+    kv = _whole_cols(tp, c_kv, p.wkv_up, plan.wkv_up).reshape(B, S, H,
+                                                               dn + dv)
+    parts = (q[..., :dn], rope(q[..., dn:]), kv[..., :dn], k_rope,
+             kv[..., dn:])
+    if tp is not None and tp.size > 1 and S > 1 and S % tp.size == 0:
+        r0, n = tp.block(S)
+        qn, qr, kn, kr, vv = (tp.split_use(t) for t in parts)
+        o = mla_attend(qn[:, r0:r0 + n], qr[:, r0:r0 + n], kn, kr, vv,
+                       q_chunk=q_chunk, impl=impl, q_offset=r0)
+        of = tp.gather(o.reshape(B, n, H * dv), 1)
+    else:
+        of = mla_attend(*parts, q_chunk=q_chunk, impl=impl).reshape(
+            B, S, H * dv)
+    if plan.wo:
+        c0, nc = tp.block(H * dv)
+        return tp.reduce(tp.split_use(of)[..., c0:c0 + nc] @ p.wo), \
+            (c_kv, k_rope)
+    return of @ p.wo, (c_kv, k_rope)
+
+
+def mla_attend(q_nope, q_rope, k_nope, k_rope, v, *, q_chunk: int,
+               impl: str, q_offset: int = 0) -> torch.Tensor:
+    """MLA's causal attention: q_nope (B, Sq, H, d_nope), q_rope (B, Sq,
+    H, d_rope), k_nope (B, Skv, H, d_nope), the shared k_rope (B, Skv,
+    d_rope), v (B, Skv, H, d_v) -> (B, Sq, H, d_v), scale 1 / sqrt(d_nope
+    + d_rope); the queries at positions q_offset.. (``mla_prefill``'s
+    docstring has the kernel route)."""
+    B, Sq, H, dn = q_nope.shape
+    Skv, dr, dv = k_nope.shape[1], q_rope.shape[-1], v.shape[-1]
     scale = (dn + dr) ** -0.5
-    if on_kernel(impl, x):
+    if on_kernel(impl, q_nope):
         d = next((d for d in HEAD_DIMS if d >= max(dn + dr, dv)), None)
         if d is None:
             raise ValueError(f"mla_prefill: head dims {dn + dr} (q, k) and "
                              f"{dv} (v) exceed flash_attention's "
                              f"{HEAD_DIMS[-1]}")
-        q, k, vp = (x.new_zeros((B, S, H, d)) for _ in range(3))
+        q = q_nope.new_zeros((B, Sq, H, d))
+        k, vp = (k_nope.new_zeros((B, Skv, H, d)) for _ in range(2))
         q[..., :dn] = q_nope
         q[..., dn:dn + dr] = q_rope
         k[..., :dn] = k_nope
         k[..., dn:dn + dr] = k_rope[:, :, None]
         vp[..., :dv] = v
-        out = chunked_attention(q, k, vp, causal=True, sm_scale=scale,
-                                impl=impl)[..., :dv]
-    else:
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)],
-                      dim=-1)
-        out = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk,
-                                sm_scale=scale, impl="ref")
-    return out.reshape(B, S, H * dv) @ p.wo, (c_kv, k_rope)
+        return chunked_attention(q, k, vp, causal=True, q_offset=q_offset,
+                                 sm_scale=scale, impl=impl)[..., :dv]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, Skv, H, dr)],
+                  dim=-1)
+    return chunked_attention(q, k, v, causal=True, q_offset=q_offset,
+                             q_chunk=q_chunk, sm_scale=scale, impl="ref")
+
+
+def _touched_heads(w: torch.Tensor, sharded: bool, tp, width: int):
+    """A column block of a weight laid out as H heads of ``width``
+    columns, as (h0, the block at its place among the heads h0 .. h1 - 1
+    it touches, zero elsewhere: (rows, h1 - h0, width)); w whole: (0, w
+    as (rows, H, width))."""
+    if not sharded:
+        return 0, w.reshape(w.shape[0], -1, width)
+    c0, nc = tp.index * w.shape[1], w.shape[1]
+    h0, h1 = c0 // width, -(-(c0 + nc) // width)
+    pad = nn.functional.pad(w, (c0 - h0 * width, h1 * width - c0 - nc))
+    return h0, pad.reshape(w.shape[0], h1 - h0, width)
 
 
 def mla_decode(p: MLAAttention, x: torch.Tensor, pos: int,
-               c_cache: torch.Tensor, r_cache: torch.Tensor) -> torch.Tensor:
+               c_cache: torch.Tensor, r_cache: torch.Tensor,
+               plan: MLAPlan = WHOLE, tp=None, seq=None) -> torch.Tensor:
     """Absorbed-matmul MLA decode of one token x (B, 1, d) at ``pos``:
     writes its latents into the caches (B, S, kv_lora) and (B, S,
     d_rope) at ``pos``, in place, maps the query into the latent space
     and attends to positions 0..pos of the compressed cache, in fp32 as
-    ``repro``.  Returns the block's output (B, 1, d)."""
+    ``repro``.  Returns the block's output (B, 1, d).  No autograd:
+    serving only.
+
+    On an LM grid (``plan`` on ``tp``'s "model" axis; x and the output
+    whole on every model rank) the latents are whole and written on the
+    rank that holds ``pos`` (``seq``: the axis the caches' positions
+    are sharded over, else None: each holds every position); each rank
+    scores its positions and the partials are combined as
+    ``decode_attention(group=)`` combines them, every head on every
+    rank.  Heads local: each rank maps its H / M heads' queries into the
+    latent space through its own columns of wq_up and wkv_up (one
+    all-gather), and decompresses its heads' values through its wkv_up
+    columns and its rows of wo (one all-reduce).  Else q is gathered
+    whole and q's latent goes through this rank's columns of wkv_up (on
+    the heads they touch; a head split between ranks gets each rank's
+    part of the sum), all-reduced; so does the value, then its block
+    through this rank's rows of wo."""
     B = x.shape[0]
-    H, dn, dv = p.n_heads, p.d_nope, p.d_v
+    H, dn, dr, dv, L = p.n_heads, p.d_nope, p.d_rope, p.d_v, p.kv_lora
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    c_new, r_new = mla_latents(p, x, positions)
-    c_cache[:, pos] = c_new[:, 0]
-    r_cache[:, pos] = r_new[:, 0]
-    q_nope, q_rope = mla_queries(p, x, positions)
-    w_up = p.wkv_up.reshape(p.kv_lora, H, dn + dv)
-    wk, wv = w_up[..., :dn], w_up[..., dn:]
-    q_lat = torch.einsum("bohd,lhd->bohl", q_nope, wk)[:, 0]
-    cc = c_cache[:, :pos + 1].float()
-    rc = r_cache[:, :pos + 1].float()
+    c_new, r_new = mla_latents(p, x, positions, plan, tp)
+    S = c_cache.shape[1]
+    owner, at = divmod(pos, S) if seq is not None else (None, pos)
+    if seq is None or seq.index == owner:
+        c_cache[:, at] = c_new[:, 0]
+        r_cache[:, at] = r_new[:, 0]
+    cq = rmsnorm(_whole_cols(tp, x, p.wq_down, plan.wq_down), p.q_norm)
+    partial = plan.wkv_up and not plan.heads_local
+    if plan.heads_local:
+        # this rank's heads' q latents and rotary parts, gathered: every
+        # rank scores every head on its block of positions
+        Hl = H // tp.size
+        h0, w_up = tp.index * Hl, p.wkv_up.reshape(L, Hl, dn + dv)
+        q = (cq @ p.wq_up).reshape(B, 1, Hl, dn + dr)
+        q_lat = torch.einsum("bohd,lhd->bohl", q[..., :dn], w_up[..., :dn])
+        q_rope = apply_rope(q[..., dn:], positions, p.rope_theta)
+        both = tp.gather(torch.cat([q_lat, q_rope], dim=-1), 2)
+        q_lat, q_rope = both[:, 0, :, :L], both[..., L:]
+    else:
+        q = _whole_cols(tp, cq, p.wq_up, plan.wq_up).reshape(B, 1, H,
+                                                             dn + dr)
+        h0, w_up = _touched_heads(p.wkv_up, plan.wkv_up, tp, dn + dv)
+        q_lat = torch.einsum("bohd,lhd->bohl",
+                             q[:, :, h0:h0 + w_up.shape[1], :dn],
+                             w_up[..., :dn])[:, 0]
+        if partial:
+            q_lat = tp.reduce(nn.functional.pad(
+                q_lat, (0, 0, h0, H - h0 - w_up.shape[1])))
+        q_rope = apply_rope(q[..., dn:], positions, p.rope_theta)
+    if seq is None:
+        cc = c_cache[:, :pos + 1].float()
+        rc = r_cache[:, :pos + 1].float()
+    else:
+        cc, rc = c_cache.float(), r_cache.float()
     s = (torch.einsum("bhl,bsl->bhs", q_lat.float(), cc)
          + torch.einsum("bohr,bsr->bhs", q_rope.float(), rc)) \
-        * (dn + p.d_rope) ** -0.5
-    pr = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhs,bsl->bhl", pr, cc)
-    out = torch.einsum("bhl,lhd->bhd", o_lat, wv.float())
-    return out.reshape(B, 1, H * dv).to(x.dtype) @ p.wo
+        * (dn + dr) ** -0.5
+    if seq is None:
+        o_lat = torch.einsum("bhs,bsl->bhl", torch.softmax(s, dim=-1), cc)
+    else:
+        s = torch.where(seq.index * S + torch.arange(S, device=x.device)
+                        <= pos, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        pe = torch.exp(s - m)
+        m_g = seq.pmax(m)
+        w = torch.exp(m - m_g)
+        l = seq.psum(pe.sum(dim=-1, keepdim=True) * w)
+        acc = seq.psum(torch.einsum("bhs,bsl->bhl", pe, cc) * w)
+        o_lat = acc / torch.clamp_min(l, 1e-30)
+    nh = w_up.shape[1]
+    out = torch.einsum("bhl,lhd->bhd", o_lat[:, h0:h0 + nh],
+                       w_up[..., dn:].float())
+    if partial:
+        out = tp.reduce(nn.functional.pad(out, (0, 0, h0, H - h0 - nh)))
+    out = out.reshape(B, 1, -1).to(x.dtype)
+    if plan.heads_local:
+        return tp.reduce(out @ p.wo)
+    return grid_out(out, p.wo, plan.wo, tp)

@@ -20,8 +20,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .attention import (GQAAttention, ring_decode_attention,
-                        sliding_window_attention)
+from .attention import (GQAAttention, gqa_grid_full, gqa_plan,
+                        ring_decode_attention, sliding_window_attention)
 from .layers import rmsnorm
 from .ssm import Mamba2, mamba2_apply, mamba2_step
 
@@ -52,16 +52,28 @@ class Hymba(nn.Module):
 
 
 def hymba_apply(p: Hymba, h: torch.Tensor, positions: torch.Tensor, *,
-                return_state: bool = False):
+                plan=None, tp=None, return_state: bool = False):
     """The full-sequence (train, prefill) mixer over the normalized layer
     input h (B, S, d); with ``return_state`` also the decode cache {"k",
-    "v" (B, W, Hkv, D) ring, "ssm", "conv"}."""
-    B, S, _ = h.shape
+    "v" (B, W, Hkv, D) ring, "ssm", "conv"}, whole.  On an LM grid the
+    sliding-window attention is tensor parallel as
+    ``models.attention.gqa_grid_full`` runs GQA (``plan``, its
+    ``GQAPlan`` on ``tp``'s "model" axis: Hymba's 25 query and 5 KV
+    heads divide neither 2 nor 4, so there it takes the gather path,
+    every rank attending every query) and the Mamba2 branch is whole on
+    every model rank (its in_proj and out_proj replicate in ``repro``'s
+    rules); on one device ``plan`` and ``tp`` are None."""
+    S = h.shape[1]
     a = p.attn
-    q, k, v = a.qkv(h, positions)
-    o = sliding_window_attention(q, k, v, window=p.window,
-                                 chunk=min(256, S))
-    attn_out = o.reshape(B, S, -1) @ a.wo
+    plan = plan or gqa_plan(a.n_heads, a.n_kv, a.head_dim, None, wq=False,
+                            wk=False, wo=False)
+
+    def window(q, k, v):
+        return sliding_window_attention(q, k, v, window=p.window,
+                                        chunk=min(256, S))
+
+    attn_out, k, v = gqa_grid_full(a, h, positions, plan, tp, q_chunk=256,
+                                   need_kv=return_state, attend=window)
     m = mamba2_apply(p.mamba, h, chunk=min(256, S),
                      return_state=return_state)
     m_out = m[0] if return_state else m

@@ -87,18 +87,24 @@ def loss_fn(model: nn.Module, cfg, batch: dict, *, moe_impl: str = "einsum",
 def grid_loss_fn(gm, batch: dict, *, remat: bool = False,
                  moe_impl: str = "einsum", aux_weight: float = 0.01):
     """The training loss of a ``GridTransformer`` on this cell's rows of
-    ``batch`` ({"tokens", "labels"}, (B_l, S) each): (this cell's share
-    of the loss, {"ce", "aux", "tokens"}).  The share is its tokens'
-    summed NLL over the global batch's counted tokens (an all-reduce over
-    ("pod", "data")), so the shares' gradients, summed over the batch
-    group, are the global mean's, and ``ce`` (the shares summed; no
-    gradient) is ``repro``'s mean over the global batch."""
-    logits, aux = gm.forward(batch["tokens"], impl="ref", remat=remat,
-                             moe_impl=moe_impl)
+    ``batch`` ({"tokens", "labels"}, (B_l, S) each, and enc-dec's
+    "frames" or the VLM's "patches"): (this cell's share of the loss,
+    {"ce", "aux", "tokens"}).  The share is its tokens' summed NLL (the
+    vocab-parallel logits' distributed logsumexp) over the global
+    batch's counted tokens (an all-reduce over ("pod", "data")) plus
+    aux_weight * aux over the number of data cells; aux is the global
+    batch's balance loss, the same on every cell, whose gradient reaches
+    each cell's tokens (``moe.moe_apply``), so the shares' gradients,
+    summed over the batch group, are the global loss's, and ``ce`` (the
+    shares summed; no gradient) is ``repro``'s mean over the global
+    batch."""
+    logits, aux = gm.forward(batch["tokens"], frames=batch.get("frames"),
+                             patches=batch.get("patches"), impl="ref",
+                             remat=remat, moe_impl=moe_impl)
     labels = batch["labels"]
-    if logits.shape[1] != labels.shape[1]:
+    if logits.shape[1] != labels.shape[1]:       # vlm: the patch positions
         logits = logits[:, -labels.shape[1]:]
-    tp = gm.tp if gm.dense and gm.vocab_sharded else None
+    tp = gm.tp if gm.vocab_sharded else None
     nll, counted = token_nll(logits, labels, gm.cfg.vocab, tp)
     n = gm.batch.psum(counted.sum())
     share = nll.sum() / n.clamp_min(1) + aux_weight * aux / gm.batch.size

@@ -59,13 +59,15 @@ from repro_torch.dist.sharding import (BATCH_AXIS, MODEL_AXIS, Grid,
                                        shard_batch, stacked_shapes)
 from repro_torch.dist.tp import TensorParallel
 
-from .attention import (GQAAttention, MLAAttention, cross_attention,
-                        decode_attention, gqa_grid_decode, gqa_grid_full,
-                        gqa_plan)
+from .attention import (GQAAttention, GQAPlan, MLAAttention,
+                        cross_attention, decode_attention, gqa_grid_decode,
+                        gqa_grid_full, gqa_grid_qkv1, gqa_plan, grid_heads,
+                        grid_out, mla_decode, mla_plan, mla_prefill,
+                        ring_decode_attention)
 from .hybrid import Hymba, hymba_apply, hymba_step
 from .layers import (MLP, MLP2, embed, embed_grid, embed_init, mlp_grid,
                      param, rmsnorm, unembed, unembed_grid)
-from .moe import MoE
+from .moe import MoE, MoEGridPlan, moe_apply
 from .ssm import Mamba2, mamba2_dims, mamba2_step
 
 # prefill's query tile: flash-structured attention re-streams K/V once per
@@ -398,13 +400,15 @@ class Transformer(nn.Module):
         logits = unembed(self.embed, rmsnorm(x, self.final_norm))
         return logits, aux
 
-    def init_cache(self, batch_size: int, max_len: int) -> dict:
+    def init_cache(self, batch_size: int, max_len: int, *,
+                   device=None) -> dict:
         """The zero-filled decode cache of ``repro``'s ``init_cache`` (the
         module docstring lists its leaves); enc-dec's xk and xv take
-        max_len positions, as ``repro``'s."""
+        max_len positions, as ``repro``'s.  ``device`` (default the
+        model's): "meta" gives the shapes and dtypes alone."""
         cfg = self.cfg
         L, B, S = cfg.n_layers, batch_size, max_len
-        dtype, dev = self.embed.dtype, self.device
+        dtype, dev = self.embed.dtype, device or self.device
 
         def zeros(*shape, dt=dtype):
             return torch.zeros((L, B, *shape), dtype=dt, device=dev)
@@ -509,21 +513,9 @@ def param_shapes(cfg) -> dict[str, tuple]:
     return stacked_shapes(named_shapes(cfg))
 
 
-def grid_supported(cfg) -> bool:
-    """Whether the grid forward takes ``cfg`` on a grid of more than one
-    cell: the dense GQA decoders (llama3.2-1b, yi-9b, granite-20b)."""
-    return cfg.family == "dense" and cfg.attn_impl == "gqa"
-
-
 def lm_placement(grid: Grid, cfg) -> LMPlacement:
-    """Where each of ``cfg``'s parameters lives on ``grid``; refuses a
-    family the grid forward does not take on a grid of several cells."""
-    if grid.size > 1 and not grid_supported(cfg):
-        raise ValueError(
-            f"{cfg.name}: the {cfg.family} family ({cfg.attn_impl} "
-            f"attention) runs on a 1 x 1 grid only; its grid forward is "
-            f"not ported yet (ROADMAP.md §1 item 5(d)); the dense GQA "
-            f"decoders run on any LM grid")
+    """Where each of ``cfg``'s parameters lives on ``grid`` (any family,
+    any LM grid)."""
     if not grid.lm:
         raise ValueError("the LM runs on an LM grid (Grid(lm=True), "
                          "launch.mesh.make_lm_grid)")
@@ -535,171 +527,473 @@ class GridTransformer:
     (``train.serve_step.params_shardings``), run as ``repro`` runs it on
     its mesh: tensor parallel over "model" (Megatron column / row
     parallel projections, vocab-parallel embedding and logits, heads
-    split as ``constrain_heads`` splits them), data parallel over ("pod",
-    "data"), the decode cache's sequence over "model" (``cache_specs``).
-    The residual stream between blocks is whole on every model rank (an
-    all-reduce after each row-parallel product); ``repro`` keeps it
-    sequence-sharded, which gives the same values.
+    split as ``constrain_heads`` splits them, the experts
+    EXPERT-else-ff), data parallel over ("pod", "data"), the decode
+    cache's blocks as ``cache_specs`` places them.  The residual stream
+    between blocks is whole on every model rank (an all-reduce after
+    each row-parallel product); ``repro`` keeps it sequence-sharded,
+    which gives the same values.  Every family of the zoo:
 
-      forward(tokens)                   -> (logits (B_l, S, V_l), aux)
-      prefill(tokens, max_len)          -> (logits (B_l, 1, Vpad), cache)
-      decode_step(cache, tokens, pos)   -> (logits (B_l, 1, Vpad), cache)
-      init_cache(batch, max_len)        -> cache (this cell's blocks)
+      GQA (dense, MoE, VLM, enc-dec)  ``gqa_grid_full`` / ``_decode``
+      MLA (minicpm3-4b)               ``mla_prefill`` / ``mla_decode``
+      MoE                             ``moe.moe_apply`` (global groups and
+                                      balance loss)
+      SSM (mamba2)                    whole on every model rank (its
+                                      in_proj and out_proj replicate)
+      hybrid (hymba)                  ``hybrid.hymba_apply``; its
+                                      Mamba2 branch whole
+      enc-dec                         the encoder stack and cross
+                                      attention tensor parallel
+      VLM                             the patches after the
+                                      vocab-parallel lookup
 
-    ``forward`` takes this cell's rows and gives its vocab block of the
-    logits (the training loss reads them sharded); ``prefill`` takes the
-    global batch and keeps this cell's rows (``batch_shardings``);
-    ``decode_step`` takes and gives this cell's rows, with every vocab
-    id.  The MoE, MLA, SSM, hybrid, enc-dec and VLM families run on a
-    1 x 1 grid only, through the model's own methods."""
+      forward(tokens, frames=, patches=)   -> (logits (B_l, S, V_l), aux)
+      prefill(tokens, max_len, frames=, patches=)
+                                           -> (logits (B_l, 1, Vpad),
+                                               cache)
+      decode_step(cache, tokens, pos)      -> (logits (B_l, 1, Vpad),
+                                               cache)
+      init_cache(batch, max_len)           -> cache (this cell's blocks)
+
+    ``forward`` takes this cell's rows (and of ``frames`` / ``patches``)
+    and gives its vocab block of the logits (the training loss reads
+    them sharded); ``prefill`` takes the global batch and keeps this
+    cell's rows (``batch_shardings``); ``decode_step`` takes and gives
+    this cell's rows, with every vocab id.
+
+    The cache: each cell holds its ``cache_specs`` block of every leaf.
+    The per-position leaves (GQA's k and v, MLA's c and r) and enc-dec's
+    read-only xk and xv are sequence-sharded, and a decode step combines
+    the ranks' partial attention over them (``decode_attention(group=)``
+    and its MLA counterpart); the hybrid's ring is sharded over its
+    window's slots and combined alike.  The SSM state and the conv
+    window (sharded over heads and channels where they divide) are
+    gathered whole for the step, which runs the single-device
+    ``mamba2_step`` on every model rank, and each rank keeps its block
+    of the result: one all-gather per leaf and layer, the state's
+    (B, H, P, N) fp32 the larger.
+
+    With an MoE and more than one data cell the batch's rows must split
+    evenly over the data axes (``ValueError``): its groups and balance
+    loss are the global batch's."""
 
     def __init__(self, model: Transformer, grid: Grid,
                  placement: LMPlacement | None = None):
         cfg = model.cfg
         self.model, self.grid, self.cfg = model, grid, cfg
-        self.placement = placement or lm_placement(grid, cfg)
+        self.placement = pl = placement or lm_placement(grid, cfg)
         for name, p in model.named_parameters():
-            if tuple(p.shape) != self.placement.local_shape(name):
+            if tuple(p.shape) != pl.local_shape(name):
                 raise ValueError(
                     f"{name} {tuple(p.shape)} is not this cell's block "
-                    f"{self.placement.local_shape(name)}: place the model "
+                    f"{pl.local_shape(name)}: place the model "
                     f"first (train.serve_step.params_shardings(grid, "
                     f"model))")
         self.tp = TensorParallel(grid)
         self.batch = grid.axis(BATCH_AXIS)
-        self.dense = grid_supported(cfg)
-        if self.dense:
-            pl = self.placement
-            sh = pl.model_sharded
-            self.plan = gqa_plan(cfg.n_heads, cfg.n_kv, head_dim(cfg),
-                                 self.tp, wq=sh("layers.0.attn.wq"),
-                                 wk=sh("layers.0.attn.wk"),
-                                 wo=sh("layers.0.attn.wo"))
-            self.mlp_sharded = sh("layers.0.mlp.wo")
-            if sh("layers.0.mlp.wi") != self.mlp_sharded:
-                raise ValueError(f"{cfg.name}: the MLP's wi and wo must be "
-                                 f"split alike")
-            self.vocab_sharded = sh("embed")
+        self.rows = self.batch if self.batch.size > 1 else None
+        self._fixed: dict[str, int | None] = {}
+        self.vocab_sharded = pl.model_sharded("embed")
+        fam = cfg.family
+        self.plan = self.mla_plan = self.xplan = self.enc_plan = None
+        self.moe_plan = None
+        self.mlp_sharded = self.enc_mlp = False
+        if fam == "hybrid":
+            self.plan = self._gqa("layers.0.mixer.attn")
+        elif fam != "ssm" and cfg.attn_impl == "mla":
+            self.mla_plan = mla_plan(cfg.n_heads, self.tp, **{
+                w: pl.model_sharded(f"layers.0.attn.{w}")
+                for w in ("wq_down", "wq_up", "wkv_down", "wkv_up", "wo")})
+        elif fam != "ssm":
+            self.plan = self._gqa("layers.0.attn")
+        if fam == "encdec":
+            self.xplan = self._gqa("layers.0.xattn")
+            self.enc_plan = self._gqa("enc_layers.0.attn")
+            self.enc_mlp = self._mlp("enc_layers.0.mlp")
+        if fam != "ssm":
+            if cfg.n_experts:
+                self.moe_plan = self._moe("layers.0.moe")
+            else:
+                self.mlp_sharded = self._mlp("layers.0.mlp")
+
+    def _gqa(self, prefix: str) -> GQAPlan:
+        sh = self.placement.model_sharded
+        cfg = self.cfg
+        return gqa_plan(cfg.n_heads, cfg.n_kv, head_dim(cfg), self.tp,
+                        wq=sh(f"{prefix}.wq"), wk=sh(f"{prefix}.wk"),
+                        wo=sh(f"{prefix}.wo"))
+
+    def _mlp(self, prefix: str) -> bool:
+        sh = self.placement.model_sharded
+        if sh(f"{prefix}.wi") != sh(f"{prefix}.wo"):
+            raise ValueError(f"{self.cfg.name}: the MLP's wi and wo must be "
+                             f"split alike ({prefix})")
+        return sh(f"{prefix}.wo")
+
+    def _moe(self, prefix: str) -> MoEGridPlan:
+        spec = self.placement[f"{prefix}.wgi"].spec
+        experts = ("expert" if spec[0] == MODEL_AXIS else
+                   "ff" if MODEL_AXIS in spec else "whole")
+        return MoEGridPlan(
+            router=self.placement.model_sharded(f"{prefix}.router"),
+            experts=experts,
+            shared=self._mlp(f"{prefix}.shared") if self.cfg.n_shared
+            else False,
+            n_experts=self.cfg.n_experts)
 
     @property
     def device(self) -> torch.device:
         return self.model.device
 
+    def check_rows(self, batch_size: int) -> None:
+        if (self.cfg.n_experts and self.rows is not None
+                and batch_size % self.rows.size):
+            raise ValueError(
+                f"{self.cfg.name}: the MoE on a grid of {self.rows.size} "
+                f"data cells needs the batch's rows to split evenly over "
+                f"them (its groups and balance loss are the global "
+                f"batch's); got {batch_size} rows")
+
+    # -- the blocks ---------------------------------------------------------
+
+    def _ffn(self, blk, h, moe_impl: str):
+        if blk.ffn_name == "moe":
+            return moe_apply(blk.moe, h, self.cfg.top_k, impl=moe_impl,
+                             plan=self.moe_plan, tp=self.tp, batch=self.rows)
+        return (mlp_grid(blk.mlp, h, self.tp, self.mlp_sharded),
+                torch.zeros((), device=h.device))
+
     def _block(self, i: int, x, positions, impl: str, q_chunk: int,
-               need_kv: bool = False):
+               moe_impl: str, enc_out, need: bool = False):
+        """(x, aux, this layer's cache leaves, whole over "model")."""
         blk = self.model.layers[i]
-        a, k, v = gqa_grid_full(blk.attn, rmsnorm(x, blk.ln1), positions,
-                                self.plan, self.tp, q_chunk=q_chunk,
-                                impl=impl, need_kv=need_kv)
-        x = x + a
-        x = x + mlp_grid(blk.mlp, rmsnorm(x, blk.ln2), self.tp,
-                         self.mlp_sharded)
-        return x, k, v
+        fam = self.cfg.family
+        if fam == "ssm":
+            y, (h_last, conv) = blk.mamba(rmsnorm(x, blk.ln1),
+                                          chunk=min(256, x.shape[1]),
+                                          return_state=True)
+            return (x + y, torch.zeros((), device=x.device),
+                    {"ssm": h_last, "conv": conv})
+        h = rmsnorm(x, blk.ln1)
+        if fam == "hybrid":
+            mix = hymba_apply(blk.mixer, h, positions, plan=self.plan,
+                              tp=self.tp, return_state=need)
+            mix, cache = mix if need else (mix, {})
+        elif self.mla_plan is not None:
+            mix, (c, r) = mla_prefill(blk.attn, h, positions,
+                                      q_chunk=q_chunk, impl=impl,
+                                      plan=self.mla_plan, tp=self.tp)
+            cache = {"c": c, "r": r}
+        else:
+            mix, k, v = gqa_grid_full(blk.attn, h, positions, self.plan,
+                                      self.tp, q_chunk=q_chunk, impl=impl,
+                                      need_kv=need)
+            cache = {"k": k, "v": v}
+        x = x + mix
+        if fam == "encdec":
+            o, xk, xv = gqa_grid_full(
+                blk.xattn, rmsnorm(x, blk.ln_x), None, self.xplan, self.tp,
+                q_chunk=q_chunk, need_kv=need, kv_in=enc_out, rope=False,
+                attend=functools.partial(cross_attention, impl=impl))
+            x = x + o
+            cache.update(xk=xk, xv=xv)
+        y, aux = self._ffn(blk, rmsnorm(x, blk.ln2), moe_impl)
+        return x + y, aux, cache
 
-    def _train_block(self, i: int, x, positions, impl: str):
-        return self._block(i, x, positions, impl, TRAIN_Q_CHUNK)[0]
+    def _train_block(self, i: int, x, positions, impl: str, moe_impl: str,
+                     enc_out):
+        x, aux, _ = self._block(i, x, positions, impl, TRAIN_Q_CHUNK,
+                                moe_impl, enc_out)
+        return x, aux
 
-    def forward(self, tokens: torch.Tensor, *, impl: str = "ref",
-                remat: bool = False, moe_impl: str = "einsum"):
-        """tokens (B_l, S), this cell's rows -> (logits (B_l, S, V_l), this
-        rank's vocab block, and aux).  Training's forward: ``impl`` "ref"
-        (the plain chunked attention, which autograd differentiates)."""
-        if not self.dense:
-            return self.model(tokens, impl=impl, remat=remat,
-                              moe_impl=moe_impl)
-        m = self.model
+    def _enc_layer(self, blk, x, positions, impl: str):
+        o, _, _ = gqa_grid_full(blk.attn, rmsnorm(x, blk.ln1), positions,
+                                self.enc_plan, self.tp,
+                                q_chunk=TRAIN_Q_CHUNK, impl=impl,
+                                causal=False)
+        x = x + o
+        return x + mlp_grid(blk.mlp, rmsnorm(x, blk.ln2), self.tp,
+                            self.enc_mlp)
+
+    def _inputs(self, tokens, frames, patches, impl: str,
+                remat: bool = False):
+        """``Transformer._inputs`` on the grid: the vocab-parallel lookup
+        (VLM: the patches first, on every model rank) and enc-dec's
+        encoder stack over this cell's frames."""
+        m, fam = self.model, self.cfg.family
         x = embed_grid(m.embed, tokens, self.tp, self.vocab_sharded)
-        positions = m._positions(x)
-        for i in range(len(m.layers)):
+        if fam == "vlm":
+            if patches is None:
+                raise ValueError(f"{self.cfg.name}: the vlm family needs "
+                                 f"patches (B, n_patches, d_model)")
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        if fam != "encdec":
+            return x, None
+        if frames is None:
+            raise ValueError(f"{self.cfg.name}: the encdec family needs "
+                             f"frames (B, Se, d_model)")
+        e = frames.to(m.embed.dtype)
+        positions = m._positions(e)
+        for blk in m.enc_layers:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(self._train_block, i, x, positions, impl,
+                e = checkpoint(self._enc_layer, blk, e, positions, impl,
                                use_reentrant=False)
             else:
-                x = self._train_block(i, x, positions, impl)
+                e = self._enc_layer(blk, e, positions, impl)
+        return x, rmsnorm(e, m.enc_norm)
+
+    def forward(self, tokens: torch.Tensor, *,
+                frames: torch.Tensor | None = None,
+                patches: torch.Tensor | None = None, impl: str = "ref",
+                remat: bool = False, moe_impl: str = "einsum"):
+        """tokens (B_l, S), this cell's rows (and of frames / patches) ->
+        (logits (B_l, S', V_l), this rank's vocab block, and aux, the MoE
+        balance loss of the global batch).  Training's forward: ``impl``
+        "ref" (the plain chunked attention, which autograd
+        differentiates)."""
+        m = self.model
+        x, enc_out = self._inputs(tokens, frames, patches, impl, remat)
+        positions = m._positions(x)
+        aux = torch.zeros((), device=x.device)
+        for i in range(len(m.layers)):
+            if remat and torch.is_grad_enabled():
+                x, a = checkpoint(self._train_block, i, x, positions, impl,
+                                  moe_impl, enc_out, use_reentrant=False)
+            else:
+                x, a = self._train_block(i, x, positions, impl, moe_impl,
+                                         enc_out)
+            aux = aux + a
         logits = unembed_grid(m.embed, rmsnorm(x, m.final_norm), self.tp,
                               self.vocab_sharded)
-        return logits, torch.zeros((), device=x.device)
+        return logits, aux
 
     def _whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         if self.vocab_sharded:
             return self.tp.gather(logits, -1)
         return logits
 
+    # -- the cache ----------------------------------------------------------
+
+    def _positional(self, name: str) -> bool:
+        """Whether a leaf holds one entry per position (and is
+        sequence-sharded on a model axis of several ranks)."""
+        return self.cfg.family != "hybrid" and name in ("k", "v", "c", "r")
+
+    def _model_dim(self, name: str, shape: tuple) -> int | None:
+        """The dim of one layer's leaf (B, ...) that "model" splits, from
+        ``cache_specs``: the positions of a per-position leaf; for the
+        fixed-size leaves (SSM state, conv window, ring) their specs at
+        their whole shapes.  For xk and xv, whose positions are the
+        frames' (known to the prefill that placed them, not to a decode
+        step's own ``GridTransformer``), the block's shape says it:
+        ``cache_specs`` takes the first of positions, heads and head dim
+        that the axis divides, and only the split one is below the
+        config's, so it is the heads or the head dim where that one is
+        smaller, else the positions."""
+        if self.tp.size == 1:
+            return None
+        if self._positional(name):
+            return 1
+        if name in READONLY:
+            whole = (self.cfg.n_kv, head_dim(self.cfg))
+            return next((d for d, n in zip((2, 3), whole)
+                         if shape[d] != n), 1)
+        if name not in self._fixed:
+            fixed = self.model.init_cache(1, 1, device="meta")[name]
+            spec = cache_specs(self.grid, {name: fixed})[name]
+            self._fixed[name] = next((d - 1 for d, e in enumerate(spec)
+                                      if e == MODEL_AXIS), None)
+        return self._fixed[name]
+
+    def _whole(self, leaf: torch.Tensor, d: int | None) -> torch.Tensor:
+        return leaf if d is None else self.grid.all_gather(leaf, MODEL_AXIS,
+                                                           d)
+
+    def _own(self, whole: torch.Tensor, d: int | None) -> torch.Tensor:
+        if d is None:
+            return whole
+        n = whole.shape[d] // self.tp.size
+        return whole.narrow(d, self.tp.index * n, n)
+
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         """This cell's blocks of the zero decode cache of a global batch
         of ``batch_size`` sequences and ``max_len`` positions
-        (``cache_specs``: batch over the data axes, positions over
-        "model"; ``ValueError`` when max_len is not a multiple of the
-        model axis, which would put "model" on the heads)."""
-        if not self.dense:
-            return self.model.init_cache(batch_size, max_len)
-        cfg = self.cfg
-        kv = (cfg.n_layers, batch_size, max_len, cfg.n_kv, head_dim(cfg))
-        spec = cache_specs(self.grid, {"k": kv})["k"]
-        if self.tp.size > 1 and spec[2] != MODEL_AXIS:
-            raise ValueError(
-                f"the decode cache's {max_len} positions are not a "
-                f"multiple of the model axis ({self.tp.size}); the grid "
-                f"decode needs them sharded over it (cache_specs)")
-        shape = local_block(self.grid, torch.empty(kv, device="meta"),
-                            spec).shape
-        return {n: torch.zeros(shape, dtype=self.model.embed.dtype,
-                               device=self.device) for n in ("k", "v")}
+        (``cache_specs``; ``ValueError`` when a per-position leaf's
+        max_len is not a multiple of the model axis, which would put
+        "model" on its heads)."""
+        self.check_rows(batch_size)
+        glob = self.model.init_cache(batch_size, max_len, device="meta")
+        specs = cache_specs(self.grid, glob)
+        out = {}
+        for name, leaf in glob.items():
+            if (self.tp.size > 1 and self._positional(name)
+                    and specs[name][2] != MODEL_AXIS):
+                raise ValueError(
+                    f"the decode cache's {max_len} positions are not a "
+                    f"multiple of the model axis ({self.tp.size}); the "
+                    f"grid decode needs them sharded over it "
+                    f"(cache_specs)")
+            shape = local_block(self.grid, leaf, specs[name]).shape
+            out[name] = torch.zeros(shape, dtype=leaf.dtype,
+                                    device=self.device)
+        return out
+
+    def _store(self, cache: dict, name: str, i: int, leaf: torch.Tensor,
+               B: int) -> None:
+        """Layer i's whole leaf (this cell's rows) into this cell's block
+        of the cache: a per-position leaf's block of positions, a fixed
+        leaf's block by its spec; enc-dec's read-only xk and xv, the
+        frames' positions, are made here (``cache_specs`` at their
+        shape)."""
+        if name in READONLY:
+            if name not in cache:
+                L = len(self.model.layers)
+                spec = cache_specs(self.grid, {name: (L, B,
+                                                      *leaf.shape[1:])})
+                d = next((k - 1 for k, e in enumerate(spec[name])
+                          if e == MODEL_AXIS), None)
+                if self.tp.size > 1 and d is None:
+                    raise ValueError(f"{name}: no dim of {tuple(leaf.shape)}"
+                                     f" divides the model axis")
+                self._fixed[name] = d
+                cache[name] = leaf.new_empty((L, *self._own(leaf, d).shape))
+            cache[name][i] = self._own(leaf, self._fixed[name])
+            return
+        if self._positional(name):
+            s_l = cache[name].shape[2]
+            p0 = self.tp.index * s_l if self.tp.size > 1 else 0
+            n = max(0, min(leaf.shape[1], p0 + s_l) - p0)
+            cache[name][i, :, :n] = leaf[:, p0:p0 + n]
+            return
+        cache[name][i] = self._own(leaf, self._model_dim(
+            name, cache[name].shape[1:]))
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int | None = None, *,
-                impl: str = "auto", moe_impl: str = "einsum"):
-        """Serving prefill of the global batch ``tokens`` (B, S): this
-        cell's rows go through the layers (attention through the CUDA
-        kernel on a CUDA tensor, on this rank's heads), each layer's K/V
-        gathered whole over "model" and this cell's block of positions
-        kept.  Returns (logits (B_l, 1, Vpad) of the last position, the
-        cache of ``max_len`` (default S) positions rounded up to a
-        multiple of the model axis, this cell's blocks)."""
-        B, S = tokens.shape
+                frames: torch.Tensor | None = None,
+                patches: torch.Tensor | None = None, impl: str = "auto",
+                moe_impl: str = "einsum"):
+        """Serving prefill of the global batch ``tokens`` (B, S) (and its
+        ``frames`` or ``patches``): this cell's rows go through the
+        layers (attention through the CUDA kernel on a CUDA tensor, on
+        this rank's heads), each layer's cache leaves kept as this
+        cell's blocks.  Returns (logits (B_l, 1, Vpad) of the last
+        position, the cache of ``max_len`` (default S plus the
+        patches) positions rounded up to a multiple of the model axis,
+        this cell's blocks)."""
+        B = tokens.shape[0]
         M = self.tp.size
-        max_len = -(-(max_len or S) // M) * M
-        if not self.dense:
-            logits, filled = self.model.prefill(tokens, impl=impl,
-                                                moe_impl=moe_impl)
-            return logits, self.model.extend_cache(filled, max_len)
-        cache = self.init_cache(B, max_len)
+        P = tokens.shape[1] + (patches.shape[1] if patches is not None
+                               else 0)
+        max_len = -(-(max_len or P) // M) * M
+        cache = {n: x for n, x in self.init_cache(B, max_len).items()
+                 if n not in READONLY}
+        inputs = {"tokens": tokens, "frames": frames, "patches": patches}
+        rows = shard_batch(self.grid, {k: v for k, v in inputs.items()
+                                       if v is not None})
         m = self.model
-        x = embed_grid(m.embed, shard_batch(self.grid, {"t": tokens})["t"],
-                       self.tp, self.vocab_sharded)
+        x, enc_out = self._inputs(rows["tokens"], rows.get("frames"),
+                                  rows.get("patches"), impl)
         positions = m._positions(x)
-        s_l = cache["k"].shape[2]
-        p0 = self.tp.index * s_l if self.tp.size > 1 else 0
-        n = max(0, min(S, p0 + s_l) - p0)
         for i in range(len(m.layers)):
-            x, k, v = self._block(i, x, positions, impl, PREFILL_Q_CHUNK,
-                                  need_kv=True)
-            cache["k"][i, :, :n] = k[:, p0:p0 + n]
-            cache["v"][i, :, :n] = v[:, p0:p0 + n]
+            x, _, leaves = self._block(i, x, positions, impl,
+                                       PREFILL_Q_CHUNK, moe_impl, enc_out,
+                                       need=True)
+            for name, leaf in leaves.items():
+                self._store(cache, name, i, leaf, B)
         last = unembed_grid(m.embed, rmsnorm(x[:, -1:], m.final_norm),
                             self.tp, self.vocab_sharded)
         return self._whole_vocab(last), cache
+
+    # -- decode -------------------------------------------------------------
+
+    def _mamba_step(self, mamba, h, c: dict) -> torch.Tensor:
+        """``mamba2_step`` on the state and conv window gathered whole;
+        this rank keeps its blocks of the new ones."""
+        dims = {n: self._model_dim(n, c[n].shape) for n in ("ssm", "conv")}
+        y, s_new, conv_new = mamba2_step(
+            mamba, h, self._whole(c["ssm"], dims["ssm"]),
+            self._whole(c["conv"], dims["conv"]))
+        c["ssm"].copy_(self._own(s_new, dims["ssm"]))
+        c["conv"].copy_(self._own(conv_new, dims["conv"]))
+        return y
+
+    def _hymba_step(self, p, h, c: dict, pos: int, seq) -> torch.Tensor:
+        """``hymba_step`` on the grid: q, k and v whole, the new k and v
+        into ring slot pos % W on the rank that holds it, the ring's
+        partial attention combined over "model" (or the ring gathered
+        whole where "model" splits its heads), this rank's block
+        through its rows of wo; the Mamba2 branch as ``_mamba_step``."""
+        B = h.shape[0]
+        q, k, v = gqa_grid_qkv1(p.attn, h, pos, self.plan, self.tp)
+        d = self._model_dim("k", c["k"].shape)
+        slot = pos % p.window
+        if d == 1:
+            owner, at = divmod(slot, c["k"].shape[1])
+            if seq.index == owner:
+                c["k"][:, at] = k[:, 0]
+                c["v"][:, at] = v[:, 0]
+            o = ring_decode_attention(q, c["k"], c["v"], pos, p.window,
+                                      group=seq)
+        else:
+            kr, vr = self._whole(c["k"], d), self._whole(c["v"], d)
+            kr[:, slot] = k[:, 0]
+            vr[:, slot] = v[:, 0]
+            c["k"].copy_(self._own(kr, d))
+            c["v"].copy_(self._own(vr, d))
+            o = ring_decode_attention(q, kr, vr, pos, p.window)
+        attn_out = grid_out(o.reshape(B, 1, -1), p.attn.wo, self.plan.wo,
+                            self.tp)
+        m_out = self._mamba_step(p.mamba, h, c)
+        return 0.5 * (rmsnorm(attn_out, p.ln_a) + rmsnorm(m_out, p.ln_m))
+
+    def _cross_step(self, xa, h, c: dict, seq) -> torch.Tensor:
+        """Cross attention of one token over the read-only xk and xv,
+        sequence-sharded (combined over "model") or gathered whole."""
+        B = h.shape[0]
+        q = grid_heads(h, xa.wq, self.xplan.wq, xa.n_heads, self.tp)
+        d = self._model_dim("xk", c["xk"].shape)
+        if d == 1:
+            Se = c["xk"].shape[1] * self.tp.size
+            o = decode_attention(q, c["xk"], c["xv"], Se, group=seq)
+        else:
+            xk, xv = self._whole(c["xk"], d), self._whole(c["xv"], d)
+            o = decode_attention(q, xk, xv, xk.shape[1])
+        return grid_out(o.reshape(B, 1, -1), xa.wo, self.xplan.wo, self.tp)
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor, pos: int, *,
                     moe_impl: str = "einsum"):
         """One token for this cell's rows: tokens (B_l, 1) at position
         ``pos`` -> (logits (B_l, 1, Vpad), cache updated in place).  Each
-        layer gathers q, k and v whole over "model", writes k and v on the
-        rank that holds ``pos``, combines the sequence-sharded attention
-        (``decode_attention(group=)``), and runs its heads through wo."""
-        if not self.dense:
-            return self.model.decode_step(cache, tokens, pos,
-                                          moe_impl=moe_impl)
-        m = self.model
-        seq = self.grid.axis(MODEL_AXIS) if self.tp.size > 1 else None
-        x = embed_grid(m.embed, tokens, self.tp, self.vocab_sharded)
+        layer's attention gathers its q (and new k, v or latents) whole
+        over "model", writes the new entry on the rank that holds
+        ``pos``, combines the ranks' partial attention over their blocks
+        of positions, and runs its heads through wo; the class docstring
+        has the SSM's and the ring's steps."""
+        m, tp = self.model, self.tp
+        seq = self.grid.axis(MODEL_AXIS) if tp.size > 1 else None
+        fam = self.cfg.family
+        x = embed_grid(m.embed, tokens, tp, self.vocab_sharded)
         for i, blk in enumerate(m.layers):
-            x = x + gqa_grid_decode(blk.attn, rmsnorm(x, blk.ln1),
-                                    cache["k"][i], cache["v"][i], pos,
-                                    self.plan, self.tp, seq)
-            x = x + mlp_grid(blk.mlp, rmsnorm(x, blk.ln2), self.tp,
-                             self.mlp_sharded)
-        logits = unembed_grid(m.embed, rmsnorm(x, m.final_norm), self.tp,
+            c = {name: leaf[i] for name, leaf in cache.items()}
+            h = rmsnorm(x, blk.ln1)
+            if fam == "ssm":
+                x = x + self._mamba_step(blk.mamba, h, c)
+                continue
+            if fam == "hybrid":
+                x = x + self._hymba_step(blk.mixer, h, c, pos, seq)
+            elif self.mla_plan is not None:
+                x = x + mla_decode(blk.attn, h, pos, c["c"], c["r"],
+                                   self.mla_plan, tp, seq)
+            else:
+                x = x + gqa_grid_decode(blk.attn, h, c["k"], c["v"], pos,
+                                        self.plan, tp, seq)
+            if fam == "encdec":
+                x = x + self._cross_step(blk.xattn, rmsnorm(x, blk.ln_x), c,
+                                         seq)
+            y, _ = self._ffn(blk, rmsnorm(x, blk.ln2), moe_impl)
+            x = x + y
+        logits = unembed_grid(m.embed, rmsnorm(x, m.final_norm), tp,
                               self.vocab_sharded)
         return self._whole_vocab(logits), cache

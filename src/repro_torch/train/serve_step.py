@@ -24,8 +24,7 @@ from repro_torch.models.transformer import (GridTransformer, Transformer,
 def params_shardings(grid: Grid, model: Transformer) -> Transformer:
     """Place ``model``'s parameters on ``grid``: each becomes this cell's
     block (``dist.sharding.param_specs``), copied to the grid's device,
-    in place; returns the model.  The dense GQA decoders place on any LM
-    grid, the other families on 1 x 1 only (``ValueError``)."""
+    in place; returns the model.  Every family places on any LM grid."""
     placement = lm_placement(grid, model.cfg)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -42,15 +41,16 @@ def make_prefill_step(model, *, impl: str = "auto",
     ``impl`` picks the full-sequence attention: the CUDA flash_attention
     kernel on CUDA tensors ("auto", "cuda") or the plain chunked path
     ("ref"); ``moe_impl`` the MoE path.  With ``grid`` (a placed model)
-    the logits are this cell's rows and the cache has ``max_len``
-    positions (default S), this cell's blocks."""
+    the tokens and inputs are the global batch's, the logits this cell's
+    rows, and the cache has ``max_len`` positions (default S plus the
+    patches), this cell's blocks."""
     if grid is not None:
         gm = GridTransformer(model, grid)
 
-        def grid_step(tokens):
+        def grid_step(tokens, **inputs):
             with torch.inference_mode():
                 return gm.prefill(tokens, max_len, impl=impl,
-                                  moe_impl=moe_impl)
+                                  moe_impl=moe_impl, **inputs)
         return grid_step
 
     def step(tokens, **inputs):

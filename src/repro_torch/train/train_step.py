@@ -111,8 +111,9 @@ def make_train_step(cfg, *, grid: Grid | None = None,
     ``moe_impl`` picks the MoE path; ``microbatches`` defaults to
     cfg.train_microbatches and must divide B.  With ``grid`` the state
     is a grid state (``init_state(grid=)``), the batch is the global one
-    and the step runs as the module docstring says (the dense GQA
-    decoders on any LM grid, the other families on 1 x 1 only)."""
+    and the step runs as the module docstring says (every family on any
+    LM grid; an MoE on several data cells needs each microbatch's rows to
+    split evenly over them, ``ValueError``)."""
     optimizer = optimizer or AdamW()
     mb = microbatches or getattr(cfg, "train_microbatches", 1) or 1
     if grid is not None:
@@ -179,6 +180,7 @@ def _grid_step(cfg, grid: Grid, optimizer: AdamW, mb: int, remat: bool,
     batch_group = grid.axis("batch")
 
     def grads_of(gm, names, params, batch):
+        gm.check_rows(batch["tokens"].shape[0])
         share, metrics = model_lib.grid_loss_fn(
             gm, shard_batch(grid, batch), remat=remat, moe_impl=moe_impl,
             aux_weight=aux_weight)

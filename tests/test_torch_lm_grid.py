@@ -749,19 +749,6 @@ def test_mesh_flags_refuse_outside_a_torchrun_world(monkeypatch):
                               "--device", "cpu", *argv])
 
 
-def test_other_families_refuse_a_grid_beyond_one_cell():
-    grid = Grid.at_rank(0, 1, 1, 2, "cpu", lm=True)
-    for arch in ("deepseek-moe-16b", "minicpm3-4b", "mamba2-1.3b",
-                 "hymba-1.5b", "whisper-large-v3", "internvl2-26b"):
-        with pytest.raises(ValueError, match=r"5\(d\)"):
-            tt.lm_placement(grid, cfg_of(arch))
-    one = Grid.at_rank(0, 1, 1, 1, "cpu", lm=True)
-    assert tt.lm_placement(one, cfg_of("mamba2-1.3b")) is not None
-    with pytest.raises(ValueError, match="LM grid"):
-        tt.lm_placement(Grid.at_rank(0, 1, 1, 1, "cpu"),
-                        cfg_of("llama3.2-1b"))
-
-
 def test_unplaced_model_and_indivisible_cache_are_refused():
     cfg = cfg_of("llama3.2-1b")
     grid = Grid.at_rank(1, 1, 1, 2, "cpu", lm=True)
