@@ -399,6 +399,46 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      in this process): within GRID_LOSS_TOL at the first step and
      GRID_ZOO_UPDATED_TOL after the first update; no kernel launched; ms per step,
      collectives and each rank's peak printed.  The cuts: phase 14's (PERF.md §4).
+ 17. One rank's share of the paper's exascale cells (after phase 16; the
+     card's name and power limit printed first), on a 1 x 1 NCCL grid
+     (``make_grid(data=1, model=1)``, destroyed at the end), through
+     ``dist/engine.py`` ``make_mu_step`` with the fused kernel policy at k
+     = 10, at the local shapes the dry run's plan gives one rank of the
+     16 x 16 grid (``launch.dryrun.rescal_share``), seeded uniform values.
+     (a) rescal-dense-3tb, batched: X^(i,j) (20, 12288, 12288) fp32, 12.08
+     GB, 3,019,898,880 floats (past 2^31), through ``fused_xa_xtb`` and
+     ``mu_update_a``.  (b) rescal-sparse-eb, sliced: n_loc = 23,347,200
+     (nb_loc = 182,400 block rows), 6653 stored blocks of 128^2 per slice
+     at seeded uniform positions (local density 2.0e-7), m = 20, 8.72 GB
+     of blocks, A^(i) (23,347,200, 10) 0.93 GB, through ``bcsr_xa_xta``
+     (one launch per slice) and ``mu_update_a``.  For each share: one MU
+     iteration against the plain path (``KernelPolicy(impl="ref")``) on
+     the same inputs, A and R within phase 2's tolerances; then
+     EXA_ITERS MU iterations with the counters and the allocator's peak
+     reset just before, timed by CUDA events (ms per MU iteration
+     printed), each kernel launched (one ``fused_xa_xtb`` or one
+     ``bcsr_xa_xta`` per slice, one ``mu_update_a`` per iteration), the
+     collectives per iteration equal to the plan's,
+     ``torch.cuda.max_memory_allocated`` within EXA_PEAK_TOL of the 1 x 1
+     plan's total at the share's shapes, and the step's own allocations
+     (that peak less ``torch.cuda.memory_allocated`` just before the
+     timed loop) within EXA_PEAK_TOL of the plan's output + temp; the 16
+     x 16 plan's total is printed beside it, term by term.  (b)'s
+     relative error after the iterations through ``local_rel_error_bcsr``
+     (one ``bcsr_spmm`` launch) against the plain path's within 1e-4, its
+     peak printed; then the (20, 23,347,200, 10) product X_t A itself
+     (4.67e9 outputs, past 2^31), one ``bcsr_spmm`` launch held against
+     the plain segment sum EXA_SPMM_SLICES slices at a time at phase 2's
+     tolerances (a launch made for the comparison, not counted).
+     Then the dry run's plan of phases 8, 13 and 14's LM cells
+     (llama3.2-1b serve at 4 x 4112 positions, its training at 4 x 4096
+     with ``--remat``, deepseek-moe-16b serve at 4 x 4112), each on a 1 x 1
+     grid, beside the peak that phase measured in this run: the plan's
+     state terms (parameters, gradients, moments, cache, batch) must not
+     exceed it, and its total with the fit's margin
+     (``dryrun.LM_PLAN_SHORTFALL``) must reach it; the total's ratio to it
+     is printed.  The kernels line's
+     launches of the four RESCAL kernels are this phase's.
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -614,6 +654,16 @@ GRID_ZOO_TP = dict(model=2, archs=("granite-moe-3b-a800m", "minicpm3-4b"),
                    batch=2, prompt=2048, new_tokens=8, train_batch=2,
                    train_seq=1024, train_steps=2, lr=1e-3)
 GRID_ZOO_UPDATED_TOL = 1e-2
+# phase 17: one rank's share of the exascale cells on a 1 x 1 NCCL grid
+# (the 16 x 16 plan's local shapes), timed over EXA_ITERS MU iterations;
+# the allocator's peak held to the 1 x 1 plan within EXA_PEAK_TOL
+EXA = dict(k=10, seed=0)
+EXA_ITERS = 20
+EXA_PEAK_TOL = 0.10
+EXA_SPMM_SLICES = 4       # (b)'s product checked this many slices at a time
+# the LM peaks measured by phases 8, 13 and 14 in this run, against
+# the dry run's plan at each phase's own cut shape on a 1 x 1 grid
+MEASURED_PEAKS: dict[str, int] = {}
 
 
 def log(msg: str) -> None:
@@ -2286,6 +2336,7 @@ def phase_lm(dev, smi: str) -> dict:
         f"{pre_err:.3e}; decode logits fed the kernel path's tokens, "
         f"largest relative error {step_err:.3e}; the plain path's "
         f"greedy token equals the kernel path's in {same} of {B * T}")
+    MEASURED_PEAKS["llama3.2-1b serve"] = res.peak_bytes
     profile_lm(res, min(16, T))
     del res
     torch.cuda.empty_cache()
@@ -3362,6 +3413,7 @@ def phase_train(tmp: Path, dev, smi: str) -> None:
     peak = torch.cuda.max_memory_allocated(dev)
     require(len(hist) == TRAIN["steps"], f"(a) {len(hist)} steps recorded")
     first, last = require_finite_falling("(a)", hist)
+    MEASURED_PEAKS["llama3.2-1b train"] = peak
     st = train_stats(hist, cfg, B, S)
     log(f"[train] (a) losses " + " ".join(f"{h['loss']:.4f}" for h in hist)
         + "; grad_norm " + " ".join(f"{h['grad_norm']:.3f}" for h in hist))
@@ -3738,6 +3790,7 @@ def phase_zoo(dev, smi: str) -> None:
     log(f"[zoo] {a['arch']}: {n / 1e9:.3f}B parameters, "
         f"{2 * n / 1e9:.2f} GB in bf16")
     check_zoo_run(res, a["arch"], smi, tape)
+    MEASURED_PEAKS[f"{a['arch']} serve"] = res.peak_bytes
     profile_lm(res, min(ZOO_PROFILE_STEPS, a["new_tokens"]), top=14,
                tag="zoo")
     del res, tape
@@ -4460,6 +4513,306 @@ def phase_lm_grid_zoo(tmp: Path, dev, smi: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: one rank's share of the exascale cells
+# ---------------------------------------------------------------------------
+
+def exa_terms(tag: str, plan11: dict, plan16: dict) -> None:
+    """The 1 x 1 plan at the share's shapes beside the 16 x 16 plan, term
+    by term (GB; the terms of 1 MB or more), and their difference."""
+    names = list(dict.fromkeys([*plan11["terms"], *plan16["terms"]]))
+    for name in names:
+        a = plan11["terms"].get(name, 0)
+        b = plan16["terms"].get(name, 0)
+        if max(a, b) < 1e6:
+            continue
+        log(f"[exascale] {tag}   {name:<44} 1x1 {a / 1e9:8.3f}  16x16 "
+            f"{b / 1e9:8.3f}  diff {(a - b) / 1e9:+8.3f}")
+
+
+def exa_share(tag: str, grid, Xl, factors: dict, schedule: str,
+              plan11: dict, plan16: dict, names: tuple[str, ...],
+              dev) -> dict:
+    """One share through ``make_mu_step`` (fused, ``schedule``): one MU
+    iteration held against the plain path, then EXA_ITERS timed with the
+    counters and the allocator's peak reset just before; returns the
+    launches, ms per iteration, the peak and the final factors.  The
+    factors {"A", "R"} are taken out of ``factors``, so that each
+    iteration's input A is freed once the next exists, as the plan
+    counts it."""
+    import torch
+    Ai, R = factors.pop("A"), factors.pop("R")
+    from repro_torch.dist.engine import DistRescalConfig, make_mu_step
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.policy import KernelPolicy
+    fused = DistRescalConfig(schedule=schedule,
+                             kernel=KernelPolicy(use_fused=True))
+    plain = DistRescalConfig(schedule=schedule,
+                             kernel=KernelPolicy(use_fused=True, impl="ref"))
+    step = make_mu_step(grid, fused)
+    t0 = time.perf_counter()
+    A_ref, R_ref = make_mu_step(grid, plain)(Xl, Ai, R)
+    A_k, R_k = step(Xl, Ai, R)
+    torch.cuda.synchronize()
+    err_a = compare(f"{tag} A after one MU iteration", A_k, A_ref)
+    err_r = compare(f"{tag} R after one MU iteration", R_k, R_ref)
+    log(f"[exascale] {tag} one MU iteration, kernel vs plain path: A max "
+        f"|diff| {err_a:.3e}, R {err_r:.3e} (phase 2's tolerances; "
+        f"{time.perf_counter() - t0:.1f}s)")
+    del A_ref, R_ref, A_k, R_k
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ops.reset_launch_counts()
+    c0 = grid.collectives
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(EXA_ITERS):
+        Ai, R = step(Xl, Ai, R)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / EXA_ITERS
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = ops.launch_counts()
+    coll = (grid.collectives - c0) // EXA_ITERS
+    require(bool(torch.isfinite(Ai).all()) and bool(torch.isfinite(R).all()),
+            f"{tag}: non-finite factors after {EXA_ITERS} MU iterations")
+    for name in names:
+        require(launches[name] > 0, f"{tag}: {name} never launched")
+    require(coll == plan11["collectives"]["count"],
+            f"{tag}: {coll} collectives per MU iteration, the plan says "
+            f"{plan11['collectives']['count']}")
+    mem = plan11["memory"]
+    total = mem["total"]
+    off = abs(peak - total) / total
+    # the step's own allocations: what the plan's output and temp count,
+    # beside the operand and factors that dominate the total
+    step_b, step_plan = peak - base, mem["output"] + mem["temp"]
+    step_off = abs(step_b - step_plan) / step_plan
+    log(f"[exascale] {tag} {schedule}: {ms:.3f} ms per MU iteration "
+        f"({EXA_ITERS} iterations, CUDA events); launches {launches}; "
+        f"{coll} collectives per iteration (the plan's "
+        f"{plan11['collectives']['count']}); peak device memory "
+        f"{peak / 1e9:.3f} GB, the 1 x 1 plan {total / 1e9:.3f} GB "
+        f"({100 * (peak - total) / total:+.2f}%), the 16 x 16 plan "
+        f"{plan16['memory']['total'] / 1e9:.3f} GB per rank; the step's "
+        f"own allocations (peak - {base / 1e9:.3f} GB held before) "
+        f"{step_b / 1e9:.4f} GB, the plan's output + temp "
+        f"{step_plan / 1e9:.4f} GB ({100 * (step_b - step_plan) / step_plan:+.2f}%)")
+    exa_terms(tag, plan11, plan16)
+    require(off <= EXA_PEAK_TOL,
+            f"{tag}: peak {peak / 1e9:.3f} GB is {100 * off:.1f}% from the "
+            f"plan's {total / 1e9:.3f} GB (> {100 * EXA_PEAK_TOL:.0f}%)")
+    require(step_off <= EXA_PEAK_TOL,
+            f"{tag}: the step's own allocations {step_b / 1e9:.4f} GB are "
+            f"{100 * step_off:.1f}% from the plan's output + temp "
+            f"{step_plan / 1e9:.4f} GB (> {100 * EXA_PEAK_TOL:.0f}%)")
+    return {"launches": launches, "ms": ms, "peak": peak, "A": Ai, "R": R}
+
+
+def exa_bcsr(sh, gen, dev):
+    """The sparse share's BCSR: sh.nnzb blocks of sh.bs^2 per slice at
+    seeded uniform positions over (nb, nb), row-major, uniform values."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sparse import BCSR
+    rng = np.random.default_rng(EXA["seed"])
+    nb = sh.nb
+    flat = np.unique(rng.integers(0, nb * nb, size=2 * sh.nnzb))
+    flat = np.sort(rng.choice(flat, size=sh.nnzb, replace=False))
+    rows = torch.from_numpy((flat // nb).astype(np.int32)).to(dev)
+    cols = torch.from_numpy((flat % nb).astype(np.int32)).to(dev)
+    data = torch.rand((sh.m, sh.nnzb, sh.bs, sh.bs), generator=gen,
+                      device=dev)
+    return BCSR(data=data, block_rows=rows, block_cols=cols, n=sh.nl)
+
+
+def exa_spmm(sp, A) -> None:
+    """(b)'s product X_t A of every slice, (m, n_loc, k) past 2^31
+    outputs: one ``bcsr_spmm`` launch, held against the plain segment sum
+    EXA_SPMM_SLICES slices at a time."""
+    import torch
+    from repro_torch.core.sparse import single_product
+    from repro_torch.kernels.policy import KernelPolicy
+    t0 = time.perf_counter()
+    P = single_product(sp, A, policy=KernelPolicy(use_fused=True))
+    require(tuple(P.shape) == (sp.m, sp.n, A.shape[-1]),
+            f"(b) bcsr_spmm product {tuple(P.shape)}")
+    plain = KernelPolicy(use_fused=True, impl="ref")
+    worst = rel = share = 0.0
+    for a in range(0, sp.m, EXA_SPMM_SLICES):
+        b = min(a + EXA_SPMM_SLICES, sp.m)
+        ref = single_product(sp.with_data(sp.data[a:b]), A, policy=plain)
+        err = compare(f"(b) bcsr_spmm slices {a}..{b - 1}", P[a:b], ref)
+        worst = max(worst, err)
+        share = max(share, err / float(ref.abs().max()))
+        rel = max(rel, float(torch.linalg.vector_norm(P[a:b] - ref))
+                  / float(torch.linalg.vector_norm(ref)))
+        del ref
+    log(f"[exascale] (b) bcsr_spmm product {tuple(P.shape)}, "
+        f"{P.numel():,} outputs (2^31 = {2 ** 31:,}): against the plain "
+        f"segment sum, {EXA_SPMM_SLICES} slices at a time, max |diff| "
+        f"{worst:.3e}, at most {share:.3e} of a chunk's max |ref| (limit "
+        f"{ABS_TOL}) and {rel:.3e} relative (limit {REL_TOL}) "
+        f"({time.perf_counter() - t0:.1f}s)")
+    del P
+    torch.cuda.empty_cache()
+
+
+def exa_lm_plans() -> None:
+    """The dry run's plan of each LM cell this run measured, at that
+    phase's own cut shape on a 1 x 1 grid, beside its measured peak: the
+    plan's state terms alone must not exceed it, and its total with the
+    fit's margin (``dryrun.LM_PLAN_SHORTFALL``) must reach it."""
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.launch import dryrun
+    cells = {"llama3.2-1b serve": (ARCHS[LM["arch"]], ShapeSpec(
+                 "lm", "prefill", LM["prompt"] + LM["new_tokens"],
+                 LM["batch"])),
+             "llama3.2-1b train": (ARCHS[TRAIN["arch"]], ShapeSpec(
+                 "train", "train", TRAIN["seq"], TRAIN["batch"])),
+             f"{ZOO_SERVE['arch']} serve": (ARCHS[ZOO_SERVE["arch"]],
+                                            ShapeSpec(
+                 "zoo", "prefill",
+                 ZOO_SERVE["prompt"] + ZOO_SERVE["new_tokens"],
+                 ZOO_SERVE["batch"]))}
+    for tag, (cfg, spec) in cells.items():
+        require(tag in MEASURED_PEAKS, f"no measured peak for {tag}")
+        peak = MEASURED_PEAKS[tag]
+        plan = dryrun.plan_lm(cfg, spec, 1, 1, 1, remat=True)
+        require("refused" not in plan, f"{tag}: {plan.get('refused')}")
+        total, state = plan["memory"]["total"], plan["state_bytes"]
+        margin = plan["memory"]["fit_margin"]
+        log(f"[exascale] LM {tag} ({spec.global_batch} x {spec.seq_len}, "
+            f"1 x 1): measured peak {peak / 1e9:.2f} GB; plan total "
+            f"{total / 1e9:.2f} GB (ratio {total / peak:.3f}; with the "
+            f"fit's {100 * margin:.1f}% margin "
+            f"{total * (1 + margin) / 1e9:.2f}), state terms "
+            f"{state / 1e9:.2f} GB ("
+            + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in
+                        plan["terms"].items())
+            + ")")
+        require(state <= peak, f"{tag}: the plan's state terms "
+                f"{state / 1e9:.2f} GB exceed the measured peak "
+                f"{peak / 1e9:.2f} GB")
+        require(total * (1 + margin) >= peak,
+                f"{tag}: the plan's total {total / 1e9:.2f} GB with the "
+                f"fit's {100 * margin:.1f}% margin is below the measured "
+                f"peak {peak / 1e9:.2f} GB (dryrun.LM_PLAN_SHORTFALL)")
+
+
+def phase_exascale(rows: list[dict], dev, smi: str) -> None:
+    """Phase 17 (see the module docstring); sets the kernels line's
+    launches of the four RESCAL kernels to this phase's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.rescal_paper import (RESCAL_DENSE_3TB,
+                                                  RESCAL_SPARSE_EB)
+    from repro_torch.dist.engine import local_rel_error_bcsr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_grid
+    log(f"[exascale] {smi}")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(EXA["seed"])
+    grid = make_grid(data=1, model=1, device=dev)
+    counts: dict[str, int] = {}
+    try:
+        # (a) the dense cell's share, batched
+        cfg = RESCAL_DENSE_3TB
+        sh = dryrun.rescal_share(cfg, 16)
+        plan16 = dryrun.plan_rescal(cfg, 16)
+        plan11 = dryrun.plan_rescal(dataclasses.replace(cfg, n=sh.nl), 1)
+        k = EXA["k"]
+        require(k == cfg.k, f"k {k} is not the cell's {cfg.k}")
+        X = torch.rand((sh.m, sh.nl, sh.nl), generator=gen, device=dev)
+        log(f"[exascale] (a) {cfg.name}: X^(i,j) {tuple(X.shape)} fp32, "
+            f"{X.numel() * 4 / 1e9:.2f} GB, {X.numel():,} floats "
+            f"(2^31 = {2 ** 31:,})")
+        factors = {"A": torch.rand((sh.nl, k), generator=gen, device=dev),
+                   "R": torch.rand((sh.m, k, k), generator=gen, device=dev)}
+        out = exa_share("(a)", grid, X, factors, "batched", plan11, plan16,
+                        ("fused_xa_xtb", "mu_update_a"), dev)
+        require(out["launches"]["fused_xa_xtb"] == EXA_ITERS
+                and out["launches"]["mu_update_a"] == EXA_ITERS,
+                f"(a) launches {out['launches']}, want one fused_xa_xtb "
+                f"and one mu_update_a per MU iteration")
+        for name, n in out["launches"].items():
+            counts[name] = counts.get(name, 0) + n
+        del X, out
+        torch.cuda.empty_cache()
+
+        # (b) the sparse cell's share, per slice
+        cfg = RESCAL_SPARSE_EB
+        sh = dryrun.rescal_share(cfg, 16)
+        plan16 = dryrun.plan_rescal(cfg, 16)
+        plan11 = dryrun.plan_rescal(dataclasses.replace(cfg, n=sh.nl), 1)
+        require(plan11["local"]["nnzb"] == sh.nnzb,
+                f"the 1 x 1 plan has {plan11['local']['nnzb']} blocks per "
+                f"slice, the share {sh.nnzb}")
+        t1 = time.perf_counter()
+        sp = exa_bcsr(sh, gen, dev)
+        torch.cuda.synchronize()
+        log(f"[exascale] (b) {cfg.name}: n_loc {sh.nl:,}, nb_loc "
+            f"{sh.nb:,}, {sh.nnzb} blocks of {sh.bs}^2 per slice "
+            f"(local density {sh.nnzb / sh.nb ** 2:.2e}), m = {sh.m}: "
+            f"{sp.data.numel() * 4 / 1e9:.2f} GB of data, built in "
+            f"{time.perf_counter() - t1:.1f}s; A^(i) ({sh.nl:,}, {k}) "
+            f"{sh.nl * k * 4 / 1e9:.2f} GB")
+        factors = {"A": torch.rand((sh.nl, k), generator=gen, device=dev),
+                   "R": torch.rand((sh.m, k, k), generator=gen, device=dev)}
+        out = exa_share("(b)", grid, sp, factors, "sliced", plan11, plan16,
+                        ("bcsr_xa_xta", "mu_update_a"), dev)
+        require(out["launches"]["bcsr_xa_xta"] == EXA_ITERS * sh.m
+                and out["launches"]["mu_update_a"] == EXA_ITERS,
+                f"(b) launches {out['launches']}, want one bcsr_xa_xta per "
+                f"slice and one mu_update_a per MU iteration")
+        A, R = out.pop("A"), out.pop("R")
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        err = local_rel_error_bcsr(grid, sp, A, R,
+                                   policy=KernelPolicy(use_fused=True))
+        err_peak = torch.cuda.max_memory_allocated(dev)
+        spmm = ops.launch_counts()["bcsr_spmm"]
+        require(spmm == 1, f"(b) bcsr_spmm launched {spmm} times for the "
+                f"relative error, want 1")
+        out["launches"]["bcsr_spmm"] = spmm
+        torch.cuda.empty_cache()
+        ref = local_rel_error_bcsr(
+            grid, sp, A, R, policy=KernelPolicy(use_fused=True, impl="ref"))
+        e, e_ref = float(err), float(ref)
+        require(math.isfinite(e) and 0 <= e <= 1.0 + 1e-6
+                and abs(e - e_ref) <= SWEEP_TOL * max(e_ref, 1e-12),
+                f"(b) relative error {e} against the plain path's {e_ref}")
+        log(f"[exascale] (b) relative error after {EXA_ITERS} MU "
+            f"iterations {e:.6f} (plain path {e_ref:.6f}); its peak "
+            f"{err_peak / 1e9:.2f} GB (the (m, n_loc, k) product and its "
+            f"all-reduce)")
+        del err, ref
+        torch.cuda.empty_cache()
+        exa_spmm(sp, A)
+        for name, n in out["launches"].items():
+            counts[name] = counts.get(name, 0) + n
+        del sp, A, R, out
+        torch.cuda.empty_cache()
+    finally:
+        grid.destroy()
+    exa_lm_plans()
+    for row in rows:
+        if row["name"] in ("bcsr_xa_xta", "bcsr_spmm", "fused_xa_xtb",
+                           "mu_update_a"):
+            log(f"[exascale] {row['name']}: launches {counts[row['name']]} "
+                f"in phase 17 (earlier phases' line: {row['launches']})")
+            row["launches"] = counts[row["name"]]
+    log(f"[exascale] phase 17 {time.perf_counter() - t0:.1f}s wall")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4512,6 +4865,8 @@ def main() -> int:
     # of deepseek-moe-16b (phase 16 (a))
     next(r for r in rows if r["name"] == "flash_attention")[
         "launches"] = launches
+    torch.cuda.empty_cache()
+    phase_exascale(rows, dev, smi)
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if row[key] is not None:

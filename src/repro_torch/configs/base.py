@@ -87,6 +87,49 @@ class ArchConfig:
         return True, ""
 
 
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict[str, Any]:
+    """Meta-device stand-ins for every model input of this cell, with
+    ``repro``'s shapes and dtypes (int32 token ids; frames and patches in
+    the model's dtype):
+
+    train   -> {"batch": {tokens, labels, [frames|patches]}}
+    prefill -> {"batch": {tokens, [frames|patches]}}
+    decode  -> {"tokens", "pos", "cache"}
+
+    Enc-dec's decoder takes seq_len // dec_ratio tokens beside seq_len
+    frames; a VLM's tokens are seq_len less its patches; decode is one
+    token against a cache of seq_len (``models.transformer.
+    cache_shapes``)."""
+    import torch
+
+    B, S = shape.global_batch, shape.seq_len
+    act = getattr(torch, cfg.dtype)
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            St = max(S // cfg.dec_ratio, 1)
+            batch = {"frames": meta(B, S, cfg.d_model, dtype=act),
+                     "tokens": meta(B, St)}
+        elif cfg.family == "vlm":
+            St = S - cfg.n_patches
+            batch = {"patches": meta(B, cfg.n_patches, cfg.d_model,
+                                     dtype=act),
+                     "tokens": meta(B, St)}
+        else:
+            St = S
+            batch = {"tokens": meta(B, S)}
+        if shape.kind == "train":
+            batch["labels"] = meta(B, St)
+        return {"batch": batch}
+
+    from repro_torch.models.transformer import cache_shapes
+    return {"tokens": meta(B, 1), "pos": meta(),
+            "cache": cache_shapes(cfg, B, S)}
+
+
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """Same-family miniature for CPU tests."""
     small: dict[str, Any] = dict(

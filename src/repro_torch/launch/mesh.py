@@ -116,6 +116,12 @@ def make_debug_grid(data: int = 2, model: int = 2, pod: int | None = None,
 
 PRODUCTION = {False: (None, 16, 16), True: (2, 16, 16)}
 
+# The card a rank of the grid runs on, and the device memory a plan is
+# held to: the data sheet's 80 GB of HBM3 (``torch.cuda.
+# get_device_properties(0).total_memory`` reports a little more).
+CARD_NAME = "NVIDIA H100 80GB HBM3"
+CARD_HBM_BYTES = 80 * 10 ** 9
+
 
 def make_production_grid(*, multi_pod: bool = False,
                          backend: str | None = None,

@@ -495,14 +495,28 @@ class Transformer(nn.Module):
 
 @functools.lru_cache(maxsize=None)
 def _named_shapes(cfg) -> tuple:
-    model = Transformer(cfg, device="meta")
-    return tuple((n, tuple(p.shape)) for n, p in model.named_parameters())
+    return tuple((n, tuple(p.shape))
+                 for n, p in meta_model(cfg).named_parameters())
 
 
 def named_shapes(cfg) -> dict[str, tuple]:
     """The global shape of each of the port's parameters ({name: shape};
     built on the meta device, no storage)."""
     return dict(_named_shapes(cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def meta_model(cfg) -> "Transformer":
+    """``cfg``'s model on the meta device: every parameter's shape and
+    dtype, no storage."""
+    return Transformer(cfg, device="meta")
+
+
+def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
+    """The decode cache ``init_cache`` builds (``repro``'s
+    ``cache_shapes``), as meta-device tensors: shapes and dtypes from the
+    port's own model, no allocation."""
+    return meta_model(cfg).init_cache(batch_size, max_len)
 
 
 def param_shapes(cfg) -> dict[str, tuple]:
@@ -520,6 +534,11 @@ def lm_placement(grid: Grid, cfg) -> LMPlacement:
         raise ValueError("the LM runs on an LM grid (Grid(lm=True), "
                          "launch.mesh.make_lm_grid)")
     return LMPlacement(grid, named_shapes(cfg))
+
+
+class GridRefusal(ValueError):
+    """A batch or cache the grid cannot run (``check_rows``,
+    ``init_cache``): what the dry run records as a cell's refusal."""
 
 
 class GridTransformer:
@@ -574,7 +593,7 @@ class GridTransformer:
     (B, H, P, N) fp32 the larger.
 
     With an MoE and more than one data cell the batch's rows must split
-    evenly over the data axes (``ValueError``): its groups and balance
+    evenly over the data axes (``GridRefusal``): its groups and balance
     loss are the global batch's."""
 
     def __init__(self, model: Transformer, grid: Grid,
@@ -648,7 +667,7 @@ class GridTransformer:
     def check_rows(self, batch_size: int) -> None:
         if (self.cfg.n_experts and self.rows is not None
                 and batch_size % self.rows.size):
-            raise ValueError(
+            raise GridRefusal(
                 f"{self.cfg.name}: the MoE on a grid of {self.rows.size} "
                 f"data cells needs the batch's rows to split evenly over "
                 f"them (its groups and balance loss are the global "
@@ -818,7 +837,7 @@ class GridTransformer:
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         """This cell's blocks of the zero decode cache of a global batch
         of ``batch_size`` sequences and ``max_len`` positions
-        (``cache_specs``; ``ValueError`` when a per-position leaf's
+        (``cache_specs``; ``GridRefusal`` when a per-position leaf's
         max_len is not a multiple of the model axis, which would put
         "model" on its heads)."""
         self.check_rows(batch_size)
@@ -828,7 +847,7 @@ class GridTransformer:
         for name, leaf in glob.items():
             if (self.tp.size > 1 and self._positional(name)
                     and specs[name][2] != MODEL_AXIS):
-                raise ValueError(
+                raise GridRefusal(
                     f"the decode cache's {max_len} positions are not a "
                     f"multiple of the model axis ({self.tp.size}); the "
                     f"grid decode needs them sharded over it "

@@ -72,6 +72,17 @@ def init_state(cfg, optimizer: AdamW, *, generator: torch.Generator,
                       step=torch.zeros((), dtype=torch.int64))
 
 
+def state_shapes(cfg, optimizer: AdamW) -> TrainState:
+    """The state ``init_state`` builds, on the meta device (``repro``'s
+    ``state_shapes``): the port's own model and the optimizer's own
+    moments, shapes and dtypes only, no allocation.  The update count
+    and the step stay host scalars, as in ``init_state``."""
+    model = Transformer(cfg, device="meta")
+    return TrainState(params=model,
+                      opt=optimizer.init(dict(model.named_parameters())),
+                      step=torch.zeros((), dtype=torch.int64))
+
+
 def zero1_moments(grid: Grid, model: Transformer, optimizer: AdamW
                   ) -> AdamWState:
     """Zero moments for the parts of a placed model's parameters whose
