@@ -42,16 +42,19 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      stage's device time per call from ``torch.profiler``; the same at
      the serve path's shape (b = 32, n = 131072, k = 3, topk = 10) on
      random factors.
-     fused_xa_xtb: n1 != n2 with n in {1, 37, 1000} (no tile multiple),
-     m = 1 (the sliced schedule's call, a slice view of X), k in {1, 3, 5,
-     16, 64}, r in {1, 4}, B2 broadcast over m (stride 0), n2 odd and
-     n2 % 4 == 0 (the scalar and the float4 path), to the BCSR kernels'
-     tolerances, XA and XTB bit-identical across two calls; then held
-     (and compared across two calls) and timed beside its plain version (two
-     batched products) on the grid sweep's operands (r = 4, m = 8,
-     n = 16384, X 34.4 GB, B1 = A, B2 = A broadcast over m) at k = 4 and
-     k = 5, the largest rank of each KMAX build (4 and 8) the sweep runs;
-     the kernels line reports k = 5.
+     fused_xa_xtb: n1 != n2 with n in {1, 37, 333, 700, 1000, 1100,
+     2600} (no tile multiple; several panels and chunks, so both partial
+     reductions), m = 1 (the sliced schedule's call, a slice view of X),
+     k in {1, 3, 5, 10, 16, 24, 64}, r in {1, 4}, B2 broadcast over m
+     (stride 0), n2 odd and n2 % 4 == 0 (the cp.async and the TMA path),
+     to the BCSR kernels' tolerances, XA and XTB bit-identical across two
+     calls; then held (and compared across two calls) and timed beside
+     its plain version (two batched products), its bound and the cuBLAS
+     pair X @ B1, X^T @ B2 (a yardstick of reading X twice) on the grid
+     sweep's operands (r = 4, m = 8, n = 16384, X 34.4 GB, B1 = A, B2 = A
+     broadcast over m) at k = 4, 5 (the sweep's largest ranks), 8 and 10
+     (the paper's), and one slice of it at k = 4; the kernels line
+     reports k = 5.
      mu_update_a: n in {0, 1, 37, 1000}, k in {1, 3, 5, 16, 64}, r in
      {1, 4}, S per member or shared (stride 0), padded cells whose masked
      columns must stay exact zeros, and k = 65 refused; then held and timed
@@ -492,10 +495,12 @@ TOPK_SERVE = dict(b=32, n=131072, k=3, topk=10)
 # the dense grid sweep (phase 6), and fused_xa_xtb's timing shape
 GRID = dict(n=16384, m=8, k_true=4, noise=0.01, seed=0, k_min=2, k_max=5,
             r=4, iters=300, regress_iters=100, sliced_iters=20, sliced_k=4)
-# fused_xa_xtb on the grid sweep's operands: ranks 2..4 run the kernel's
-# KMAX = 4 build and rank 5 its KMAX = 8 build, so both are held at their
-# largest rank in the sweep; the kernels line reports k = 5
-FUSED_SCALE = dict(r=4, m=8, n=16384, ks=(4, 5), sliced_k=4)
+# fused_xa_xtb on the grid sweep's operands: k = 4 and 5 (the sweep's
+# largest ranks), 8 (one full n8 tile) and 10 (the paper's rank, two n8
+# tiles); the kernels line reports k = line_k, the sweep's k_max; the
+# sliced schedule's one-slice call is timed at sliced_k
+FUSED_SCALE = dict(r=4, m=8, n=16384, ks=(4, 5, 8, 10), line_k=5,
+                   sliced_k=4)
 # mu_update_a at the BCSR sweep's and the dense sweeps' shapes (A (r, n,
 # k) at k = k_max); the kernels line reports the dense one
 MU_SCALES = (dict(r=4, n=131072, k=5), dict(r=4, n=16384, k=5))
@@ -1000,7 +1005,8 @@ def check_fused_edges(dev) -> None:
         (2, 1, 37, 1, None, True), (2, 37, 1, 16, 4, False),
         (1, 1000, 1000, 64, None, False), (4, 1000, 1000, 5, 4, True),
         (2, 37, 37, 64, 4, True), (2, 1000, 999, 16, 1, False),
-        (2, 300, 1000, 3, 4, True),
+        (2, 300, 1000, 3, 4, True), (2, 1100, 2600, 10, 4, True),
+        (2, 700, 333, 24, None, False),
     ]
     for m, n1, n2, k, r, shared in cases:
         lead = (r,) if r is not None else ()
@@ -1044,7 +1050,10 @@ def phase_fused(dev) -> dict:
     """fused_xa_xtb at the edge shapes, then held and timed on the grid
     sweep's operands: X (r, m, n, n), B1 = A (r, n, k) and B2 = A broadcast
     over the m slices (stride 0), as ``core.rescal.dense_products`` passes
-    them on a 1 x 1 grid, at each KMAX build the sweep runs."""
+    them on a 1 x 1 grid, at each k of FUSED_SCALE; beside each, the two
+    cuBLAS calls X @ B1 and X^T @ B2 (strict fp32) as a yardstick of
+    reading X twice (no single call computes the pair: library_ms
+    stays null)."""
     import torch
     from repro_torch.kernels import fused_bilinear, ref
     check_fused_edges(dev)
@@ -1073,22 +1082,32 @@ def phase_fused(dev) -> dict:
         ms = cuda_ms(lambda: fused_bilinear.fused_xa_xtb(X, A, B2), reps=10)
         plain = cuda_ms(lambda: ref.ref_fused_xa_xtb(X, A, B2), reps=3,
                         warmup=1)
+        pair = cuda_ms(lambda: (X @ A.unsqueeze(-3),
+                                X.transpose(-1, -2) @ B2), reps=3)
         b_ms, by = fused_bound(X, A, A, k)
         by_k[k] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                        bound_by=by)
         log(f"[fused] fused_xa_xtb at k={k}: kernel {ms:.3f} ms, plain "
-            f"{plain:.3f} ms, bound {b_ms:.3f} ms ({by}), max |diff| "
-            f"{err:.3e}, XA and XTB bit-identical across calls")
+            f"{plain:.3f} ms, bound {b_ms:.3f} ms ({by}, "
+            f"{100 * b_ms / ms:.1f}% of it), cuBLAS pair X @ B1 + X^T @ "
+            f"B2 {pair:.3f} ms, max |diff| {err:.3e}, XA and XTB "
+            f"bit-identical across calls")
         if k == cfg["sliced_k"]:
             # the sliced schedule's call at full size: one slice of one member
             Xt, B2t = X[0, 2:3], B2[0, 2:3]
-            compare(f"fused_xa_xtb XA [main, one slice, k={k}]",
-                    fused_bilinear.fused_xa_xtb(Xt, A[0], B2t)[0],
-                    ref.ref_fused_xa_xtb(Xt, A[0], B2t)[0])
+            got = fused_bilinear.fused_xa_xtb(Xt, A[0], B2t)
+            want = ref.ref_fused_xa_xtb(Xt, A[0], B2t)
+            compare(f"fused_xa_xtb XA [main, one slice, k={k}]", got[0],
+                    want[0])
+            compare(f"fused_xa_xtb XTB [main, one slice, k={k}]", got[1],
+                    want[1])
+            del got, want
             slice_ms = cuda_ms(
                 lambda: fused_bilinear.fused_xa_xtb(Xt, A[0], B2t), reps=20)
+            s_ms, _ = fused_bound(Xt[None], A[0][None], A[0][None], k)
             log(f"[fused] one slice (m = 1, n = {n}, k = {k}): "
-                f"{slice_ms:.3f} ms")
+                f"{slice_ms:.3f} ms, bound {s_ms:.3f} ms "
+                f"({100 * s_ms / slice_ms:.1f}% of it)")
             del Xt, B2t
         del A, B2
     del X
@@ -1096,7 +1115,7 @@ def phase_fused(dev) -> dict:
     return dict(name="fused_xa_xtb", route="cuda",
                 source="src/repro_torch/kernels/csrc/fused_bilinear.cu",
                 replaces="src/repro/kernels/fused_bilinear.py:90",
-                launches=0, library_ms=None, **by_k[max(cfg["ks"])])
+                launches=0, library_ms=None, **by_k[cfg["line_k"]])
 
 
 def check_mu_edges(dev) -> None:

@@ -43,8 +43,7 @@ SIGNATURES = {
     "repro_flash_attention": _FLASH,        # fp32, FMA
     "repro_flash_attention_sm90": _FLASH,   # bf16, tensor cores
     "repro_bcsr_xa_xta": [_P] * 10 + [_I] * 8 + [_L] * 3 + [_P],
-    "repro_fused_xa_xtb": [_P] * 6 + [_I] * 5 + [_L] * 5 + [_I, _P],
-    "repro_fused_xa_xtb_workspace": [_I] * 4 + [_P],
+    "repro_fused_xa_xtb": [_P] * 9 + [_I] * 5 + [_L] * 5 + [_I] * 4 + [_P],
     "repro_mu_update_a": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _F, _P],
     "repro_score_topk": [_P] * 8 + [_I] * 9 + [_P],
 }

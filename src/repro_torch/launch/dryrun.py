@@ -24,8 +24,9 @@ under the fused kernel policy, ``--rescal-schedule`` and
              operand and schedule (``_mu_iter_batched``, ``_mu_iter_sliced``,
              ``_mu_iter_batched_sparse``, ``_mu_iter_sliced_sparse``)
              holds there, statement by statement (``rescal_ledger``),
-             with the kernels' own scratch: ``fused_xa_xtb``'s fixed-order
-             XTB workspace (T, ceil(n1 / 256), n2, k) fp32 and
+             with the kernels' own scratch: ``fused_xa_xtb``'s workspace
+             (``fused_bilinear.workspace_floats``: the split factor
+             fragments and the fixed-order partials) fp32 and
              ``bcsr_xa_xta``'s (T, nnzb, bs, kc) partials and its B
              operand tiles, T = members x slices in the launch
   collectives the count and payload bytes per MU iteration that the body
@@ -108,6 +109,7 @@ from repro_torch.configs import (ARCHS, RESCAL_CONFIGS, SHAPES, RescalConfig,
 from repro_torch.dist.sharding import (COL_AXIS, ROW_AXIS, Grid,
                                        batch_shardings, cache_specs,
                                        local_block)
+from repro_torch.kernels import fused_bilinear
 from repro_torch.launch.mesh import CARD_HBM_BYTES, CARD_NAME, PRODUCTION
 from repro_torch.models import model as model_lib
 from repro_torch.models.moe import capacity, tokens_per_group
@@ -122,7 +124,6 @@ ENSEMBLE_R = 2            # repro's ensemble members on the multi-pod grid
 FIT_KEY = "fits_h100_80gb"
 META = torch.device("meta")
 F32 = 4
-PANEL_ROWS = 256          # fused_bilinear.cu BM: rows per panel
 KV_CHUNK = 1024           # the chunked attention's key tile
 LOSS_F32 = 5              # fp32 (tokens, V_l) buffers at the loss's backward
 XLA_ONLY = ("compile_s", "flops_per_device", "bytes_per_device",
@@ -337,14 +338,14 @@ def _bcsr_call(L: Ledger, sh: RescalShare, m: int, xa: str, xtb: str,
 
 def _fused_call(L: Ledger, sh: RescalShare, m: int, xa: str,
                 xtb: str) -> None:
-    """``fused_xa_xtb`` on ``m`` slices: XA and XTB (T, n, k), then the
-    fixed-order workspace (T, panels, n2, k) for more than one panel."""
+    """``fused_xa_xtb`` on ``m`` slices: XA and XTB (T, n, k), then its
+    workspace (``fused_bilinear.workspace_floats``: B1 = A^(j) per member,
+    B2 = A^(i) per member and shared by the slices)."""
     T = sh.r * m
     L.new(xa, T * sh.nl * sh.k * F32)
     L.new(xtb, T * sh.nl * sh.k * F32)
-    panels = _cdiv(sh.nl, PANEL_ROWS)
-    if panels > 1:
-        L.scratch("XTB workspace", T * panels * sh.nl * sh.k * F32)
+    L.scratch("fused_xa_xtb workspace", F32 * fused_bilinear.workspace_floats(
+        T, sh.nl, sh.nl, sh.k, b1_groups=sh.r, b2_groups=sh.r))
     L.end()
 
 

@@ -262,9 +262,9 @@ def card_allocations(live: LiveBytes):
         call = fused_bilinear.Call(X, B1, B2)
         xa = torch.empty(call.shape_out(call.n1))
         xtb = torch.empty(call.shape_out(call.n2))
-        panels = -(-call.n1 // dryrun.PANEL_ROWS)
-        ws = torch.empty(call.T * panels * call.n2 * call.k
-                         if panels > 1 else 0)
+        ws = torch.empty(fused_bilinear.workspace_floats(
+            call.T, call.n1, call.n2, call.k, call.b1_groups,
+            call.b2_groups))
         del ws
         xa.copy_(xa_v)
         xtb.copy_(xtb_v)

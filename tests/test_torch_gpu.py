@@ -430,18 +430,23 @@ def test_serve_engine_on_card_matches_cpu(cuda):
                    (torch.from_numpy(w.scores)[None].to(cuda), None), V, A)
 
 
-# (m, n1, n2, k, r, B2 shared over m): ragged tails, the scalar path (n2
-# odd) and the float4 path, m = 1, k = 1 and k = 64, members
+# (m, n1, n2, k, r, B2 shared over m): ragged tails, the cp.async path
+# (n2 odd) and the TMA path, m = 1, k = 1 and k = 64, members, k = 10 and
+# 16 (two n8 tiles), and one slice of 3 panels x 20 chunks (the sliced
+# schedule's call: fewer items than SMs, both partial reductions)
 FUSED_GPU_CASES = [(3, 37, 1000, 3, None, False), (1, 1000, 37, 64, 4, True),
-                   (4, 300, 256, 8, 4, True), (2, 1, 37, 1, None, False)]
+                   (4, 300, 256, 8, 4, True), (2, 1, 37, 1, None, False),
+                   (2, 1100, 700, 10, 4, True), (3, 515, 1029, 16, None,
+                                                 False),
+                   (1, 1500, 2500, 10, None, True)]
 
 
 @pytest.mark.parametrize("m,n1,n2,k,r,shared", FUSED_GPU_CASES)
 def test_fused_xa_xtb_matches_plain_version_on_card(cuda, m, n1, n2, k, r,
                                                     shared):
     """Relative Frobenius error <= 1e-5 (the plain version sums in
-    another order); XA and XTB bit-identical across two calls (n1 = 300
-    reduces two row panels' partials)."""
+    another order); XA and XTB bit-identical across two calls (n1 = 1100,
+    1500 and n2 = 2500 reduce panel and chunk partials)."""
     from repro_torch.kernels import fused_bilinear
     lead = (r,) if r is not None else ()
     X = torch.rand(lead + (m, n1, n2), device=cuda)

@@ -154,7 +154,6 @@ def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
                                       "repro_flash_attention",
                                       "repro_flash_attention_sm90",
                                       "repro_fused_xa_xtb",
-                                      "repro_fused_xa_xtb_workspace",
                                       "repro_mu_update_a",
                                       "repro_score_topk"}
     for src in _build.CSRC.iterdir():
