@@ -144,7 +144,7 @@ print(json.dumps({"modules": len(names), "bad": bad,
                          cwd=tmp_path)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout)
-    assert got["modules"] >= 94
+    assert got["modules"] >= 103
     assert got["bad"] == []
     assert got["built"] == 0
     assert got["groups"] is False
