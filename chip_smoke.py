@@ -442,6 +442,20 @@ every sweep's report must count no kernel fallback, ``n_kernel_fallbacks
      (``dryrun.LM_PLAN_SHORTFALL``) must reach it; the total's ratio to it
      is printed.  The kernels line's
      launches of the four RESCAL kernels are this phase's.
+ 18. The counted step (``launch.step_costs``), inside phases 8 and 17
+     while their operands are resident: one MU iteration of each of
+     phase 17's two shares, and llama3.2-1b's 4 x 4096 prefill and one
+     decode step on phase 8's model, counted on the card under a
+     ``StepCounter``; each count must equal the count of the same step on
+     meta tensors (``dryrun.count_rescal`` on a 1 x 1 recording grid; the
+     model rebuilt on meta) exactly, in flops, bytes, collectives and the
+     op histogram.  Printed beside the card's name and power limit:
+     counted GFLOP and GB, the phase's own timed ms (phase 17's ms per MU
+     iteration; phase 8's prefill and decode ms per step), the achieved
+     TFLOP/s and TB/s, and the roofline share max(flops / the type's
+     peak, bytes / PEAK_BYTES_PER_S) / ms (fp32's peak for RESCAL,
+     bf16's for the LM); a share above ROOFLINE_MAX fails (the count
+     missed work).
 
 Printed last, each on a line of its own: ``{"kernels": [...]}``, the
 card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
@@ -666,6 +680,9 @@ EXA = dict(k=10, seed=0)
 EXA_ITERS = 20
 EXA_PEAK_TOL = 0.10
 EXA_SPMM_SLICES = 4       # (b)'s product checked this many slices at a time
+# phase 18: a roofline share above this means the count missed work
+ROOFLINE_MAX = 1.05
+COUNT_S: list[float] = []  # phase 18's own seconds, part by part
 # the LM peaks measured by phases 8, 13 and 14 in this run, against
 # the dry run's plan at each phase's own cut shape on a 1 x 1 grid
 MEASURED_PEAKS: dict[str, int] = {}
@@ -851,11 +868,15 @@ def device_ms(fn, name, reps: int):
     return ms[0] if isinstance(name, str) else ms
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
-    """Least time the card could take: bytes over HBM bandwidth vs fp32
-    operations over the fp32 peak, whichever is larger."""
+def bound(cost: tuple[int, int], peak: float = PEAK_FP32_FLOP_PER_S
+          ) -> tuple[float, str]:
+    """Least time the card could take for a kernel call whose ``cost`` is
+    (flops, bytes), the kernel module's ``cost``: the bytes over HBM
+    bandwidth vs the operations over ``peak`` (fp32's unless given),
+    whichever is larger."""
+    flops, nbytes = cost
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -910,7 +931,6 @@ def phase_kernels(dev) -> list[dict]:
     log(f"[kernels] main-path shape: r={r} m={m} nnzb={nnzb} bs={bs} n={n} "
         f"k in {BCSR_KS} ({sp_r.data.numel() * 4 / 1e9:.2f} GB of stored "
         f"blocks)")
-    T = r * m
     by_k = {}
     for k in BCSR_KS:
         A_r = torch.rand((r, n, k), generator=gen, device=dev)
@@ -925,13 +945,10 @@ def phase_kernels(dev) -> list[dict]:
         err = max(compare(f"bcsr_xa_xta XA [main, k={k}]", xa, ra),
                   compare(f"bcsr_xa_xta XTB [main, k={k}]", xt, rt))
         del xa, xt, ra, rt
-        f_bytes = (sp_r.data.numel() * 4 + 2 * A_r.numel() * 4
-                   + 2 * T * n * k * 4)
-        f_flops = T * nnzb * bs * bs * 4 * k
         ms = cuda_ms(lambda: bcsr_fused.bcsr_xa_xta(sp_r, A_r, A_r), reps=10)
         plain = cuda_ms(lambda: ref.ref_bcsr_xa_xta(sp_r, A_r, A_r), reps=3,
                         warmup=1)
-        b_ms, by = bound(f_bytes, f_flops)
+        b_ms, by = bound(bcsr_fused.cost(sp_r, A_r, A_r))
         by_k[k] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                        bound_by=by)
         log(f"[kernels] bcsr_xa_xta at k={k}: kernel {ms:.3f} ms "
@@ -960,11 +977,9 @@ def phase_kernels(dev) -> list[dict]:
             bcsr_spmm.bcsr_spmm(sp, A_r), ref.ref_bcsr_spmm(sp, A_r))
     s_shared_ms = cuda_ms(lambda: bcsr_spmm.bcsr_spmm(sp, A_r), reps=10)
     del sa, rs
-    s_bytes = sp.data.numel() * 4 + A.numel() * 4 + m * n * k * 4
-    s_flops = m * nnzb * bs * bs * 2 * k
     s_ms = cuda_ms(lambda: bcsr_spmm.bcsr_spmm(sp, A), reps=20)
     s_plain = cuda_ms(lambda: ref.ref_bcsr_spmm(sp, A), reps=5, warmup=1)
-    s_bound, s_by = bound(s_bytes, s_flops)
+    s_bound, s_by = bound(bcsr_spmm.cost(sp, A))
     lib_fn = bsr_yardstick(sp, A)
     compare("torch.sparse_bsr_tensor @ B (yardstick)",
             lib_fn().reshape(m, n, k), bcsr_spmm.bcsr_spmm(sp, A))
@@ -1037,15 +1052,6 @@ def check_fused_edges(dev) -> None:
         log(f"[fused] edge case {tag}: ok")
 
 
-def fused_bound(X, B1, B2u, k) -> tuple[float, str]:
-    """fused_xa_xtb's bound: X, B1 and B2's own (unbroadcast) values read
-    once, XA and XTB written once; 4k flop per value of X."""
-    r, m, n1, n2 = X.shape
-    nbytes = 4 * (X.numel() + B1.numel() + B2u.numel()
-                  + r * m * (n1 + n2) * k)
-    return bound(nbytes, 4 * X.numel() * k)
-
-
 def phase_fused(dev) -> dict:
     """fused_xa_xtb at the edge shapes, then held and timed on the grid
     sweep's operands: X (r, m, n, n), B1 = A (r, n, k) and B2 = A broadcast
@@ -1084,7 +1090,7 @@ def phase_fused(dev) -> dict:
                         warmup=1)
         pair = cuda_ms(lambda: (X @ A.unsqueeze(-3),
                                 X.transpose(-1, -2) @ B2), reps=3)
-        b_ms, by = fused_bound(X, A, A, k)
+        b_ms, by = bound(fused_bilinear.cost(X, A, B2))
         by_k[k] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                        bound_by=by)
         log(f"[fused] fused_xa_xtb at k={k}: kernel {ms:.3f} ms, plain "
@@ -1104,7 +1110,7 @@ def phase_fused(dev) -> dict:
             del got, want
             slice_ms = cuda_ms(
                 lambda: fused_bilinear.fused_xa_xtb(Xt, A[0], B2t), reps=20)
-            s_ms, _ = fused_bound(Xt[None], A[0][None], A[0][None], k)
+            s_ms, _ = bound(fused_bilinear.cost(Xt, A[0], B2t))
             log(f"[fused] one slice (m = 1, n = {n}, k = {k}): "
                 f"{slice_ms:.3f} ms, bound {s_ms:.3f} ms "
                 f"({100 * s_ms / slice_ms:.1f}% of it)")
@@ -1204,8 +1210,7 @@ def phase_mu(dev) -> dict:
         r, n, k = cfg["r"], cfg["n"], cfg["k"]
         dev_ms = device_ms(lambda: mu.mu_update_a(*x, eps),
                            "mu_update_a_kernel", reps=50)
-        b_ms, by = bound(4 * (3 * x[0].numel() + x[2].numel()),
-                         (2 * k + 2) * x[0].numel())
+        b_ms, by = bound(mu.cost(*x))
         log(f"[mu] mu_update_a at r={r} n={n} k={k}: kernel {ms:.4f} ms "
             f"per call ({dev_ms:.4f} ms on the device per launch, "
             f"torch.profiler; {100 * b_ms / dev_ms:.1f}% of the bound), "
@@ -1284,8 +1289,7 @@ def time_topk(V, A, topk: int, reps: int, plain_reps: int) -> dict:
     plain = cuda_ms(lambda: ref.ref_score_topk_stream(V, A, topk),
                     reps=plain_reps, warmup=1)
     lib = cuda_ms(lambda: torch.topk(V @ A.T, topk, dim=1), reps=reps)
-    nbytes = 4 * (n * k + b * k) + 8 * b * topk
-    bound_ms, by = bound(nbytes, 2 * b * n * k)
+    bound_ms, by = bound(score_topk.cost(V, A, topk))
     busy = stage1 + stage2
     log(f"[score_topk] b={b} n={n} k={k} topk={topk}: kernel {ms:.4f} ms "
         f"per call ({stage1:.4f} + {stage2:.4f} = {busy:.4f} ms on the "
@@ -1992,12 +1996,9 @@ def time_flash(dev, cfg: dict, reps: int, plain_reps: int) -> dict:
     plain = cuda_ms(lambda: ref.ref_attention(q, k, v, causal=True),
                     reps=plain_reps, warmup=1)
     lib = cuda_ms(lib_fn, reps=reps)
-    flops = 4 * b * hq * d * s * (s + 1) // 2
-    nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
-    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms, by = (t_ops, "operations") if t_ops >= t_bytes else \
-        (t_bytes, "bytes")
+    cost = fa.cost(q, k, v, causal=True)
+    flops = cost[0]
+    bound_ms, by = bound(cost, PEAK_BF16_FLOP_PER_S)
     log(f"[flash] {tag}: kernel sm90_bf16 {ms:.3f} ms ({flops / ms / 1e9:.1f}"
         f" TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound), plain "
         f"{plain:.3f} ms, scaled_dot_product_attention {lib:.3f} ms "
@@ -2356,6 +2357,7 @@ def phase_lm(dev, smi: str) -> dict:
         f"largest relative error {step_err:.3e}; the plain path's "
         f"greedy token equals the kernel path's in {same} of {B * T}")
     MEASURED_PEAKS["llama3.2-1b serve"] = res.peak_bytes
+    count_lm_steps(res, smi)
     profile_lm(res, min(16, T))
     del res
     torch.cuda.empty_cache()
@@ -3609,8 +3611,8 @@ def check_zoo_flash(dev) -> None:
     ZOO_TOL), the padded output columns exactly 0; both timed with CUDA
     events beside the plain version, one scaled_dot_product_attention
     call on the unpadded tensors (checked within ZOO_TOL too), and the
-    bound of the function's own widths (``attention_bound``), the padded
-    widths' bound printed beside as the padding's cost."""
+    bound of the function's own widths (``flash_attention.cost``), the
+    padded widths' bound printed beside as the padding's cost."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -3651,31 +3653,19 @@ def check_zoo_flash(dev) -> None:
         plain_ms = cuda_ms(lambda: ref.ref_attention(q, k, v, **kw), reps=2,
                            warmup=1)
         lib_ms = cuda_ms(lib_fn, reps=10)
-        pairs = sq * (sq + 1) // 2 if causal else sq * skv
-        bound, by = attention_bound(b * h, pairs, sq, skv, dqk, dv)
-        padded, _ = attention_bound(b * h, pairs, sq, skv, d, d)
+        bound_, by = bound(fa.cost(q, k, v, causal=causal, dqk=dqk, dv=dv),
+                           PEAK_BF16_FLOP_PER_S)
+        padded, _ = bound(fa.cost(q, k, v, causal=causal),
+                          PEAK_BF16_FLOP_PER_S)
         log(f"[zoo] flash_attention [{tag}]: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, scaled_dot_product_attention on the "
             f"unpadded tensors {lib_ms:.3f} ms ({ms / lib_ms:.2f}x; relative "
-            f"error {lib_err:.3e}), bound {bound:.4f} ms ({by}, the "
-            f"function's {dqk}/{dv} widths; {100 * bound / ms:.1f}%), "
+            f"error {lib_err:.3e}), bound {bound_:.4f} ms ({by}, the "
+            f"function's {dqk}/{dv} widths; {100 * bound_ / ms:.1f}%), "
             f"{padded:.4f} ms at the padded {d}/{d} (the padding's cost "
-            f"{padded / bound:.2f}x), relative error {err:.3e}")
+            f"{padded / bound_:.2f}x), relative error {err:.3e}")
         del q, k, v, qu, ku, vu, lib_fn
         torch.cuda.empty_cache()
-
-
-def attention_bound(heads: int, pairs: int, sq: int, skv: int, dqk: int,
-                    dv: int) -> tuple[float, str]:
-    """(ms, "operations" or "bytes"): the least time for attention over
-    ``heads`` (b h) heads and ``pairs`` visible (query, key) pairs per
-    head, with q/k rows of dqk and v/output rows of dv bf16 values: 2
-    (dqk + dv) operations per pair over the bf16 tensor-core peak, or q,
-    k, v read once and the output written once over the HBM rate."""
-    t_ops = 2 * heads * pairs * (dqk + dv) / PEAK_BF16_FLOP_PER_S * 1e3
-    t_bytes = (2 * heads * (sq * dqk + skv * dqk + skv * dv + sq * dv)
-               / PEAK_BYTES_PER_S * 1e3)
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def zoo_flash_want(cfg) -> int:
@@ -4536,6 +4526,78 @@ def phase_lm_grid_zoo(tmp: Path, dev, smi: str) -> int:
 # Phase 17: one rank's share of the exascale cells
 # ---------------------------------------------------------------------------
 
+def counted_share(tag: str, card: dict, meta: dict, ms: float, peak: float,
+                  smi: str) -> float:
+    """Phase 18: a step's count on the card (``StepCounter.summary``)
+    held equal to its count on meta tensors, then its achieved rates and
+    roofline share against ``ms``, the phase's own timing of the step;
+    returns the share."""
+    if card != meta:
+        diff = {k: (card[k], meta[k]) for k in card if card[k] != meta[k]}
+        require(False, f"[costs] {tag}: the card's count differs from the "
+                f"meta count: {diff}")
+    flops, nbytes = card["flops"], card["bytes"]
+    share = max(flops / peak, nbytes / PEAK_BYTES_PER_S) * 1e3 / ms
+    kernels = ", ".join(f"{k} {v}" for k, v in card["ops"].items()
+                        if k.startswith("kernel:")) or "no kernel"
+    top = sorted(card["bytes_by_op"].items(), key=lambda kv: -kv[1])[:4]
+    log(f"[costs] phase 18 {tag} ({smi}): counted {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e9:.3f} GB, {sum(card['ops'].values())} ops "
+        f"({kernels}), "
+        f"{card['collectives']['total']['count']} collectives, equal on the "
+        f"card and on meta; timed {ms:.3f} ms: {flops / ms / 1e9:.2f} "
+        f"TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s, roofline share "
+        f"{share:.3f} (peak {peak / 1e12:.0f} TFLOP/s, "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s); most bytes: "
+        + ", ".join(f"{k} {100 * v / nbytes:.1f}%" for k, v in top))
+    require(share <= ROOFLINE_MAX,
+            f"[costs] {tag}: roofline share {share:.3f} > {ROOFLINE_MAX}: "
+            f"the count missed work")
+    return share
+
+
+def count_lm_steps(res, smi: str) -> None:
+    """Phase 18's LM half on phase 8's resident model: the prefill of its
+    prompts and one decode step from its cache, counted on the card and
+    on the model rebuilt on meta tensors."""
+    import torch
+    from repro_torch.launch.step_costs import StepCounter
+    from repro_torch.models.model import greedy_sample
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.serve_step import (make_prefill_step,
+                                              make_serve_step)
+    t0 = time.perf_counter()
+    T = LM["new_tokens"]
+    counts = {}
+    for where, model, prompts in (
+            ("card", res.model, res.prompts),
+            ("meta", Transformer(res.model.cfg, device="meta"),
+             torch.empty(res.prompts.shape, dtype=res.prompts.dtype,
+                         device="meta"))):
+        P = prompts.shape[1]
+        prefill = make_prefill_step(model, max_len=P + T)
+        with StepCounter() as pre:
+            logits, filled = prefill(prompts)
+        with torch.inference_mode():
+            cache = model.extend_cache(filled, P + T)
+        del filled
+        tok = greedy_sample(logits, model.cfg.vocab)
+        step = make_serve_step(model)
+        with StepCounter() as dec:
+            step(cache, tok, P)
+        counts[where] = (pre.summary(), dec.summary())
+        del logits, cache, tok
+    torch.cuda.empty_cache()
+    counted_share(f"llama3.2-1b prefill {tuple(res.prompts.shape)}",
+                  counts["card"][0], counts["meta"][0], res.prefill_ms,
+                  PEAK_BF16_FLOP_PER_S, smi)
+    counted_share("llama3.2-1b decode step", counts["card"][1],
+                  counts["meta"][1], res.decode_ms / T,
+                  PEAK_BF16_FLOP_PER_S, smi)
+    COUNT_S.append(time.perf_counter() - t0)
+    log(f"[costs] phase 18 LM counts {COUNT_S[-1]:.1f}s")
+
+
 def exa_terms(tag: str, plan11: dict, plan16: dict) -> None:
     """The 1 x 1 plan at the share's shapes beside the 16 x 16 plan, term
     by term (GB; the terms of 1 MB or more), and their difference."""
@@ -4621,6 +4683,12 @@ def exa_share(tag: str, grid, Xl, factors: dict, schedule: str,
         f"{step_b / 1e9:.4f} GB, the plan's output + temp "
         f"{step_plan / 1e9:.4f} GB ({100 * (step_b - step_plan) / step_plan:+.2f}%)")
     exa_terms(tag, plan11, plan16)
+    from repro_torch.launch.step_costs import StepCounter
+    t_count = time.perf_counter()
+    with StepCounter() as counted:          # phase 18: one more iteration
+        step(Xl, Ai, R)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t_count
     require(off <= EXA_PEAK_TOL,
             f"{tag}: peak {peak / 1e9:.3f} GB is {100 * off:.1f}% from the "
             f"plan's {total / 1e9:.3f} GB (> {100 * EXA_PEAK_TOL:.0f}%)")
@@ -4628,7 +4696,22 @@ def exa_share(tag: str, grid, Xl, factors: dict, schedule: str,
             f"{tag}: the step's own allocations {step_b / 1e9:.4f} GB are "
             f"{100 * step_off:.1f}% from the plan's output + temp "
             f"{step_plan / 1e9:.4f} GB (> {100 * EXA_PEAK_TOL:.0f}%)")
-    return {"launches": launches, "ms": ms, "peak": peak, "A": Ai, "R": R}
+    return {"launches": launches, "ms": ms, "peak": peak, "A": Ai, "R": R,
+            "counted": counted.summary(), "count_s": count_s}
+
+
+def meta_count(tag: str, cfg, card_s: float) -> dict:
+    """Phase 18: the share's MU iteration counted on meta tensors on a
+    1 x 1 recording grid; logs the part's seconds (the card's counted
+    iteration took ``card_s``)."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    meta = dryrun.count_rescal(cfg, 1).summary()
+    meta_s = time.perf_counter() - t0
+    COUNT_S.append(card_s + meta_s)
+    log(f"[costs] phase 18 {tag} counts {COUNT_S[-1]:.1f}s (the card's "
+        f"iteration {card_s:.2f}s, meta {meta_s:.2f}s)")
+    return meta
 
 
 def exa_bcsr(sh, gen, dev):
@@ -4758,6 +4841,13 @@ def phase_exascale(rows: list[dict], dev, smi: str) -> None:
                    "R": torch.rand((sh.m, k, k), generator=gen, device=dev)}
         out = exa_share("(a)", grid, X, factors, "batched", plan11, plan16,
                         ("fused_xa_xtb", "mu_update_a"), dev)
+        share = counted_share(
+            f"(a) {cfg.name} MU iteration", out["counted"],
+            meta_count("(a)", dataclasses.replace(cfg, n=sh.nl),
+                       out["count_s"]), out["ms"], PEAK_FP32_FLOP_PER_S, smi)
+        log(f"[costs] phase 18 (a): the dense share's roofline share "
+            f"{share:.3f} (X's {X.numel() * 4 / 1e9:.2f} GB alone: "
+            f"{X.numel() * 4 / PEAK_BYTES_PER_S * 1e3 / out['ms']:.3f})")
         require(out["launches"]["fused_xa_xtb"] == EXA_ITERS
                 and out["launches"]["mu_update_a"] == EXA_ITERS,
                 f"(a) launches {out['launches']}, want one fused_xa_xtb "
@@ -4788,6 +4878,10 @@ def phase_exascale(rows: list[dict], dev, smi: str) -> None:
                    "R": torch.rand((sh.m, k, k), generator=gen, device=dev)}
         out = exa_share("(b)", grid, sp, factors, "sliced", plan11, plan16,
                         ("bcsr_xa_xta", "mu_update_a"), dev)
+        counted_share(f"(b) {cfg.name} MU iteration", out["counted"],
+                      meta_count("(b)", dataclasses.replace(cfg, n=sh.nl),
+                                 out["count_s"]), out["ms"],
+                      PEAK_FP32_FLOP_PER_S, smi)
         require(out["launches"]["bcsr_xa_xta"] == EXA_ITERS * sh.m
                 and out["launches"]["mu_update_a"] == EXA_ITERS,
                 f"(b) launches {out['launches']}, want one bcsr_xa_xta per "
@@ -4886,6 +4980,7 @@ def main() -> int:
         "launches"] = launches
     torch.cuda.empty_cache()
     phase_exascale(rows, dev, smi)
+    log(f"[costs] phase 18 in all {sum(COUNT_S):.1f}s")
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if row[key] is not None:

@@ -3,8 +3,8 @@ PyTorch port: the 3 TB dense and the exabyte-tier sparse RESCAL cells on
 the production grids (16 x 16, and 2 x 16 x 16), one rank's memory plan
 each, in this process (``repro_torch.launch.dryrun``; no device, no
 process group).  Prints each cell's grid, per-rank memory and fit, model
-FLOPs per MU iteration and collectives per MU iteration; exits 1 if a
-cell does not fit the card.
+FLOPs per MU iteration beside the rank's counted FLOPs and bytes, and
+collectives per MU iteration; exits 1 if a cell does not fit the card.
 
     PYTHONPATH=src python examples/torch_exascale_dryrun.py
 """
@@ -41,9 +41,13 @@ def main() -> int:
               f"{mem['temp'] / 1e9:.2f}); fits {mem['card']} "
               f"({mem['card_bytes'] / 1e9:.0f} GB): {mem[dryrun.FIT_KEY]}")
         print(f"  model FLOPs/iter (global): "
-              f"{d['model_flops_global']:.3e}")
-        print(f"  collectives/iter: {coll['count']} "
-              f"({coll['payload_bytes'] / 1e9:.3f} GB of payload per rank)")
+              f"{d['model_flops_global']:.3e}; counted per rank: "
+              f"{d['flops_per_device']:.3e} FLOPs, "
+              f"{d['bytes_per_device'] / 1e9:.2f} GB")
+        total = coll["total"]
+        print(f"  collectives/iter: {total['count']} "
+              f"({total['result_bytes'] / 1e9:.3f} GB of payload, "
+              f"{total['wire_bytes'] / 1e9:.3f} GB on the wire per rank)")
         ok = ok and mem[dryrun.FIT_KEY] is True
     print("\nAll exascale cells fit one rank's card. OK" if ok else
           "\nA cell does not fit the card.")

@@ -110,6 +110,36 @@ class BCSR:
             object.__setattr__(new, name, value)
         return new
 
+    def on_meta(self) -> "BCSR":
+        """The same shapes on the meta device (nothing allocated, the
+        pattern unchecked): what ``launch.step_costs`` counts a step on."""
+        new = object.__new__(BCSR)
+        for name in ("data", "block_rows", "block_cols", "row_ptr"):
+            x = getattr(self, name)
+            object.__setattr__(new, name, torch.empty_strided(
+                x.shape, x.stride(), dtype=x.dtype, device="meta"))
+        object.__setattr__(new, "n", self.n)
+        object.__setattr__(new, "_derived", {})
+        return new
+
+    @classmethod
+    def meta(cls, m: int, nnzb: int, bs: int, n: int,
+             members: int | None = None) -> "BCSR":
+        """A BCSR of these shapes on the meta device, float32 data
+        ([members,] m, nnzb, bs, bs)."""
+        lead = () if members is None else (members,)
+        new = object.__new__(cls)
+        object.__setattr__(new, "data", torch.empty(
+            lead + (m, nnzb, bs, bs), device="meta"))
+        for name in ("block_rows", "block_cols"):
+            object.__setattr__(new, name, torch.empty(
+                nnzb, dtype=torch.int32, device="meta"))
+        object.__setattr__(new, "n", n)
+        object.__setattr__(new, "row_ptr", torch.empty(
+            cdiv(n, bs) + 1, dtype=torch.int32, device="meta"))
+        object.__setattr__(new, "_derived", {})
+        return new
+
     def col_index(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The transposed index, int32 on the data's device: the stored
         blocks of block-column j are ``col_z[col_ptr[j]:col_ptr[j + 1]]``,

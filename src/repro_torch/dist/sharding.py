@@ -62,6 +62,8 @@ from typing import Any, Iterable, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch import step_costs
+
 ROW_AXIS = "data"
 COL_AXIS = "model"
 POD_AXIS = "pod"
@@ -125,7 +127,16 @@ class Grid:
     ``groups`` maps each axis to a process group (``None`` for a grid
     that only slices, as ``convert`` uses).  ``collectives`` counts the
     collectives made through this object.  ``lm`` makes an LM grid:
-    any (pods, data, model) shape, and the batch groups."""
+    any (pods, data, model) shape, and the batch groups.  ``record``
+    makes a grid that needs no process group: each collective is
+    counted (kind, axis, payload bytes, group size, on an active step
+    counter) instead of communicated, and returns a tensor of the right
+    shape on the input's device (a sum or maximum of this cell's values
+    alone, a gather of this cell's block and empty ones); with
+    ``Grid.at_rank(rank, pods, rows, cols, "meta", record=True)`` a
+    step runs for any rank of a production grid with nothing allocated
+    (``launch.step_costs``, ``launch.dryrun``).  Live or recorded, every
+    collective is reported to an active ``step_costs.StepCounter``."""
     pods: int
     rows: int
     cols: int
@@ -137,6 +148,7 @@ class Grid:
     owns_default_group: bool = False
     collectives: int = 0
     lm: bool = False
+    record: bool = False
 
     def __post_init__(self):
         check_shape(self.pods, self.rows, self.cols, square=not self.lm)
@@ -256,25 +268,38 @@ class Grid:
             pod, i = divmod(index, self.rows)
         return pod * self.rows * self.cols + i * self.cols + j
 
+    def _issued(self, kind: str, axis: str, result: torch.Tensor) -> None:
+        """Count one collective whose result is ``result``: on
+        ``collectives`` and on an active step counter."""
+        nbytes = result.numel() * result.element_size()
+        g = self.axis_size(axis)
+        self.collectives += 1
+        step_costs.collective(kind, axis, nbytes, g)
+
     def pmax(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Maximum of x over ``axis`` (a new tensor)."""
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self._group(axis))
-        self.collectives += 1
+        if not self.record:
+            dist.all_reduce(y, op=dist.ReduceOp.MAX,
+                            group=self._group(axis))
+        self._issued("all-reduce", axis, y)
         return y
 
     def broadcast(self, x: torch.Tensor, axis: str, index: int) -> None:
         """x of the cell at ``index`` on ``axis`` into every cell's x of
         that group, in place (x must be contiguous)."""
-        dist.broadcast(x, src=self.axis_rank(axis, index),
-                       group=self._group(axis))
-        self.collectives += 1
+        if not self.record:
+            dist.broadcast(x, src=self.axis_rank(axis, index),
+                           group=self._group(axis))
+        self._issued("broadcast", axis, x)
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum of x over ``axis`` (a new tensor; x is not changed)."""
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self._group(axis))
-        self.collectives += 1
+        if not self.record:
+            dist.all_reduce(y, op=dist.ReduceOp.SUM,
+                            group=self._group(axis))
+        self._issued("all-reduce", axis, y)
         return y
 
     def psum_cast(self, x: torch.Tensor, axis: str,
@@ -285,8 +310,10 @@ class Grid:
             return self.psum(x, axis)
         y = x.to(getattr(torch, comm_dtype), copy=True,
                  memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self._group(axis))
-        self.collectives += 1
+        if not self.record:
+            dist.all_reduce(y, op=dist.ReduceOp.SUM,
+                            group=self._group(axis))
+        self._issued("all-reduce", axis, y)
         return y.to(x.dtype)
 
     def diag_row_to_col(self, Ai: torch.Tensor,
@@ -311,9 +338,13 @@ class Grid:
         over ``POD_AXIS`` give all members."""
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.axis_size(axis))]
-        dist.all_gather(parts, x, group=self._group(axis))
-        self.collectives += 1
-        return torch.cat(parts, dim=dim)
+        if self.record:
+            parts[self.axis_index(axis)] = x
+        else:
+            dist.all_gather(parts, x, group=self._group(axis))
+        out = torch.cat(parts, dim=dim)
+        self._issued("all-gather", axis, out)
+        return out
 
     def agree(self, values: Sequence[float]) -> list[float]:
         """The maximum of each of a few numbers over every cell of the
@@ -322,13 +353,15 @@ class Grid:
         restore, an attempt's outcome, a unit's time) go through here.
         The values travel as float64, exact for flags and counts.
         Counted on ``collectives`` like every other collective (3 per
-        call)."""
+        call); a recording grid returns this cell's values."""
         x = torch.tensor([float(v) for v in values], dtype=torch.float64,
                          device=self.device)
         for axis in (ROW_AXIS, COL_AXIS, POD_AXIS):
-            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self._group(axis))
-            self.collectives += 1
-        return x.tolist()
+            if not self.record:
+                dist.all_reduce(x, op=dist.ReduceOp.MAX,
+                                group=self._group(axis))
+            self._issued("all-reduce", axis, x)
+        return [float(v) for v in values] if self.record else x.tolist()
 
     def destroy(self) -> None:
         """Destroy this grid's groups, and the default group when

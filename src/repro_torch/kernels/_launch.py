@@ -1,6 +1,8 @@
 """Argument checks and shapes shared by the kernel wrappers."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.sparse import BCSR, pad_rows
@@ -10,6 +12,11 @@ MAX_K = 64
 MAX_SLICES = 65535     # gridDim.y
 
 
+def block_size_ok(bs: int) -> bool:
+    """The BCSR kernels take blocks of a multiple of 32, up to MAX_BS."""
+    return bs % 32 == 0 and 32 <= bs <= MAX_BS
+
+
 def stream_handle(device_index: int) -> int:
     """The device's current stream as a cudaStream_t integer: what
     ``torch.cuda.current_stream(device).cuda_stream`` gives, without
@@ -17,11 +24,23 @@ def stream_handle(device_index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(device_index)
 
 
+def address(x: torch.Tensor) -> int:
+    """x's address for the alignment checks; 0 (aligned) on meta, which
+    has none."""
+    return 0 if x.is_meta else x.data_ptr()
+
+
 def rows_contiguous(x: torch.Tensor) -> bool:
     """The last two axes are row-major (strides of size-1 axes do not
     matter)."""
     return ((x.shape[-1] <= 1 or x.stride(-1) == 1)
             and (x.shape[-2] <= 1 or x.stride(-2) == x.shape[-1]))
+
+
+def members(*leads) -> int:
+    """Members of a call whose operands have these leading shapes, () or
+    (r,) each (the wrappers refuse members that disagree)."""
+    return max(math.prod(lead) for lead in leads)
 
 
 def member_stride(x: torch.Tensor, dims: int) -> int:
@@ -43,7 +62,7 @@ class Launch:
         # each member's (m, nnzb, bs, bs) contiguous; the member axis may
         # be strided (one relation slice of a member stack)
         inner = sp.data[0] if sp.batch_shape else sp.data
-        if not inner.is_contiguous() or sp.data.data_ptr() % 16 or (
+        if not inner.is_contiguous() or address(sp.data) % 16 or (
                 sp.batch_shape and sp.data.stride(0) % 4):
             raise ValueError(f"{kernel}: data must be contiguous per member "
                              f"and 16-byte aligned")
@@ -52,7 +71,7 @@ class Launch:
             raise ValueError(f"{kernel}: row_ptr and block_cols must be "
                              f"contiguous")
         bs = sp.bs
-        if bs % 32 or not 32 <= bs <= MAX_BS:
+        if not block_size_ok(bs):
             raise ValueError(f"{kernel}: block size {bs} not supported "
                              f"(a multiple of 32, at most {MAX_BS})")
         B0 = operands[0]
@@ -84,10 +103,13 @@ class Launch:
         self.b_member_stride = sp.n_pad * k if b_r is not None else 0
         tensors = (sp.data, sp.row_ptr, sp.block_cols) + operands
         dev = sp.data.device
-        if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        if dev.type not in ("cuda", "meta") or any(x.device != dev
+                                                   for x in tensors):
             raise ValueError(f"{kernel}: every tensor must be on one CUDA "
                              f"device, got "
                              f"{sorted({str(x.device) for x in tensors})}")
+        # meta: shapes only, counted up to the launch (launch.step_costs)
+        self.meta = dev.type == "meta"
 
     def padded(self, B: torch.Tensor) -> torch.Tensor:
         """B zero-padded to n_pad rows (a copy only when bs does not

@@ -28,7 +28,9 @@ zero-padded, with the 16-byte slots of each (bs, kc) row tile swizzled.
 
 On a CPU tensor the wrapper runs the plain version
 (``kernels/ref.py:ref_bcsr_xa_xta``); on a CUDA tensor it launches the
-kernel or raises.
+kernel or raises; on meta tensors it runs up to the launch and returns
+outputs of the right shapes (``launch.step_costs``: each of the three
+counts the launch's ``cost`` and the wrapper's own aten work).
 """
 from __future__ import annotations
 
@@ -37,9 +39,10 @@ import functools
 import torch
 
 from repro_torch.core.sparse import BCSR, product_shape
+from repro_torch.launch import step_costs
 
 from . import _build
-from ._launch import Launch
+from ._launch import Launch, members
 from .ref import ref_bcsr_xa_xta
 
 _launches = 0
@@ -62,8 +65,9 @@ def slice_width(k: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _swizzle(slots: int, device: str) -> torch.Tensor:
-    s = torch.arange(slots)
-    return (s ^ ((s >> 3) & 7)).to(device)
+    with step_costs.uncounted():         # built once per device
+        s = torch.arange(slots)
+        return (s ^ ((s >> 3) & 7)).to(device)
 
 
 def operand_tiles(B: torch.Tensor, bs: int, n_pad: int,
@@ -87,6 +91,18 @@ def operand_tiles(B: torch.Tensor, bs: int, n_pad: int,
     return tiles.reshape(slices, members, n_pad, kc)
 
 
+def cost(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor) -> tuple[int, int]:
+    """(flops, bytes) of one call's own work: every stored value read once
+    for both products, 4k flop per value and slice of each member; B1 and
+    B2 read once, XA and XTB written once."""
+    k = B1.shape[-1]
+    T = members(sp.batch_shape, B1.shape[:-2]) * sp.m
+    flops = T * sp.nnzb * sp.bs * sp.bs * 4 * k
+    nbytes = 4 * (sp.data.numel() + B1.numel() + B2.numel()
+                  + 2 * T * sp.n * k)
+    return flops, nbytes
+
+
 def bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor):
     """sp: BCSR ([r,] m, nnzb, bs, bs) with row-major blocks; B1, B2
     ([r,] n, k) -> (X @ B1, X^T @ B2), each ([r,] m, n, k), in one pass
@@ -94,7 +110,7 @@ def bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor):
     bs not dividing n pads the operands and crops the outputs."""
     global _launches
     if all(x.device.type == "cpu" for x in (sp.data, B1, B2)):
-        return ref_bcsr_xa_xta(sp, B1, B2)
+        return step_costs.as_card(bcsr_xa_xta, ref_bcsr_xa_xta, sp, B1, B2)
     call = Launch("bcsr_xa_xta", sp, B1, B2)
     if sp.nnzb == 0:
         shape = product_shape(sp, B1)
@@ -109,7 +125,11 @@ def bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor):
     xtb = call.empty(cols=kt)
     part = torch.empty(call.T * sp.nnzb * sp.bs * kc, dtype=torch.float32,
                        device=sp.data.device)
-    col_ptr, col_z = sp.col_index()
+    with step_costs.uncounted():         # built once per pattern
+        col_ptr, col_z = sp.col_index()
+    if call.meta:
+        step_costs.launched("bcsr_xa_xta", cost, sp, B1, B2)
+        return call.shape_out(xa), call.shape_out(xtb[..., :call.k])
     with torch.cuda.device(sp.data.device):
         rc = _build.library().repro_bcsr_xa_xta(
             sp.data.data_ptr(), sp.row_ptr.data_ptr(),
@@ -120,4 +140,5 @@ def bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor):
             B1t.stride(0), call.stream())
     _build.check(rc, "bcsr_xa_xta")
     _launches += 1
+    step_costs.launched("bcsr_xa_xta", cost, sp, B1, B2)
     return call.shape_out(xa), call.shape_out(xtb[..., :call.k])

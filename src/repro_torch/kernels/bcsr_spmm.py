@@ -15,16 +15,19 @@ registers; deterministic, no atomics, no pre-zeroed output.
 
 On a CPU tensor the wrapper runs the plain version
 (``kernels/ref.py:ref_bcsr_spmm``); on a CUDA tensor it launches the
-kernel or raises.
+kernel or raises; on meta tensors it runs up to the launch and returns an
+output of the right shape (``launch.step_costs``: each of the three
+counts the launch's ``cost`` and the wrapper's own aten work).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.sparse import BCSR, product_shape
+from repro_torch.launch import step_costs
 
 from . import _build
-from ._launch import Launch
+from ._launch import Launch, members
 from .ref import ref_bcsr_spmm
 
 _launches = 0
@@ -40,6 +43,16 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
+def cost(sp: BCSR, B: torch.Tensor) -> tuple[int, int]:
+    """(flops, bytes) of one call's own work: every stored value read once,
+    2k flop per value and slice of each member; B read once, the product
+    written once."""
+    k = B.shape[-1]
+    T = members(sp.batch_shape, B.shape[:-2]) * sp.m
+    flops = T * sp.nnzb * sp.bs * sp.bs * 2 * k
+    return flops, 4 * (sp.data.numel() + B.numel() + T * sp.n * k)
+
+
 def bcsr_spmm(sp: BCSR, B: torch.Tensor) -> torch.Tensor:
     """X_t @ B for all t.  sp: BCSR ([r,] m, nnzb, bs, bs); B ([r,] n, k)
     -> ([r,] m, n, k).  Edge cases: nnzb == 0 returns zeros without a
@@ -47,13 +60,16 @@ def bcsr_spmm(sp: BCSR, B: torch.Tensor) -> torch.Tensor:
     block-rows come out exactly zero (the kernel writes them)."""
     global _launches
     if sp.data.device.type == "cpu" and B.device.type == "cpu":
-        return ref_bcsr_spmm(sp, B)
+        return step_costs.as_card(bcsr_spmm, ref_bcsr_spmm, sp, B)
     call = Launch("bcsr_spmm", sp, B)
     if sp.nnzb == 0:
         return torch.zeros(product_shape(sp, B), dtype=B.dtype,
                            device=B.device)
     Bp = call.padded(B)
     out = call.empty()
+    if call.meta:
+        step_costs.launched("bcsr_spmm", cost, sp, B)
+        return call.shape_out(out)
     with torch.cuda.device(sp.data.device):
         rc = _build.library().repro_bcsr_spmm(
             sp.data.data_ptr(), sp.row_ptr.data_ptr(),
@@ -62,4 +78,5 @@ def bcsr_spmm(sp: BCSR, B: torch.Tensor) -> torch.Tensor:
             call.data_member_stride, call.b_member_stride, call.stream())
     _build.check(rc, "bcsr_spmm")
     _launches += 1
+    step_costs.launched("bcsr_spmm", cost, sp, B)
     return call.shape_out(out)

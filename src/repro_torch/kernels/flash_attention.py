@@ -38,7 +38,10 @@ s strides (on axes longer than 1) multiples of 16 bytes (TMA), sq <=
 
 On CPU tensors the wrapper runs the plain version
 (``kernels/ref.py:ref_attention``); on CUDA tensors it launches the
-kernel of its dtype or raises.  The kernels have no backward (nor has
+kernel of its dtype or raises; on meta tensors it runs up to the launch
+and returns an output of the right shape (``launch.step_costs``: each of
+the three counts the launch's ``cost`` and the wrapper's own aten
+work).  The kernels have no backward (nor has
 ``repro``'s Pallas kernel, which has no ``custom_vjp``): a call on CUDA
 tensors of which one requires grad, with grad enabled, raises
 ``RuntimeError`` (``refuse_grad``) rather than return an output without
@@ -49,8 +52,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import step_costs
+
 from . import _build
-from ._launch import MAX_SLICES
+from ._launch import MAX_SLICES, address
 from .ref import ref_attention
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -124,7 +129,7 @@ class Call:
         """The bf16 kernel reads q, k and v by TMA: a 16-byte aligned base
         and b, h, s strides of whole 16 bytes (axes of length 1 aside)."""
         for name, x in (("q", q), ("k", k), ("v", v)):
-            if x.data_ptr() % 16:
+            if address(x) % 16:
                 raise ValueError(f"flash_attention: {name}'s base address is "
                                  f"not 16-byte aligned (bf16 reads by TMA)")
             for axis, size, stride in zip("bhs", x.shape, x.stride()):
@@ -137,11 +142,43 @@ class Call:
                              f"{MAX_SLICES * BQ_SM90}")
 
     def require_cuda(self, *tensors: torch.Tensor) -> None:
-        if self.device.type != "cuda" or any(x.device != self.device
-                                             for x in tensors):
+        """Raise unless every tensor is on one CUDA device (or all on
+        meta: shapes only, counted up to the launch)."""
+        if self.device.type not in ("cuda", "meta") or any(
+                x.device != self.device for x in tensors):
             raise ValueError(
                 f"flash_attention: every tensor must be on one CUDA device, "
                 f"got {sorted({str(x.device) for x in tensors})}")
+
+
+def visible_pairs(sq: int, skv: int, causal: bool = True,
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs a head attends: all sq * skv, or, causal, the
+    keys at or before each query's position q_offset + i."""
+    if not causal:
+        return sq * skv
+    # sum over i < sq of min(skv, q_offset + i + 1), the first terms
+    # below skv
+    below = max(0, min(sq, skv - q_offset))
+    lo = q_offset + 1
+    return (below * (2 * lo + below - 1)) // 2 + (sq - below) * skv
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, q_offset: int = 0, dqk: int | None = None,
+         dv: int | None = None) -> tuple[int, int]:
+    """(flops, bytes) of one call's own work: 2 (dqk + dv) flop per
+    visible (query, key) pair and query head; q, k and v read once and
+    the output written once.  ``dqk`` and ``dv`` are the function's own
+    head widths where the call pads them (MLA), else q's and v's."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dqk = dqk or d
+    dv = dv or v.shape[-1]
+    pairs = visible_pairs(sq, skv, causal, q_offset)
+    nbytes = q.element_size() * (b * hq * sq * (dqk + dv)
+                                 + b * hkv * skv * (dqk + dv))
+    return 2 * b * hq * pairs * (dqk + dv), nbytes
 
 
 def refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -162,13 +199,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype, laid out in memory as q is (a permuted (B, S, H, D) view gives
     a (B, S, H, D) buffer)."""
     if all(x.device.type == "cpu" for x in (q, k, v)):
-        return ref_attention(q, k, v, causal=causal, q_offset=q_offset,
-                             sm_scale=sm_scale)
+        return step_costs.as_card(flash_attention, ref_attention, q, k, v,
+                                  causal=causal, q_offset=q_offset,
+                                  sm_scale=sm_scale)
     refuse_grad(q, k, v)
     call = Call(q, k, v, q_offset)
     call.require_cuda(q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0:
+        return out
+    if call.device.type == "meta":
+        step_costs.launched("flash_attention", cost, q, k, v,
+                            causal=causal, q_offset=q_offset)
         return out
     if sm_scale is None:
         sm_scale = 1.0 / (call.d ** 0.5)
@@ -185,4 +227,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"flash_attention ({call.variant})")
     _launches[call.variant] += 1
+    step_costs.launched("flash_attention", cost, q, k, v, causal=causal,
+                        q_offset=q_offset)
     return out

@@ -32,7 +32,9 @@ m (stride 0) cost no copy.
 
 On a CPU tensor the wrapper runs the plain version
 (``kernels/ref.py:ref_fused_xa_xtb``); on a CUDA tensor it launches the
-kernel or raises.
+kernel or raises; on meta tensors it runs up to the launch and returns
+outputs of the right shapes (``launch.step_costs``: each of the three
+counts the launch's ``cost`` and the wrapper's own aten work).
 """
 from __future__ import annotations
 
@@ -41,8 +43,11 @@ import functools
 
 import torch
 
+from repro_torch.launch import step_costs
+
 from . import _build
-from ._launch import MAX_K, member_stride, rows_contiguous
+from ._launch import (MAX_K, address, member_stride, members,
+                      rows_contiguous)
 from .ref import ref_fused_xa_xtb
 
 BAND_ROWS = 64          # rows of a staged tile (csrc BAND)
@@ -209,7 +214,7 @@ class Call:
         self.strides = (member_stride(X, 3), X.stride(-3),
                         member_stride(B1, 2), member_stride(B2, 3),
                         B2.stride(-3))
-        self.vec = int(n2 % 4 == 0 and X.data_ptr() % 16 == 0
+        self.vec = int(n2 % 4 == 0 and address(X) % 16 == 0
                        and all(s % 4 == 0 for s in self.strides[:2]))
         members = self.members or 1
         # the kernel's groups of split fragments, from the strides as the
@@ -220,8 +225,10 @@ class Call:
         self.device = X.device
 
     def require_cuda(self, *tensors: torch.Tensor) -> None:
-        if self.device.type != "cuda" or any(x.device != self.device
-                                             for x in tensors):
+        """Raise unless every tensor is on one CUDA device (or all on
+        meta: shapes only, counted up to the launch)."""
+        if self.device.type not in ("cuda", "meta") or any(
+                x.device != self.device for x in tensors):
             raise ValueError(
                 f"fused_xa_xtb: every tensor must be on one CUDA device, "
                 f"got {sorted({str(x.device) for x in tensors})}")
@@ -235,13 +242,27 @@ class Call:
                     self.b2_groups)
 
 
+def cost(X: torch.Tensor, B1: torch.Tensor, B2: torch.Tensor
+         ) -> tuple[int, int]:
+    """(flops, bytes) of one call's own work: each value of X read once
+    for both products, 4k flop per value and slice of each member; B1 and
+    B2's own values (a dim of stride 0 once) read once, XA and XTB
+    written once."""
+    m, n1, n2 = X.shape[-3:]
+    k = B1.shape[-1]
+    T = members(X.shape[:-3], B1.shape[:-2], B2.shape[:-3]) * m
+    nbytes = (step_costs.nbytes(X) + step_costs.nbytes(B1)
+              + step_costs.nbytes(B2) + 4 * T * (n1 + n2) * k)
+    return 4 * T * n1 * n2 * k, nbytes
+
+
 def fused_xa_xtb(X: torch.Tensor, B1: torch.Tensor, B2: torch.Tensor):
     """X ([r,] m, n1, n2), B1 ([r,] n2, k), B2 ([r,] m, n1, k) ->
     (XA ([r,] m, n1, k), XTB ([r,] m, n2, k)), reading X once.  An empty
     side returns zeros without a launch."""
     global _launches
     if all(x.device.type == "cpu" for x in (X, B1, B2)):
-        return ref_fused_xa_xtb(X, B1, B2)
+        return step_costs.as_card(fused_xa_xtb, ref_fused_xa_xtb, X, B1, B2)
     call = Call(X, B1, B2)
     call.require_cuda(X, B1, B2)
     empty = call.n1 == 0 or call.n2 == 0 or call.T == 0
@@ -255,6 +276,9 @@ def fused_xa_xtb(X: torch.Tensor, B1: torch.Tensor, B2: torch.Tensor):
     p = call.plan()
     ws = torch.empty(p.workspace_floats, dtype=torch.float32,
                      device=call.device)
+    if call.device.type == "meta":
+        step_costs.launched("fused_xa_xtb", cost, X, B1, B2)
+        return xa, xtb
     ptrs, at = [], 0
     for floats in p.sections().values():
         ptrs.append(ws.data_ptr() + 4 * at if floats else None)
@@ -268,4 +292,5 @@ def fused_xa_xtb(X: torch.Tensor, B1: torch.Tensor, B2: torch.Tensor):
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_xa_xtb")
     _launches += 1
+    step_costs.launched("fused_xa_xtb", cost, X, B1, B2)
     return xa, xtb

@@ -34,13 +34,17 @@ members.  k <= 64 (S lives in shared memory); above it a CUDA call raises
 
 On a CPU tensor the wrapper runs the plain version
 (``kernels/ref.py:ref_mu_update_a``); on a CUDA tensor it launches the
-kernel or raises.
+kernel or raises; on meta tensors it runs up to the launch and returns an
+output of the right shape (``launch.step_costs``: each of the three
+counts the launch's ``cost`` and the wrapper's own aten work).
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+
+from repro_torch.launch import step_costs
 
 from . import _build
 from ._launch import (MAX_K, MAX_SLICES, member_stride, rows_contiguous,
@@ -99,8 +103,11 @@ class Call:
 
     @staticmethod
     def require_cuda(A: torch.Tensor, *tensors: torch.Tensor) -> None:
+        """Raise unless every tensor is on one CUDA device (or all on
+        meta: shapes only, counted up to the launch)."""
         dev = A.device
-        if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        if dev.type not in ("cuda", "meta") or any(x.device != dev
+                                                   for x in tensors):
             raise ValueError(
                 f"mu_update_a: every tensor must be on one CUDA device, "
                 f"got {sorted({str(x.device) for x in (A,) + tensors})}")
@@ -108,9 +115,10 @@ class Call:
 
 @functools.lru_cache(maxsize=64)
 def _checked(*sigs) -> Call:
-    return Call(*(torch.empty_strided(shape, stride, dtype=dtype,
-                                      device="meta")
-                  for shape, stride, dtype in sigs))
+    with step_costs.uncounted():         # built once per signature
+        return Call(*(torch.empty_strided(shape, stride, dtype=dtype,
+                                          device="meta")
+                      for shape, stride, dtype in sigs))
 
 
 def checked(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor) -> Call:
@@ -122,6 +130,16 @@ def checked(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor) -> Call:
                     (S.shape, S.stride(), S.dtype))
 
 
+def cost(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor
+         ) -> tuple[int, int]:
+    """(flops, bytes) of one call's own work: 2k + 2 flop per output (the
+    k-term denominator, the product and the ratio); A, Num and S read
+    once, the output written once."""
+    k = A.shape[-1]
+    return ((2 * k + 2) * A.numel(),
+            4 * (A.numel() + Num.numel() + A.numel() + S.numel()))
+
+
 def mu_update_a(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor,
                 eps: float) -> torch.Tensor:
     """A ([r,] n, k), Num ([r,] n, k), S ([r,] k, k) -> A * Num / (A @ S +
@@ -131,12 +149,16 @@ def mu_update_a(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor,
     dev = A.device
     if dev.type == "cpu" and Num.device.type == "cpu" \
             and S.device.type == "cpu":
-        return ref_mu_update_a(A, Num, S, eps)
+        return step_costs.as_card(mu_update_a, ref_mu_update_a, A, Num, S,
+                                  eps)
     call = checked(A, Num, S)
     if dev.type != "cuda" or Num.device != dev or S.device != dev:
         Call.require_cuda(A, Num, S)
     out = torch.empty(call.shape, dtype=torch.float32, device=dev)
     if call.n == 0 or call.members == 0:
+        return out
+    if dev.type == "meta":
+        step_costs.launched("mu_update_a", cost, A, Num, S)
         return out
     args = (A.data_ptr(), Num.data_ptr(), S.data_ptr(), out.data_ptr(),
             call.members, call.n, call.k, *call.strides, float(eps))
@@ -148,4 +170,5 @@ def mu_update_a(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor,
             rc = launch(*args, stream_handle(dev.index))
     _build.check(rc, "mu_update_a")
     _launches += 1
+    step_costs.launched("mu_update_a", cost, A, Num, S)
     return out

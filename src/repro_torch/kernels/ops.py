@@ -3,7 +3,8 @@
 
 impl:
   "auto" — the kernel wrapper: the CUDA kernel for CUDA tensors, its plain
-           version for CPU tensors
+           version for CPU tensors (on meta tensors, the card's path up to
+           the launch: ``launch.step_costs``)
   "cuda" — the CUDA kernel; a CPU tensor raises
   "ref"  — the plain PyTorch version, on any device
 
@@ -63,7 +64,9 @@ def _note_fallback(kernel: str, requested_bytes: int, *,
 
 
 def _on_card(tensors) -> bool:
-    return all(x.device.type == "cuda" for x in tensors)
+    """CUDA tensors, or meta tensors standing in for them (shapes only:
+    the wrapper runs up to its launch, ``launch.step_costs``)."""
+    return all(x.device.type in ("cuda", "meta") for x in tensors)
 
 
 def _dispatch(impl: str, kernel: str, *tensors) -> str:

@@ -23,7 +23,9 @@ seeds the thresholds.  The kernel's limits are k <= 64 and topk <= 1024
 
 On CPU tensors the wrapper runs the plain version
 (``kernels/ref.py:ref_score_topk_stream``); on CUDA tensors it launches the
-kernel or raises.
+kernel or raises; on meta tensors it runs up to each launch and returns
+outputs of the right shapes (``launch.step_costs``: each of the three
+counts every launch's ``cost`` and the wrapper's own aten work).
 """
 from __future__ import annotations
 
@@ -32,8 +34,10 @@ import functools
 
 import torch
 
+from repro_torch.launch import step_costs
+
 from . import _build
-from ._launch import stream_handle
+from ._launch import address, stream_handle
 from .ref import DEFAULT_PN, ref_score_topk_stream
 
 MAX_K = 64               # the kernel's limits (csrc/score_topk.cu refuses
@@ -160,9 +164,17 @@ def check(V: torch.Tensor, A: torch.Tensor, topk: int) -> None:
                          f"int32 indices")
     if not (V.is_contiguous() and A.is_contiguous()):
         raise ValueError("score_topk: V and A must be contiguous")
-    if V.device.type != "cuda" or A.device != V.device:
+    if V.device.type not in ("cuda", "meta") or A.device != V.device:
         raise ValueError(f"score_topk: V and A must be on one CUDA device, "
                          f"got {V.device} and {A.device}")
+
+
+def cost(V: torch.Tensor, A: torch.Tensor, topk: int) -> tuple[int, int]:
+    """(flops, bytes) of one pass's own work: the 2bnk flop of the scores;
+    V and A read once, the (b, topk) scores and int32 indices written
+    once."""
+    b, (n, k) = V.shape[0], A.shape
+    return 2 * b * n * k, 4 * (n * k + b * k) + 8 * b * topk
 
 
 def _launch(V: torch.Tensor, A: torch.Tensor, topk: int, seed=None):
@@ -172,6 +184,10 @@ def _launch(V: torch.Tensor, A: torch.Tensor, topk: int, seed=None):
     global _launches
     b, n, k = V.shape[0], A.shape[0], A.shape[1]
     dev = V.device
+    if dev.type == "meta":
+        step_costs.launched("score_topk", cost, V, A, topk)
+        return (torch.empty((b, topk), device=dev),
+                torch.empty((b, topk), dtype=torch.int32, device=dev))
     p = plan(b, n, k, topk, sm_count(dev))
     part = torch.empty((2, b, p.lists, topk), device=dev)
     out_s = torch.empty((b, topk), device=dev)
@@ -188,6 +204,7 @@ def _launch(V: torch.Tensor, A: torch.Tensor, topk: int, seed=None):
             rc = launch(*args, stream_handle(dev.index))
     _build.check(rc, "score_topk")
     _launches += 1
+    step_costs.launched("score_topk", cost, V, A, topk)
     return out_s, out_i
 
 
@@ -201,14 +218,16 @@ def score_topk(V: torch.Tensor, A: torch.Tensor, *, topk: int,
     (the result's topk-th entry precedes or equals a subset's), so the
     full pass keeps few candidates: two launches."""
     if V.device.type == "cpu" and A.device.type == "cpu":
-        return ref_score_topk_stream(V, A, topk,
-                                     DEFAULT_PN if pn is None else pn)
+        return step_costs.as_card(
+            score_topk, lambda V, A, topk: ref_score_topk_stream(
+                V, A, topk, DEFAULT_PN if pn is None else pn), V, A,
+            topk=topk)
     check(V, A, topk)
     b, n = V.shape[0], A.shape[0]
     if b == 0 or n == 0:
         return (torch.full((b, topk), -torch.inf, device=V.device),
                 torch.full((b, topk), -1, dtype=torch.int32, device=V.device))
-    if A.data_ptr() % 16:
+    if address(A) % 16:
         A = A.clone()        # the ring copies A in 16-byte chunks
     seed = _launch(V, A[:n // SEED_SHARE], topk) if n >= SEED_ROWS else None
     return _launch(V, A, topk, seed)

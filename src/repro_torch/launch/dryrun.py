@@ -1,14 +1,14 @@
-"""Multi-pod dry run: one rank's memory plan for every (architecture x input
-shape) cell on the production grids (the memory half of
-``repro/launch/dryrun.py``).
+"""Multi-pod dry run: one rank's memory plan and counted step costs for
+every (architecture x input shape) cell on the production grids (the
+port of ``repro/launch/dryrun.py``).
 
 ``repro`` lowers and compiles each cell on a 256- or 512-device mesh of
 ``ShapeDtypeStruct``s and reads XLA's memory and cost analyses.  The port
-compiles no program, so it plans instead: each cell is laid out for one
-rank of the production grid (``launch.mesh.PRODUCTION``: 16 x 16, or 2 x
-16 x 16 with ``--multi-pod``) by ``Grid.at_rank(rank, pods, 16, 16,
-"meta")``, with no process group and nothing allocated, and the plan
-counts the bytes that rank holds from the port's own code:
+compiles no program, so it plans and counts instead: each cell is laid
+out for one rank of the production grid (``launch.mesh.PRODUCTION``: 16 x
+16, or 2 x 16 x 16 with ``--multi-pod``) by ``Grid.at_rank(rank, pods,
+16, 16, "meta")``, with no process group and nothing allocated.  The
+plan counts the bytes that rank holds from the port's own code:
 
 RESCAL cells (``--arch rescal-*``, one MU iteration of ``dist/engine.py``
 under the fused kernel policy, ``--rescal-schedule`` and
@@ -30,7 +30,8 @@ under the fused kernel policy, ``--rescal-schedule`` and
              ``bcsr_xa_xta``'s (T, nnzb, bs, kc) partials and its B
              operand tiles, T = members x slices in the launch
   collectives the count and payload bytes per MU iteration that the body
-             issues through ``Grid`` (6 batched, 2 + 4m sliced)
+             issues through ``Grid`` (6 batched, 2 + 4m sliced): the
+             counted step's must be the same
 
 LM cells (``--arch`` of the zoo, ``--shape`` of ``SHAPES``): a cell
 ``cfg.supports`` refuses is ``skipped`` with its reason, as ``repro``'s;
@@ -72,6 +73,20 @@ different moments):
              scatter E_l C (d + 2 F) a, dense T E_l 2 F a (T tokens, C
              the capacity, G groups)
 
+The step itself runs for that rank on meta tensors and a recording grid
+(``Grid(record=True)``) under ``launch.step_costs.StepCounter``:
+``count_rescal`` (one MU iteration of the fused engine at the share's
+shapes; its collectives must equal the ledger's, or the cell raises) and
+``count_lm`` (the train step with gradients, AdamW and ZeRO-1, the
+prefill, or one decode step of ``GridTransformer``; counted on a few
+layers with trip counts, ``layer_kinds``).  They fill ``repro``'s
+loop-aware fields: ``flops_per_device``, ``bytes_per_device``, ``ops``
+(the op histogram, kernel launches as ``kernel:<name>``) and
+``collectives`` (``repro``'s shape: the total's count, result and wire
+bytes, each kind's count and wire bytes, with the port's ``by_axis`` and
+``per``), and ``count_s``.  An LM step that cannot run on meta leaves
+them null with ``count_error``, never 0.
+
 Each cell's JSON has ``repro``'s keys.  ``memory`` holds argument,
 output, temp, alias, peak and total (total = argument + output + temp -
 alias = peak), and the fit: ``fits_h100_80gb`` against ``card_bytes``
@@ -80,10 +95,9 @@ alias = peak), and the fit: ``fits_h100_80gb`` against ``card_bytes``
 null (unestablished) between.  An LM cell's margin is how far the plan
 fell short of a measured peak of its kind (``LM_PLAN_SHORTFALL``); a
 RESCAL cell's is 0 (its plan is held to the card's peak within 1%,
-output and temp to its step's own allocations).  What only XLA can give is null, never
-0: ``compile_s``, ``flops_per_device``, ``bytes_per_device``,
-``xla_flops_raw``, ``xla_bytes_raw``, ``ops``, and an LM cell's
-``collectives``.  ``model_flops_global`` is ``repro``'s formula
+output and temp to its step's own allocations).  What only XLA can give
+is null, never 0: ``compile_s``, ``xla_flops_raw`` and
+``xla_bytes_raw``.  ``model_flops_global`` is ``repro``'s formula
 (``rescal_model_flops``; ``models.model.model_flops``).
 
 Usage:
@@ -95,29 +109,40 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
+import multiprocessing
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from collections import Counter
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import torch
 
 from repro_torch.configs import (ARCHS, RESCAL_CONFIGS, SHAPES, RescalConfig,
                                  ShapeSpec, get_config, input_specs)
+from repro_torch.core.sparse import BCSR
+from repro_torch.dist.engine import DistRescalConfig, make_mu_step
 from repro_torch.dist.sharding import (COL_AXIS, ROW_AXIS, Grid,
                                        batch_shardings, cache_specs,
                                        local_block)
 from repro_torch.kernels import fused_bilinear
+from repro_torch.kernels.policy import KernelPolicy
 from repro_torch.launch.mesh import CARD_HBM_BYTES, CARD_NAME, PRODUCTION
+from repro_torch.launch.step_costs import StepCounter
 from repro_torch.models import model as model_lib
 from repro_torch.models.moe import capacity, tokens_per_group
 from repro_torch.models.transformer import (READONLY, TRAIN_Q_CHUNK,
                                             GridRefusal, GridTransformer,
                                             Transformer, head_dim,
                                             lm_placement)
-from repro_torch.train.serve_step import params_shardings
+from repro_torch.optim import AdamW
+from repro_torch.train.serve_step import (make_prefill_step, make_serve_step,
+                                          params_shardings)
+from repro_torch.train.train_step import (TrainState, make_train_step,
+                                          zero1_moments)
 
 RESCAL_SHAPE = ShapeSpec("mu_iter", "rescal", 0, 0)
 ENSEMBLE_R = 2            # repro's ensemble members on the multi-pod grid
@@ -126,8 +151,8 @@ META = torch.device("meta")
 F32 = 4
 KV_CHUNK = 1024           # the chunked attention's key tile
 LOSS_F32 = 5              # fp32 (tokens, V_l) buffers at the loss's backward
-XLA_ONLY = ("compile_s", "flops_per_device", "bytes_per_device",
-            "xla_flops_raw", "xla_bytes_raw", "ops")
+XLA_ONLY = ("compile_s", "xla_flops_raw", "xla_bytes_raw")
+COUNTED = ("flops_per_device", "bytes_per_device", "ops", "collectives")
 # How far the LM plan may fall short of a step's peak, by step kind: the
 # largest shortfall measured, with room.  Train: llama3.2-1b at 4 x 4096
 # with --remat (the loss's backward the peak) 55.46 GB planned against
@@ -688,6 +713,163 @@ def plan_lm(cfg, spec: ShapeSpec, pods: int, data: int, model: int, *,
 
 
 # ---------------------------------------------------------------------------
+# The counted step (launch.step_costs)
+# ---------------------------------------------------------------------------
+
+def count_rescal(rcfg: RescalConfig, g: int, pods: int = 1, rank: int = 0,
+                 *, comm_dtype: str | None = None) -> StepCounter:
+    """One MU iteration of the fused engine (``dist/engine.py``) for
+    ``rank`` of a (pods, g, g) grid, on meta tensors of its share's
+    shapes and a recording grid, counted."""
+    sh = rescal_share(rcfg, g, pods)
+    grid = Grid.at_rank(rank, pods, g, g, META, record=True)
+    cfg = DistRescalConfig(schedule=sh.schedule, comm_dtype=comm_dtype,
+                           kernel=KernelPolicy(use_fused=True))
+    lead = () if sh.members is None else (sh.members,)
+    X = (torch.empty((sh.m, sh.nl, sh.nl), device=META)
+         if sh.operand == "dense" else BCSR.meta(sh.m, sh.nnzb, sh.bs,
+                                                 sh.nl))
+    A = torch.empty(lead + (sh.nl, sh.k), device=META)
+    R = torch.empty(lead + (sh.m, sh.k, sh.k), device=META)
+    with StepCounter() as c:
+        make_mu_step(grid, cfg)(X, A, R)
+    return c
+
+
+def _lm_step(cfg, spec: ShapeSpec, grid: Grid, depths: dict[str, int],
+             remat: bool, moe_impl: str) -> dict:
+    """The counted summary of one ``spec`` step on a model of ``cfg``
+    whose layer stacks keep their first ``depths[stack]`` layers (each
+    placed as in the whole model)."""
+    mdl = Transformer(cfg, device=META)
+    for stack, d in depths.items():
+        setattr(mdl, stack, torch.nn.ModuleList(list(getattr(mdl, stack))[:d]))
+    params_shardings(grid, mdl)
+    specs = input_specs(cfg, spec)
+
+    def ids(x):
+        return torch.empty(x.shape, dtype=torch.int64, device=META) \
+            if x.dtype == torch.int32 else x
+
+    if spec.kind == "train":
+        opt = AdamW()
+        state = TrainState(params=mdl, opt=zero1_moments(grid, mdl, opt),
+                           step=torch.zeros((), dtype=torch.int64))
+        step = make_train_step(cfg, grid=grid, optimizer=opt, remat=remat,
+                               moe_impl=moe_impl)
+        args = (state, {k: ids(x) for k, x in specs["batch"].items()})
+        kwargs = {}
+    elif spec.kind == "prefill":
+        kwargs = {k: ids(x) for k, x in specs["batch"].items()}
+        step = make_prefill_step(mdl, grid=grid, moe_impl=moe_impl)
+        args = (kwargs.pop("tokens"),)
+    else:
+        cache = GridTransformer(mdl, grid).init_cache(spec.global_batch,
+                                                      spec.seq_len)
+        step = make_serve_step(mdl, moe_impl=moe_impl, grid=grid)
+        args = (cache, _lm_batch(cfg, spec, grid)["tokens"],
+                spec.seq_len - 1)
+        kwargs = {}
+    with StepCounter() as c:
+        step(*args, **kwargs)
+    return c.summary()
+
+
+def _flat(tree: dict, prefix: tuple = ()) -> dict[tuple, float]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        elif not isinstance(v, str):
+            out[prefix + (k,)] = v
+    return out
+
+
+def _nest(flat: dict[tuple, float]) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def layer_kinds(cfg, grid: Grid, stack: str, train: bool) -> list:
+    """A key per layer of ``stack`` ("layers" or "enc_layers"): layers
+    with one key cost one step the same.  They differ only in training,
+    by ZeRO-1: where it gives each layer's moments to one data rank
+    (``LMPlacement``'s owner), by whether this rank holds them."""
+    pl = lm_placement(grid, cfg)
+    keys: dict[int, list] = {}
+    for name, pp in pl.params.items():
+        parts = name.split(".")
+        if parts[0] != stack:
+            continue
+        own = pp.owner == grid.i if train and pp.owner is not None else None
+        keys.setdefault(int(parts[1]), []).append(own)
+    return [tuple(keys[i]) for i in sorted(keys)]
+
+
+def count_lm(cfg, spec: ShapeSpec, pods: int, data: int, model: int,
+             rank: int = 0, *, remat: bool = True, moe_impl: str = "einsum",
+             trip_counts: bool = True) -> dict:
+    """The counted summary of one ``spec`` step of ``cfg`` for ``rank`` of
+    a (pods, data, model) LM grid (``GridTransformer``: the train step
+    with its gradients, AdamW and ZeRO-1, the prefill of the global
+    batch, or one decode step at the cache's last position), on meta
+    tensors and a recording grid.  Raises what the step raises on meta (a
+    data-dependent shape).
+
+    ``trip_counts``: the step is counted on its first layers only, every
+    cost being one of a base and the layers' own, each layer's the same
+    as its kind's (``layer_kinds``): c(1) (the base and the first layer)
+    plus, for every later layer, the difference its kind's first such
+    layer i makes, c(i + 1) - c(i), c counted at a depth (per stack:
+    the decoder's, then the encoder's with the decoder at 1).  Equal to
+    the whole count (``tests/test_torch_step_costs.py``), at a few
+    layers' cost."""
+    grid = Grid.at_rank(rank, pods, data, model, META, lm=True, record=True)
+    stacks = [s for s in ("layers", "enc_layers")
+              if getattr(cfg, "n_enc_layers" if s == "enc_layers"
+                         else "n_layers")]
+    if not trip_counts:
+        return _lm_step(cfg, spec, grid, {}, remat, moe_impl)
+    seen: dict[tuple, dict] = {}
+
+    def at(depths: dict[str, int]) -> dict[tuple, float]:
+        key = tuple(sorted(depths.items()))
+        if key not in seen:
+            seen[key] = _flat(_lm_step(cfg, spec, grid, depths, remat,
+                                       moe_impl))
+        return seen[key]
+
+    one = {s: 1 for s in stacks}
+    total = dict(at(one))
+    for stack in stacks:
+        kinds = layer_kinds(cfg, grid, stack, spec.kind == "train")
+        for kind, n in Counter(kinds[1:]).items():
+            j = kinds.index(kind, 1)
+            hi, lo = at({**one, stack: j + 1}), at({**one, stack: j})
+            for path in hi.keys() | lo.keys():
+                total[path] = (total.get(path, 0)
+                               + n * (hi.get(path, 0) - lo.get(path, 0)))
+    out = _nest({p: v for p, v in total.items() if v or p[0] != "ops"})
+    out.setdefault("ops", {})
+    out["collectives"].setdefault("by_axis", {})
+    return out
+
+
+def counted_fields(s: dict, per: str) -> dict:
+    """The record fields of a counted step's summary
+    (``StepCounter.summary``): ``repro``'s ``flops_per_device``,
+    ``bytes_per_device``, ``ops`` and ``collectives`` (``repro``'s shape,
+    with the port's ``by_axis`` and ``per``)."""
+    return {"flops_per_device": s["flops"], "bytes_per_device": s["bytes"],
+            "ops": s["ops"], "collectives": dict(s["collectives"], per=per)}
+
+
+# ---------------------------------------------------------------------------
 # Cells and the CLI
 # ---------------------------------------------------------------------------
 
@@ -710,8 +892,18 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         kind = RESCAL_SHAPE.kind
         plan = plan_rescal(cfg, data, pods, comm_dtype=rescal_comm_dtype)
         model_fl = rescal_model_flops(cfg)
-        extra = {"collectives": plan.pop("collectives"),
-                 "schedule": cfg.schedule}
+        ledger = plan.pop("collectives")
+        extra = {"schedule": cfg.schedule}
+
+        def count_step():
+            c = count_rescal(cfg, data, pods, plan["rank"],
+                             comm_dtype=rescal_comm_dtype)
+            n = c.collectives_summary()["total"]["count"]
+            if n != ledger["count"]:
+                raise RuntimeError(
+                    f"{arch}: the counted step issues {n} collectives per "
+                    f"MU iteration, the ledger {ledger['count']}")
+            return counted_fields(c.summary(), "MU iteration")
     else:
         spec = SHAPES[shape]
         ok, reason = cfg.supports(spec)
@@ -721,17 +913,36 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         plan = plan_lm(cfg, spec, pods, data, model, remat=remat,
                        moe_impl=moe_impl)
         model_fl = model_lib.model_flops(cfg, spec)
-        extra = {"collectives": None, "remat": remat, "moe_impl": moe_impl}
+        extra = {"remat": remat, "moe_impl": moe_impl}
         if "refused" in plan:
             return dict(base, skipped=False, kind=kind,
                         refused=plan["refused"],
                         model_flops_global=model_fl, memory=None,
-                        **{k: None for k in XLA_ONLY}, **extra)
-    return dict(base, skipped=False, kind=kind,
-                plan_s=round(time.perf_counter() - t0, 3),
-                **{k: None for k in XLA_ONLY},
-                model_flops_global=model_fl, memory=plan.pop("memory"),
-                **extra, **plan)
+                        **{k: None for k in XLA_ONLY + COUNTED}, **extra)
+
+        def count_step():
+            return counted_fields(
+                count_lm(cfg, spec, pods, data, model, plan["rank"],
+                         remat=remat, moe_impl=moe_impl), f"{kind} step")
+    plan_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    try:
+        counted, why = count_step(), None
+    except (RuntimeError, NotImplementedError, ValueError) as e:
+        if isinstance(cfg, RescalConfig):
+            raise
+        # a step that cannot run on meta (a data-dependent shape): no
+        # count, with the reason, never 0
+        counted = dict.fromkeys(COUNTED)
+        why = f"{type(e).__name__}: {e}"
+    out = dict(base, skipped=False, kind=kind, plan_s=round(plan_s, 3),
+               count_s=round(time.perf_counter() - t1, 3),
+               **{k: None for k in XLA_ONLY}, **counted,
+               model_flops_global=model_fl, memory=plan.pop("memory"),
+               **extra, **plan)
+    if why is not None:
+        out["count_error"] = why
+    return out
 
 
 def all_cells() -> list[tuple[str, str]]:
@@ -754,8 +965,9 @@ def _write_cell(job, out_dir: Path, **kw) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="One rank's memory plan of each (arch x shape) cell on "
-                    "the production grids (no device, no process group).")
+        description="One rank's memory plan and counted step of each "
+                    "(arch x shape) cell on the production grids (no "
+                    "device, no process group).")
     ap.add_argument("--arch")
     ap.add_argument("--shape", default="mu_iter")
     ap.add_argument("--multi-pod", action="store_true")
@@ -778,9 +990,14 @@ def main(argv=None) -> int:
         out_dir = Path(args.out or "artifacts/dryrun")
         meshes = [False, True] if args.both_meshes else [args.multi_pod]
         jobs = [(a, s, mp) for mp in meshes for (a, s) in all_cells()]
-        with ThreadPoolExecutor(max_workers=max(args.jobs, 1)) as ex:
-            for msg in ex.map(lambda j: _write_cell(j, out_dir, **kw),
-                              jobs):
+        # the train steps first, the longest to count; processes:
+        # counting a step on meta is Python-bound
+        jobs.sort(key=lambda j: j[1] != "train_4k")
+        with ProcessPoolExecutor(
+                max_workers=max(args.jobs, 1),
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            for msg in ex.map(functools.partial(_write_cell, out_dir=out_dir,
+                                                **kw), jobs):
                 print(msg, flush=True)
         return 0
     if not args.arch:

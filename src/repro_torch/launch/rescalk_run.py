@@ -358,11 +358,18 @@ def _write_trace_artifacts(trace_dir, tracer, buf, report, operand, args):
             else operand
         ks = sorted({k for rec in (report.units if report else [])
                      for k in obs_costs.unit_ks(rec)})
-        if ks:
-            rows = obs_costs.cost_table(report.units, op,
-                                        iters=args.iters)
-            parts += ["", obs_costs.format_cost_table(rows)]
+        # first: the ledger reads the allocator's peak, the sweep's own
         ledger = _memory_ledger(tracer, report, operand, op, ks, args)
+        if ks:
+            # the run's own MU step under its kernel policy, counted on
+            # the operand (one iteration per rank; on meta tensors the
+            # ops would import torch._dynamo and sympy, seconds at every
+            # traced run's exit)
+            measured = obs_costs.measure_mu_costs(
+                op, ks, policy=_config(args).kernel)
+            rows = obs_costs.cost_table(report.units, op, iters=args.iters,
+                                        measured=measured)
+            parts += ["", obs_costs.format_cost_table(rows)]
         ledger.save(os.path.join(trace_dir, "memory.json"))
         parts += ["", ledger.summarize()]
         artifacts += " memory.json"

@@ -11,7 +11,10 @@ block, the banded ``sliding_window_attention`` and its ring-buffer decode
 in XLA elsewhere, its oracle.  So here: on a CUDA tensor
 ``chunked_attention`` launches the hand-written CUDA kernel
 (``kernels.ops.flash_attention``); on the CPU, or with ``impl="ref"``,
-it runs ``repro``'s chunked algorithm in PyTorch.  ``cross_attention``
+it runs ``repro``'s chunked algorithm in PyTorch.  Under a
+``launch.step_costs`` counter, meta tensors take the kernel's route, and
+the CPU's "auto" route (the kernel's plain version) is counted as that
+route, as a kernel wrapper's CPU path is.  ``cross_attention``
 and ``mla_prefill`` go through it.  MLA's q/k head dim (d_nope + d_rope)
 and v head dim (d_v) differ and need not be one the kernel builds: on
 the kernel's route q, k and v are written into zero-padded buffers of
@@ -43,6 +46,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.policy import IMPLS
+from repro_torch.launch import step_costs
 
 from .layers import apply_rope, dense_init, param, rmsnorm
 
@@ -81,16 +85,23 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal=causal, q_offset=q_offset, sm_scale=sm_scale,
             impl="cuda")
         return out.transpose(1, 2)
-    return _chunked(q, k, v, causal=causal, q_offset=q_offset, chunk=chunk,
-                    q_chunk=q_chunk, sm_scale=sm_scale)
+    kw = dict(causal=causal, q_offset=q_offset, chunk=chunk,
+              q_chunk=q_chunk, sm_scale=sm_scale)
+    if impl == "auto":       # the kernel's route, its plain version here
+        return step_costs.as_card(
+            lambda q, k, v: chunked_attention(q, k, v, impl=impl, **kw),
+            lambda q, k, v: _chunked(q, k, v, **kw), q, k, v)
+    return _chunked(q, k, v, **kw)
 
 
 def on_kernel(impl: str, x: torch.Tensor) -> bool:
     """Whether a full-sequence attention call on ``x`` with ``impl`` takes
-    the CUDA kernel's route (``chunked_attention``'s rule)."""
+    the CUDA kernel's route (``chunked_attention``'s rule); meta tensors
+    take it as CUDA tensors do (``launch.step_costs``)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    return impl == "cuda" or (impl == "auto" and x.device.type == "cuda")
+    return impl == "cuda" or (impl == "auto"
+                              and x.device.type in ("cuda", "meta"))
 
 
 def _chunked(q, k, v, *, causal, q_offset, chunk, q_chunk, sm_scale):
@@ -715,11 +726,19 @@ def mla_attend(q_nope, q_rope, k_nope, k_rope, v, *, q_chunk: int,
         vp[..., :dv] = v
         return chunked_attention(q, k, vp, causal=True, q_offset=q_offset,
                                  sm_scale=scale, impl=impl)[..., :dv]
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, Skv, H, dr)],
-                  dim=-1)
-    return chunked_attention(q, k, v, causal=True, q_offset=q_offset,
-                             q_chunk=q_chunk, sm_scale=scale, impl="ref")
+    def plain(q_nope, q_rope, k_nope, k_rope, v):
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, Skv, H, dr)],
+                      dim=-1)
+        return chunked_attention(q, k, v, causal=True, q_offset=q_offset,
+                                 q_chunk=q_chunk, sm_scale=scale, impl="ref")
+
+    parts = (q_nope, q_rope, k_nope, k_rope, v)
+    if impl == "auto":       # the kernel's route, its plain version here
+        return step_costs.as_card(
+            lambda *p: mla_attend(*p, q_chunk=q_chunk, impl=impl,
+                                  q_offset=q_offset), plain, *parts)
+    return plain(*parts)
 
 
 def _touched_heads(w: torch.Tensor, sharded: bool, tp, width: int):

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch import step_costs
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
                scale: float | None = None) -> torch.Tensor:
@@ -59,8 +61,9 @@ def _freqs_on(head_dim: int, theta: float, device: torch.device
               ) -> torch.Tensor:
     """``rope_freqs`` moved to ``device`` once: a copy from pageable host
     memory waits for the device's stream, which would stall every decode
-    step twice per layer."""
-    return rope_freqs(head_dim, theta).to(device)
+    step twice per layer.  Set-up, so not counted (``launch.step_costs``)."""
+    with step_costs.uncounted():
+        return rope_freqs(head_dim, theta).to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -1,30 +1,38 @@
 """Cost accounting — the paper's complexity model vs what actually ran
-(port of ``repro/obs/costs.py``, the model half).
+(port of ``repro/obs/costs.py``).
 
-Two ingredients, joined per sweep unit:
+Three ingredients, joined per sweep unit:
 
 * **model**: leading-order per-iteration FLOP / HBM-byte counts for one MU
   iteration of one ensemble member (`dense_mu_cost`, `bcsr_mu_cost`) — the
   paper's O(m n^2 k) dense / O(nnz k) sparse complexity claims, written
   down as numbers;
+* **counted**: the port's own one-iteration, one-member MU step
+  (`mu_program`) run on the operand under
+  ``launch.step_costs.StepCounter`` (`measure_mu_costs`), ``repro``'s
+  XLA cost analysis of its AOT-compiled program in the port: every aten
+  op, every kernel launch's own work, the same on the card, the CPU and
+  meta tensors (where nothing is allocated);
 * **wall-clock**: the scheduler's measured per-unit seconds.
 
 `cost_table` produces one row per executed unit with achieved GFLOP/s
-(model flops / measured seconds).  ``repro``'s third ingredient, XLA's
-cost analysis of a compiled one-iteration program (``measure_mu_costs``),
-has no counterpart yet: the port compiles no XLA program, so the table's
-``xla_GF`` and ``mdl/xla`` columns print "-".  Everything here runs on the
-host after the sweep.
+(model flops / measured seconds) and the model-vs-counted flop ratio —
+the check that the implementation concurs with the theoretical
+complexities.  The counted columns keep ``repro``'s names (``xla_gflop``,
+``model_vs_xla``, ``xla_GF``, ``mdl/xla``): in the port they hold the
+counted step.  Everything here runs on the host after the sweep.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 __all__ = [
     "bcsr_mu_cost",
     "cost_table",
     "dense_mu_cost",
     "format_cost_table",
+    "measure_mu_costs",
+    "mu_program",
     "operand_mu_cost",
     "unit_ks",
 ]
@@ -63,6 +71,78 @@ def operand_mu_cost(operand: Any, k: int,
     return dense_mu_cost(n, m, k, dtype_bytes)
 
 
+def mu_program(operand: Any, k: int, *, eps: float | None = None,
+               policy=None) -> Callable[[], Any]:
+    """The one-iteration, one-member MU step at rank ``k`` (``repro``'s
+    ``aot_mu_program``): a callable that runs it on ``operand``, with
+    its factors allocated on the operand's device.  On a meta operand
+    (``BCSR.on_meta()``, a meta tensor) nothing is allocated; on the card
+    it runs one iteration and counts the same (``launch.step_costs``)
+    with no meta op, whose Python kernels import ``torch._dynamo`` and
+    sympy (seconds, once per process).  A dense operand ([r,] m, n, n)
+    runs ``core.rescal.mu_step_batched``, a BCSR
+    ``core.sparse.sparse_mu_step`` (the first member of a member stack
+    each), both under ``policy`` (default: the fused kernels, the card's
+    path)."""
+    import torch
+
+    from repro_torch.core.rescal import EPS_DEFAULT, RescalState, \
+        mu_step_batched
+    from repro_torch.core.sparse import BCSR, sparse_mu_step
+    from repro_torch.kernels.policy import KernelPolicy
+
+    policy = policy or KernelPolicy(use_fused=True)
+    eps = EPS_DEFAULT if eps is None else eps
+    if isinstance(operand, BCSR):
+        sp = operand.with_data(operand.data[0]) if operand.batch_shape \
+            else operand
+        dt, m, n, dev = sp.data.dtype, sp.m, sp.n, sp.data.device
+
+        def step():
+            A = torch.empty((n, k), dtype=dt, device=dev)
+            R = torch.empty((m, k, k), dtype=dt, device=dev)
+            return sparse_mu_step(sp, A, R, eps, policy=policy)
+        return step
+    m, n = operand.shape[-3], operand.shape[-1]
+    X = operand if operand.dim() == 3 else operand.reshape(-1, m, n, n)[0]
+    dt, dev = X.dtype, X.device
+
+    def step():
+        state = RescalState(A=torch.empty((n, k), dtype=dt, device=dev),
+                            R=torch.empty((m, k, k), dtype=dt, device=dev),
+                            step=0)
+        return mu_step_batched(X, state, eps, policy=policy)
+    return step
+
+
+def measure_mu_costs(operand: Any, ks: list[int], *,
+                     eps: float | None = None,
+                     policy=None) -> dict[int, dict[str, float]]:
+    """The counted cost of `mu_program` per rank, ``repro``'s keys:
+    {k: {"flops", "bytes accessed"}}; {} for a rank the card's kernels
+    refuse under a policy that reaches them (k above ``MAX_K``, or a BCSR
+    block size they do not take), as ``repro`` leaves a rank without an
+    analysis, and callers treat the column as optional."""
+    from repro_torch.kernels._launch import MAX_K, block_size_ok
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch.step_costs import StepCounter
+
+    policy = policy or KernelPolicy(use_fused=True)
+    bs = getattr(operand, "bs", None)
+    on_kernels = policy.use_fused and policy.impl != "ref"
+    refused = on_kernels and bs is not None and not block_size_ok(bs)
+    out: dict[int, dict[str, float]] = {}
+    for k in ks:
+        if refused or (on_kernels and k > MAX_K):
+            out[k] = {}
+            continue
+        step = mu_program(operand, k, eps=eps, policy=policy)
+        with StepCounter() as c:
+            step()
+        out[k] = {"flops": float(c.flops), "bytes accessed": float(c.bytes)}
+    return out
+
+
 def unit_ks(rec: Any) -> list[int]:
     """Ranks of every (k, q) cell a unit record covers (grid chunks carry
     explicit cells; per-k units repeat k per member)."""
@@ -77,7 +157,8 @@ def cost_table(records: list[Any], operand: Any, *, iters: int,
                dtype_bytes: int = 4) -> list[dict[str, Any]]:
     """One row per unit record: model flops/bytes for all its cells over
     all iterations, achieved GFLOP/s from measured seconds, and (when
-    `measured` has per-rank flops) the model-vs-measured ratio."""
+    `measured` has per-rank flops, `measure_mu_costs`) the model-vs-counted
+    ratio."""
     rows: list[dict[str, Any]] = []
     for rec in records:
         ks = unit_ks(rec)

@@ -11,7 +11,9 @@ that grid, stopped and resumed from its checkpoints; and one train step
 of the reduced llama3.2-1b on the card, with the guard that keeps
 gradients off the attention kernel; and the LM zoo's other families
 (MoE, MLA, SSM, hybrid, enc-dec, VLM) reduced on the card, with the
-kernel's MLA (padded) and cross-attention shapes.
+kernel's MLA (padded) and cross-attention shapes; and a fused MU
+iteration counted on the card against its count on meta tensors
+(``launch.step_costs``).
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one.  The file imports neither ``jax`` nor ``repro``, so it runs on a
@@ -1052,3 +1054,64 @@ def test_train_step_on_card_refuses_kernel_grads(cuda):
     with torch.no_grad():
         model(batch["tokens"].to(cuda))               # serving: the kernel
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("schedule", ["batched", "sliced"])
+def test_step_count_on_card_equals_meta(cuda, sparse, schedule):
+    """One fused MU iteration on a 1 x 1 recording grid counted on the
+    card (``launch.step_costs``) equals its count on meta tensors, in
+    flops, bytes, collectives and the op histogram, and counts the
+    kernels it launched."""
+    from repro_torch.dist.engine import DistRescalConfig, make_mu_step
+    from repro_torch.dist.sharding import Grid
+    from repro_torch.launch.step_costs import StepCounter
+    m, n, k, bs = 3, 256, 5, 128
+    gen = torch.Generator().manual_seed(0)
+    counts = {}
+    for dev in (cuda, torch.device("meta")):
+        if sparse:
+            idx = torch.tensor([0, 1], dtype=torch.int32)
+            X = tsp.BCSR(data=torch.rand((m, 2, bs, bs), generator=gen),
+                         block_rows=idx, block_cols=idx, n=n)
+            X = (X.on_meta() if dev.type == "meta" else tsp.BCSR(
+                data=X.data.to(dev), block_rows=idx.to(dev),
+                block_cols=idx.to(dev), n=n))
+        else:
+            X = torch.rand((m, n, n), generator=gen).to(dev)
+        A = torch.rand((n, k), generator=gen).to(dev)
+        R = torch.rand((m, k, k), generator=gen).to(dev)
+        grid = Grid.at_rank(0, 1, 1, 1, dev, record=True)
+        step = make_mu_step(grid, DistRescalConfig(
+            schedule=schedule, kernel=KernelPolicy(use_fused=True)))
+        step(X, A, R)                       # the pattern's cached index
+        ops.reset_launch_counts()
+        with StepCounter() as c:
+            step(X, A, R)
+        counts[dev.type] = (c.summary(), ops.launch_counts())
+    assert counts["cuda"][0] == counts["meta"][0]
+    kernel = "bcsr_xa_xta" if sparse else "fused_xa_xtb"
+    assert counts["cuda"][1][kernel] == \
+        counts["cuda"][0]["ops"][f"kernel:{kernel}"] > 0
+    assert counts["meta"][1][kernel] == 0          # meta launches nothing
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_mu_program_on_card_equals_meta(cuda, sparse):
+    """The traced CLI's count: the one-member MU step run on the card's
+    operand (``measure_mu_costs``) counts what it counts on meta tensors
+    of the operand's shapes."""
+    from repro_torch.obs import costs as obs_costs
+    m, n, bs = 3, 256, 128
+    gen = torch.Generator().manual_seed(0)
+    if sparse:
+        idx = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+        X = tsp.BCSR(data=torch.rand((m, 2, bs, bs), generator=gen).to(cuda),
+                     block_rows=idx, block_cols=idx, n=n)
+    else:
+        X = torch.rand((m, n, n), generator=gen).to(cuda)
+    card = obs_costs.measure_mu_costs(X, [4, 10])
+    meta = (X.on_meta() if sparse else
+            torch.empty(X.shape, dtype=X.dtype, device="meta"))
+    assert card == obs_costs.measure_mu_costs(meta, [4, 10])
+    assert card[4]["flops"] > 0

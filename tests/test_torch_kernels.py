@@ -421,12 +421,18 @@ def test_score_topk_plan_refuses_what_the_kernel_cannot_take():
 
 
 def test_score_topk_refuses_a_device_that_is_not_cuda():
-    """Tensors that are not on the CPU go to the kernel, which takes only
-    CUDA ones: a meta tensor reaches the device check and raises."""
+    """Tensors that are not all on the CPU go to the kernel, which takes
+    only CUDA ones (or meta ones, shapes only, counted up to the launch:
+    ``launch.step_costs``): a meta V beside a CPU A reaches the device
+    check and raises; meta V and A give the output shapes and launch
+    nothing."""
     from repro_torch.kernels import score_topk as st
     V, A = torch.rand(4, 8, device="meta"), torch.rand(50, 8, device="meta")
     with pytest.raises(ValueError, match="one CUDA device"):
-        st.score_topk(V, A, topk=10)
+        st.score_topk(V, torch.rand(50, 8), topk=10)
+    s, i = st.score_topk(V, A, topk=10)
+    assert s.is_meta and s.shape == i.shape == (4, 10)
+    assert i.dtype == torch.int32
     assert st.launch_count() == 0
 
 
@@ -455,8 +461,8 @@ def test_mu_update_a_cached_validation_raises_on_every_bad_call():
                 tmu.checked(*args)
         assert tmu.checked(A, Num, S) is good
     meta = [x.to("meta") for x in (A, Num, S)]
-    with pytest.raises(ValueError, match="CUDA device"):
-        tmu.mu_update_a(*meta, 1e-16)
+    out = tmu.mu_update_a(*meta, 1e-16)     # shapes only (step_costs)
+    assert out.is_meta and out.shape == A.shape
     with pytest.raises(ValueError, match="CUDA device"):
         tmu.mu_update_a(A.to("meta"), Num, S, 1e-16)
     assert tmu.launch_count() == 0
