@@ -33,6 +33,20 @@ fused     — ``cfg.kernel.use_fused`` routes the two X-sided products of
             contraction (``repro`` contracts X^T with A R instead), as
             ``core.sparse.sparse_mu_step`` does on one device.
 
+Traced (``obs.trace``): each iteration is a ``mu/iter`` span whose
+closing record counts the grid's ``collectives`` made inside it (counted
+only while tracing).  Its children
+split it so that every launch falls under exactly one: ``mu/gram`` (A^(j),
+G and its psum; in the sliced bodies also the transpose, the copy of R
+and the zero accumulators), ``mu/products`` (the X-sided products,
+the BCSR wrapper's operand tilings included), ``mu/r_update`` (paper
+lines 5-9: the XA psum, A^T XA and its psum, the R update) and
+``mu/a_update`` (lines 10-21).  In the sliced bodies each slice is a
+``mu/slice`` span (arg ``t``) around its own products, R update and A
+update terms, and the closing ``a_ratio`` is one more ``mu/a_update``
+under ``mu/iter``.  Every collective is a ``grid/<kind>`` span inside
+one of these (``dist/sharding.py``).
+
 Not ported: ``make_gspmd_step`` (XLA's own schedule under sharding
 constraints, a comparison with no torch counterpart) and the historical
 four-factory names.
@@ -40,6 +54,7 @@ four-factory names.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -53,6 +68,7 @@ from repro_torch.core.rescal import (EPS_DEFAULT, RescalState, a_denominator,
 from repro_torch.core.sparse import (BCSR, single_product, sparse_products,
                                      sqnorm)
 from repro_torch.kernels.policy import KernelPolicy
+from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import record_metrics, update_ratio
 
 from .sharding import COL_AXIS, ROW_AXIS, Grid
@@ -71,100 +87,135 @@ class DistRescalConfig:
         check_schedule(self.schedule)
 
 
+def _iteration(body: Callable) -> Callable:
+    """``body`` inside a ``mu/iter`` span whose closing record carries the
+    ``collectives`` made inside it; untraced, the body alone."""
+
+    @functools.wraps(body)
+    def it(grid: Grid, Xl, Ai, R, cfg: DistRescalConfig):
+        if obs.current() is None:
+            return body(grid, Xl, Ai, R, cfg)
+        c0 = grid.collectives
+        with obs.span("mu/iter") as closing:
+            out = body(grid, Xl, Ai, R, cfg)
+            closing["collectives"] = grid.collectives - c0
+        return out
+
+    return it
+
+
+@_iteration
 def _mu_iter_batched(grid: Grid, Xl, Ai, R, cfg: DistRescalConfig):
     """One MU iteration, all m slices per collective (paper Alg. 3 math,
     O(1) collectives)."""
     cd = cfg.comm_dtype
     eps = cfg.eps
-    Aj = grid.diag_row_to_col(Ai, cd)
-    G = grid.psum_cast(gram(Ai), ROW_AXIS, cd)                   # line 3
+    with obs.span("mu/gram"):
+        Aj = grid.diag_row_to_col(Ai, cd)
+        G = grid.psum_cast(gram(Ai), ROW_AXIS, cd)               # line 3
 
-    if cfg.kernel.use_fused:
-        # X^(i,j) A^(j) (row-indexed) and X^(i,j)^T A^(i) (col-indexed)
-        XA_loc, XTA_loc = dense_products(Xl, Aj, Ai, cfg.kernel)
-        XA = grid.psum_cast(XA_loc, COL_AXIS, cd)                 # line 5
-    else:
-        XA = grid.psum_cast(x_times(Xl, Aj), COL_AXIS, cd)
-        XTA_loc = None
+    with obs.span("mu/products"):
+        if cfg.kernel.use_fused:
+            # X^(i,j) A^(j) (row-indexed) and X^(i,j)^T A^(i)
+            # (col-indexed)
+            XA_loc, XTA_loc = dense_products(Xl, Aj, Ai, cfg.kernel)
+        else:
+            XA_loc, XTA_loc = x_times(Xl, Aj), None
 
-    # ---- R update (paper lines 6-9), batched over m ----
-    ATXA = grid.psum_cast(atxa(Ai, XA), ROW_AXIS, cd)
-    R = r_update(R, ATXA, G, eps)
+    # ---- R update (paper lines 5-9), batched over m ----
+    with obs.span("mu/r_update"):
+        XA = grid.psum_cast(XA_loc, COL_AXIS, cd)                # line 5
+        ATXA = grid.psum_cast(atxa(Ai, XA), ROW_AXIS, cd)
+        R = r_update(R, ATXA, G, eps)
 
     # ---- A update (paper lines 10-21), batched over m ----
-    XART = xart(XA, R)                                           # line 10
-    if XTA_loc is not None:
-        # (X^T A) R == X^T (A R): the fused pass already produced X^T A,
-        # so only a k-thin contraction with the fresh R remains — X is not
-        # read again.  The psum after the contraction keeps the payload at
-        # (nc, k).
-        XTAR_j = grid.psum_cast(
-            torch.einsum("...mja,...mab->...jb", XTA_loc, R), ROW_AXIS, cd)
-    else:
-        AR = Ai.unsqueeze(-3) @ R                                # line 11
-        XTAR_j = grid.psum_cast(xt_times(Xl, AR).sum(-3), ROW_AXIS, cd)
-    XTAR = grid.diag_col_to_row(XTAR_j, cd)                      # 12-13
-    num = XART + XTAR                                            # line 14
-    S = a_denominator(R, G)                                      # 15-19
-    Ai_new = a_ratio(Ai, num, S, eps, cfg.kernel)                # line 21
-    Ai_new, R = sanitize_state(Ai_new, R,
-                               where="dist.engine._mu_iter_batched",
-                               enabled=cfg.sanitize)
-    if cfg.trace_metrics:
-        record_metrics("dist.engine._mu_iter_batched",
-                       a_norm=torch.linalg.vector_norm(Ai_new, dim=(-2, -1)),
-                       r_norm=torch.linalg.vector_norm(R, dim=(-3, -2, -1)),
-                       mu_ratio=update_ratio(Ai, Ai_new))
+    with obs.span("mu/a_update"):
+        XART = xart(XA, R)                                       # line 10
+        if XTA_loc is not None:
+            # (X^T A) R == X^T (A R): the fused pass already produced
+            # X^T A, so only a k-thin contraction with the fresh R
+            # remains — X is not read again.  The psum after the
+            # contraction keeps the payload at (nc, k).
+            XTAR_j = grid.psum_cast(
+                torch.einsum("...mja,...mab->...jb", XTA_loc, R),
+                ROW_AXIS, cd)
+        else:
+            AR = Ai.unsqueeze(-3) @ R                            # line 11
+            XTAR_j = grid.psum_cast(xt_times(Xl, AR).sum(-3), ROW_AXIS,
+                                    cd)
+        XTAR = grid.diag_col_to_row(XTAR_j, cd)                  # 12-13
+        num = XART + XTAR                                        # line 14
+        S = a_denominator(R, G)                                  # 15-19
+        Ai_new = a_ratio(Ai, num, S, eps, cfg.kernel)            # line 21
+        Ai_new, R = sanitize_state(Ai_new, R,
+                                   where="dist.engine._mu_iter_batched",
+                                   enabled=cfg.sanitize)
+        if cfg.trace_metrics:
+            record_metrics(
+                "dist.engine._mu_iter_batched",
+                a_norm=torch.linalg.vector_norm(Ai_new, dim=(-2, -1)),
+                r_norm=torch.linalg.vector_norm(R, dim=(-3, -2, -1)),
+                mu_ratio=update_ratio(Ai, Ai_new))
     return Ai_new, R
 
 
+@_iteration
 def _mu_iter_sliced(grid: Grid, Xl, Ai, R, cfg: DistRescalConfig):
     """One MU iteration with an explicit loop over the m slices — the
     paper's schedule with per-slice collectives (O(m) of them).  With the
     fused policy each slice is one kernel launch (m = 1)."""
     cd = cfg.comm_dtype
     eps = cfg.eps
-    Aj = grid.diag_row_to_col(Ai, cd)
-    G = grid.psum_cast(gram(Ai), ROW_AXIS, cd)                   # line 3
-    AiT = Ai.transpose(-1, -2)
-    R = R.clone()
-    num = torch.zeros_like(Ai)
-    S = torch.zeros_like(G)
+    with obs.span("mu/gram"):
+        Aj = grid.diag_row_to_col(Ai, cd)
+        G = grid.psum_cast(gram(Ai), ROW_AXIS, cd)               # line 3
+        AiT = Ai.transpose(-1, -2)
+        R = R.clone()
+        num = torch.zeros_like(Ai)
+        S = torch.zeros_like(G)
     for t in range(Xl.shape[-3]):
-        Xt = Xl[..., t:t + 1, :, :]                 # (..., 1, nr, nc)
-        Rt = R[..., t, :, :]
-        if cfg.kernel.use_fused:
-            XA_loc, XTA_loc = dense_products(Xt, Aj, Ai, cfg.kernel)
-        else:
-            XA_loc, XTA_loc = x_times(Xt, Aj), None
-        XA = grid.psum_cast(XA_loc[..., 0, :, :], COL_AXIS, cd)  # line 5
-        ATXA = grid.psum_cast(AiT @ XA, ROW_AXIS, cd)            # line 6
-        Rt = Rt * ATXA / (G @ Rt @ G + eps)                      # 7-9
-        R[..., t, :, :] = Rt
-        RtT = Rt.transpose(-1, -2)
-        XART = XA @ RtT                                          # line 10
-        if XTA_loc is not None:
-            XTAR_j = grid.psum_cast(XTA_loc[..., 0, :, :] @ Rt, ROW_AXIS,
-                                    cd)                          # line 12
-        else:
-            AR = (Ai @ Rt).unsqueeze(-3)                         # line 11
-            XTAR_j = grid.psum_cast(xt_times(Xt, AR)[..., 0, :, :],
-                                    ROW_AXIS, cd)                # line 12
-        XTAR = grid.diag_col_to_row(XTAR_j, cd)                  # line 13
-        num = num + XART + XTAR                                  # line 14
-        S = S + Rt @ G @ RtT + RtT @ G @ Rt                      # 15-20
-    Ai_new = a_ratio(Ai, num, S, eps, cfg.kernel)                # line 21
-    Ai_new, R = sanitize_state(Ai_new, R,
-                               where="dist.engine._mu_iter_sliced",
-                               enabled=cfg.sanitize)
-    if cfg.trace_metrics:
-        record_metrics("dist.engine._mu_iter_sliced",
-                       a_norm=torch.linalg.vector_norm(Ai_new, dim=(-2, -1)),
-                       r_norm=torch.linalg.vector_norm(R, dim=(-3, -2, -1)),
-                       mu_ratio=update_ratio(Ai, Ai_new))
+        with obs.span("mu/slice", t=t):
+            with obs.span("mu/products"):
+                Xt = Xl[..., t:t + 1, :, :]             # (..., 1, nr, nc)
+                if cfg.kernel.use_fused:
+                    XA_loc, XTA_loc = dense_products(Xt, Aj, Ai, cfg.kernel)
+                else:
+                    XA_loc, XTA_loc = x_times(Xt, Aj), None
+            with obs.span("mu/r_update"):
+                XA = grid.psum_cast(XA_loc[..., 0, :, :], COL_AXIS,
+                                    cd)                          # line 5
+                ATXA = grid.psum_cast(AiT @ XA, ROW_AXIS, cd)    # line 6
+                Rt = R[..., t, :, :]
+                Rt = Rt * ATXA / (G @ Rt @ G + eps)              # 7-9
+                R[..., t, :, :] = Rt
+            with obs.span("mu/a_update"):
+                RtT = Rt.transpose(-1, -2)
+                XART = XA @ RtT                                  # line 10
+                if XTA_loc is not None:
+                    XTAR_j = grid.psum_cast(XTA_loc[..., 0, :, :] @ Rt,
+                                            ROW_AXIS, cd)        # line 12
+                else:
+                    AR = (Ai @ Rt).unsqueeze(-3)                 # line 11
+                    XTAR_j = grid.psum_cast(xt_times(Xt, AR)[..., 0, :, :],
+                                            ROW_AXIS, cd)        # line 12
+                XTAR = grid.diag_col_to_row(XTAR_j, cd)          # line 13
+                num = num + XART + XTAR                          # line 14
+                S = S + Rt @ G @ RtT + RtT @ G @ Rt              # 15-20
+    with obs.span("mu/a_update"):
+        Ai_new = a_ratio(Ai, num, S, eps, cfg.kernel)            # line 21
+        Ai_new, R = sanitize_state(Ai_new, R,
+                                   where="dist.engine._mu_iter_sliced",
+                                   enabled=cfg.sanitize)
+        if cfg.trace_metrics:
+            record_metrics(
+                "dist.engine._mu_iter_sliced",
+                a_norm=torch.linalg.vector_norm(Ai_new, dim=(-2, -1)),
+                r_norm=torch.linalg.vector_norm(R, dim=(-3, -2, -1)),
+                mu_ratio=update_ratio(Ai, Ai_new))
     return Ai_new, R
 
 
+@_iteration
 def _mu_iter_batched_sparse(grid: Grid, spl: BCSR, Ai, R,
                             cfg: DistRescalConfig):
     """One batched MU iteration on a shard-local BCSR: the dense batched
@@ -172,32 +223,38 @@ def _mu_iter_batched_sparse(grid: Grid, spl: BCSR, Ai, R,
     pass over the stored blocks under the fused policy)."""
     cd = cfg.comm_dtype
     eps = cfg.eps
-    Aj = grid.diag_row_to_col(Ai, cd)
-    G = grid.psum_cast(gram(Ai), ROW_AXIS, cd)                   # line 3
-    XA_loc, XTA_loc = sparse_products(spl, Aj, Ai, policy=cfg.kernel)
-    XA = grid.psum_cast(XA_loc, COL_AXIS, cd)                    # line 5
-    ATXA = grid.psum_cast(atxa(Ai, XA), ROW_AXIS, cd)
-    R = r_update(R, ATXA, G, eps)                                # 6-9
-    XART = xart(XA, R)                                           # line 10
-    # (X^T A) R == X^T (A R): the block pass already gave X^T A, so only
-    # a k-thin contraction with the fresh R remains
-    XTAR_j = grid.psum_cast(
-        torch.einsum("...mja,...mab->...jb", XTA_loc, R), ROW_AXIS, cd)
-    XTAR = grid.diag_col_to_row(XTAR_j, cd)                      # 12-13
-    num = XART + XTAR                                            # line 14
-    S = a_denominator(R, G)                                      # 15-19
-    Ai_new = a_ratio(Ai, num, S, eps, cfg.kernel)                # line 21
-    Ai_new, R = sanitize_state(Ai_new, R,
-                               where="dist.engine._mu_iter_batched_sparse",
-                               enabled=cfg.sanitize)
-    if cfg.trace_metrics:
-        record_metrics("dist.engine._mu_iter_batched_sparse",
-                       a_norm=torch.linalg.vector_norm(Ai_new, dim=(-2, -1)),
-                       r_norm=torch.linalg.vector_norm(R, dim=(-3, -2, -1)),
-                       mu_ratio=update_ratio(Ai, Ai_new))
+    with obs.span("mu/gram"):
+        Aj = grid.diag_row_to_col(Ai, cd)
+        G = grid.psum_cast(gram(Ai), ROW_AXIS, cd)               # line 3
+    with obs.span("mu/products"):
+        XA_loc, XTA_loc = sparse_products(spl, Aj, Ai, policy=cfg.kernel)
+    with obs.span("mu/r_update"):
+        XA = grid.psum_cast(XA_loc, COL_AXIS, cd)                # line 5
+        ATXA = grid.psum_cast(atxa(Ai, XA), ROW_AXIS, cd)
+        R = r_update(R, ATXA, G, eps)                            # 6-9
+    with obs.span("mu/a_update"):
+        XART = xart(XA, R)                                       # line 10
+        # (X^T A) R == X^T (A R): the block pass already gave X^T A, so
+        # only a k-thin contraction with the fresh R remains
+        XTAR_j = grid.psum_cast(
+            torch.einsum("...mja,...mab->...jb", XTA_loc, R), ROW_AXIS, cd)
+        XTAR = grid.diag_col_to_row(XTAR_j, cd)                  # 12-13
+        num = XART + XTAR                                        # line 14
+        S = a_denominator(R, G)                                  # 15-19
+        Ai_new = a_ratio(Ai, num, S, eps, cfg.kernel)            # line 21
+        Ai_new, R = sanitize_state(
+            Ai_new, R, where="dist.engine._mu_iter_batched_sparse",
+            enabled=cfg.sanitize)
+        if cfg.trace_metrics:
+            record_metrics(
+                "dist.engine._mu_iter_batched_sparse",
+                a_norm=torch.linalg.vector_norm(Ai_new, dim=(-2, -1)),
+                r_norm=torch.linalg.vector_norm(R, dim=(-3, -2, -1)),
+                mu_ratio=update_ratio(Ai, Ai_new))
     return Ai_new, R
 
 
+@_iteration
 def _mu_iter_sliced_sparse(grid: Grid, spl: BCSR, Ai, R,
                            cfg: DistRescalConfig):
     """One MU iteration on a shard-local BCSR with the paper's per-slice
@@ -207,36 +264,45 @@ def _mu_iter_sliced_sparse(grid: Grid, spl: BCSR, Ai, R,
     ``bcsr_xa_xta`` launch (m = 1, a view of the slice)."""
     cd = cfg.comm_dtype
     eps = cfg.eps
-    Aj = grid.diag_row_to_col(Ai, cd)
-    G = grid.psum_cast(gram(Ai), ROW_AXIS, cd)                   # line 3
-    AiT = Ai.transpose(-1, -2)
-    R = R.clone()
-    num = torch.zeros_like(Ai)
-    S = torch.zeros_like(G)
+    with obs.span("mu/gram"):
+        Aj = grid.diag_row_to_col(Ai, cd)
+        G = grid.psum_cast(gram(Ai), ROW_AXIS, cd)               # line 3
+        AiT = Ai.transpose(-1, -2)
+        R = R.clone()
+        num = torch.zeros_like(Ai)
+        S = torch.zeros_like(G)
     for t in range(spl.m):
-        sp_t = spl.with_data(spl.data[..., t:t + 1, :, :, :])
-        XA_loc, XTA_loc = sparse_products(sp_t, Aj, Ai, policy=cfg.kernel)
-        XA = grid.psum_cast(XA_loc[..., 0, :, :], COL_AXIS, cd)  # line 5
-        ATXA = grid.psum_cast(AiT @ XA, ROW_AXIS, cd)            # line 6
-        Rt = R[..., t, :, :]
-        Rt = Rt * ATXA / (G @ Rt @ G + eps)                      # 7-9
-        R[..., t, :, :] = Rt
-        RtT = Rt.transpose(-1, -2)
-        XART = XA @ RtT                                          # line 10
-        XTAR_j = grid.psum_cast(XTA_loc[..., 0, :, :] @ Rt, ROW_AXIS,
-                                cd)                              # line 12
-        XTAR = grid.diag_col_to_row(XTAR_j, cd)                  # line 13
-        num = num + XART + XTAR                                  # line 14
-        S = S + Rt @ G @ RtT + RtT @ G @ Rt                      # 15-20
-    Ai_new = a_ratio(Ai, num, S, eps, cfg.kernel)                # line 21
-    Ai_new, R = sanitize_state(Ai_new, R,
-                               where="dist.engine._mu_iter_sliced_sparse",
-                               enabled=cfg.sanitize)
-    if cfg.trace_metrics:
-        record_metrics("dist.engine._mu_iter_sliced_sparse",
-                       a_norm=torch.linalg.vector_norm(Ai_new, dim=(-2, -1)),
-                       r_norm=torch.linalg.vector_norm(R, dim=(-3, -2, -1)),
-                       mu_ratio=update_ratio(Ai, Ai_new))
+        with obs.span("mu/slice", t=t):
+            with obs.span("mu/products"):
+                sp_t = spl.with_data(spl.data[..., t:t + 1, :, :, :])
+                XA_loc, XTA_loc = sparse_products(sp_t, Aj, Ai,
+                                                  policy=cfg.kernel)
+            with obs.span("mu/r_update"):
+                XA = grid.psum_cast(XA_loc[..., 0, :, :], COL_AXIS,
+                                    cd)                          # line 5
+                ATXA = grid.psum_cast(AiT @ XA, ROW_AXIS, cd)    # line 6
+                Rt = R[..., t, :, :]
+                Rt = Rt * ATXA / (G @ Rt @ G + eps)              # 7-9
+                R[..., t, :, :] = Rt
+            with obs.span("mu/a_update"):
+                RtT = Rt.transpose(-1, -2)
+                XART = XA @ RtT                                  # line 10
+                XTAR_j = grid.psum_cast(XTA_loc[..., 0, :, :] @ Rt,
+                                        ROW_AXIS, cd)            # line 12
+                XTAR = grid.diag_col_to_row(XTAR_j, cd)          # line 13
+                num = num + XART + XTAR                          # line 14
+                S = S + Rt @ G @ RtT + RtT @ G @ Rt              # 15-20
+    with obs.span("mu/a_update"):
+        Ai_new = a_ratio(Ai, num, S, eps, cfg.kernel)            # line 21
+        Ai_new, R = sanitize_state(
+            Ai_new, R, where="dist.engine._mu_iter_sliced_sparse",
+            enabled=cfg.sanitize)
+        if cfg.trace_metrics:
+            record_metrics(
+                "dist.engine._mu_iter_sliced_sparse",
+                a_norm=torch.linalg.vector_norm(Ai_new, dim=(-2, -1)),
+                r_norm=torch.linalg.vector_norm(R, dim=(-3, -2, -1)),
+                mu_ratio=update_ratio(Ai, Ai_new))
     return Ai_new, R
 
 

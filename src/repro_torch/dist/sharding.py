@@ -16,10 +16,13 @@ The global rank of cell (pod, i, j) is ``pod * rows * cols + i * cols +
 j``, the device order of ``repro``'s mesh.  Every collective is issued
 even on a group of one (a 1 x 1 grid on one card) and counted on
 ``Grid.collectives``, and every rank issues the same collectives in the
-same order.  ``Grid.agree`` takes the maximum of a few numbers over
-every cell (the row, column and pod groups in turn): the sweep
-scheduler's decisions (restores, attempt outcomes, unit times), which
-``repro``'s single controller makes once for its whole mesh.
+same order.  Traced (``obs.trace``), each collective is a
+``grid/<kind>`` span (``grid/all-reduce``, ``grid/broadcast``,
+``grid/all-gather``) around the payload's copy or cast and the call.
+``Grid.agree`` takes the maximum of a few numbers over every cell (the
+row, column and pod groups in turn): the sweep scheduler's decisions
+(restores, attempt outcomes, unit times), which ``repro``'s single
+controller makes once for its whole mesh.
 
 Local-block slicing takes the place of ``repro``'s PartitionSpecs
 (``factor_specs``, ``ensemble_factor_specs``, ``ensemble_member_specs``):
@@ -63,6 +66,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch import step_costs
+from repro_torch.obs import trace as obs
 
 ROW_AXIS = "data"
 COL_AXIS = "model"
@@ -278,27 +282,30 @@ class Grid:
 
     def pmax(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Maximum of x over ``axis`` (a new tensor)."""
-        y = x.clone(memory_format=torch.contiguous_format)
-        if not self.record:
-            dist.all_reduce(y, op=dist.ReduceOp.MAX,
-                            group=self._group(axis))
+        with obs.span("grid/all-reduce"):
+            y = x.clone(memory_format=torch.contiguous_format)
+            if not self.record:
+                dist.all_reduce(y, op=dist.ReduceOp.MAX,
+                                group=self._group(axis))
         self._issued("all-reduce", axis, y)
         return y
 
     def broadcast(self, x: torch.Tensor, axis: str, index: int) -> None:
         """x of the cell at ``index`` on ``axis`` into every cell's x of
         that group, in place (x must be contiguous)."""
-        if not self.record:
-            dist.broadcast(x, src=self.axis_rank(axis, index),
-                           group=self._group(axis))
+        with obs.span("grid/broadcast"):
+            if not self.record:
+                dist.broadcast(x, src=self.axis_rank(axis, index),
+                               group=self._group(axis))
         self._issued("broadcast", axis, x)
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum of x over ``axis`` (a new tensor; x is not changed)."""
-        y = x.clone(memory_format=torch.contiguous_format)
-        if not self.record:
-            dist.all_reduce(y, op=dist.ReduceOp.SUM,
-                            group=self._group(axis))
+        with obs.span("grid/all-reduce"):
+            y = x.clone(memory_format=torch.contiguous_format)
+            if not self.record:
+                dist.all_reduce(y, op=dist.ReduceOp.SUM,
+                                group=self._group(axis))
         self._issued("all-reduce", axis, y)
         return y
 
@@ -308,13 +315,15 @@ class Grid:
         and back to x's dtype (``repro``'s psum_cast)."""
         if comm_dtype is None:
             return self.psum(x, axis)
-        y = x.to(getattr(torch, comm_dtype), copy=True,
-                 memory_format=torch.contiguous_format)
-        if not self.record:
-            dist.all_reduce(y, op=dist.ReduceOp.SUM,
-                            group=self._group(axis))
+        with obs.span("grid/all-reduce"):
+            y = x.to(getattr(torch, comm_dtype), copy=True,
+                     memory_format=torch.contiguous_format)
+            if not self.record:
+                dist.all_reduce(y, op=dist.ReduceOp.SUM,
+                                group=self._group(axis))
+            out = y.to(x.dtype)
         self._issued("all-reduce", axis, y)
-        return y.to(x.dtype)
+        return out
 
     def diag_row_to_col(self, Ai: torch.Tensor,
                         comm_dtype: str | None = None) -> torch.Tensor:
@@ -336,13 +345,15 @@ class Grid:
         """The blocks of ``axis`` in group order, concatenated on ``dim``:
         row blocks over ``ROW_AXIS`` give the global rows, member groups
         over ``POD_AXIS`` give all members."""
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.axis_size(axis))]
-        if self.record:
-            parts[self.axis_index(axis)] = x
-        else:
-            dist.all_gather(parts, x, group=self._group(axis))
-        out = torch.cat(parts, dim=dim)
+        with obs.span("grid/all-gather"):
+            x = x.contiguous()
+            parts = [torch.empty_like(x)
+                     for _ in range(self.axis_size(axis))]
+            if self.record:
+                parts[self.axis_index(axis)] = x
+            else:
+                dist.all_gather(parts, x, group=self._group(axis))
+            out = torch.cat(parts, dim=dim)
         self._issued("all-gather", axis, out)
         return out
 
@@ -357,9 +368,10 @@ class Grid:
         x = torch.tensor([float(v) for v in values], dtype=torch.float64,
                          device=self.device)
         for axis in (ROW_AXIS, COL_AXIS, POD_AXIS):
-            if not self.record:
-                dist.all_reduce(x, op=dist.ReduceOp.MAX,
-                                group=self._group(axis))
+            with obs.span("grid/all-reduce"):
+                if not self.record:
+                    dist.all_reduce(x, op=dist.ReduceOp.MAX,
+                                    group=self._group(axis))
             self._issued("all-reduce", axis, x)
         return [float(v) for v in values] if self.record else x.tolist()
 

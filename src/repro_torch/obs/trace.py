@@ -2,25 +2,41 @@
 the port keeps its own copy, stdlib only).
 
 A `Tracer` records nested spans (``with span("sched/execute"): ...``) and
-instant events as JSONL records, one JSON object per line, flushed
-incrementally so a killed sweep still leaves a readable trace.  Each record
+instant events as JSONL records, one JSON object per line.  Each record
 carries a monotonic timestamp (`time.perf_counter`, microseconds since the
 tracer was created), the pid/tid that emitted it, and arbitrary key/value
 args (unit uids, outcomes).  `export_chrome` rewrites the event list into
 Chrome `trace_event` format, so a whole sweep renders in Perfetto /
 `chrome://tracing` with no post-processing.
 
+The file is written in batches: the records since the last write go out
+every ``FLUSH_EVERY`` records, on `Tracer.flush` and on `close`.  The
+sweep scheduler calls `flush` at the end of each unit, so a killed sweep
+still leaves a readable trace up to its last finished unit; only the
+records after it are lost.
+
+One span, two sinks: while a tracer is installed and a ``torch.profiler``
+session records, each span also opens a profiler range of the same name
+(a user annotation).  The program's spans then land in the profile with
+the device's operations, on the profiler's clock, and each operation can
+be traced to the innermost span open when it was launched.  torch is
+imported on the first span of an installed tracer, so the module itself
+stays importable without it.
+
 Spans are host time.  CUDA launches return before the device finishes, so
 a span that is meant to time device work closes after a synchronisation
 its code already makes (the scheduler's per-unit ``synchronize``, the
-serve engine's copy of the scores to the host); tracing adds none.  The
-port compiles no XLA programs, so no ``xla/compile`` event is ever
-emitted and `summarize` reports ``compile events: 0``.
+serve engine's copy of the scores to the host); tracing adds none, and a
+span's args are host values already at hand, never read from the device.
+The spans inside an MU iteration (``mu/*``, ``grid/*``) close without a
+sync: their device time is read from the profile, by launch.  The port
+compiles no XLA programs, so no ``xla/compile`` event is ever emitted and
+`summarize` reports ``compile events: 0``.
 
 Zero-cost-off contract: the module-level helpers (`span`, `event`, `timed`)
 consult the installed tracer at call time.  With no tracer installed they
 return a shared `contextlib.nullcontext()` / return immediately: no
-allocation and no I/O.
+allocation, no profiler range and no I/O.
 """
 from __future__ import annotations
 
@@ -42,14 +58,76 @@ __all__ = [
 ]
 
 _US = 1e6  # perf_counter seconds -> trace microseconds
+# records held before the file is written, between explicit flushes
+FLUSH_EVERY = 1024
+
+
+_RANGES: tuple | None = None
+
+
+def _range_api() -> tuple:
+    """(is a profiler recording, open a range, close it): torch's own
+    calls, bound on the first span of an installed tracer."""
+    global _RANGES
+    if _RANGES is None:
+        from torch._C import _autograd
+        _RANGES = (_autograd._profiler_enabled,
+                   _autograd._record_function_with_args_enter,
+                   _autograd._record_function_with_args_exit)
+    return _RANGES
+
+
+def _open_range(name: str):
+    """Open a profiler range ``name`` if a ``torch.profiler`` session is
+    recording; its handle, or None."""
+    recording, enter, _ = _RANGES or _range_api()
+    return enter(name) if recording() else None
+
+
+class _Span:
+    """One open span of a `Tracer` (``Tracer.span``).  Entering yields a
+    dict whose items join the closing record's args: counters the caller
+    computes inside the span."""
+
+    __slots__ = ("tracer", "name", "attrs", "closing", "t0", "tid",
+                 "handle")
+
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict[str, Any]):
+        # ``attrs`` is the caller's fresh ``**attrs`` dict: the B record
+        # keeps it, the E record gets a new one
+        self.tracer, self.name, self.attrs = tracer, name, attrs
+        self.closing: dict[str, Any] = {}
+
+    def __enter__(self) -> dict[str, Any]:
+        tr = self.tracer
+        self.t0 = t0 = (time.perf_counter() - tr._t0) * _US
+        self.tid = tid = threading.get_ident()
+        tr._emit({"ph": "B", "name": self.name, "ts": t0, "pid": tr._pid,
+                  "tid": tid, "args": self.attrs})
+        self.handle = _open_range(self.name)
+        return self.closing
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self.handle is not None:
+            _RANGES[2](self.handle)
+        tr = self.tracer
+        t1 = (time.perf_counter() - tr._t0) * _US
+        tr._emit({"ph": "E", "name": self.name, "ts": t1, "pid": tr._pid,
+                  "tid": self.tid, "dur": t1 - self.t0,
+                  "args": {**self.attrs, **self.closing,
+                           "outcome": "ok" if exc_type is None
+                           else "error"}})
 
 
 class Tracer:
-    """Collects span/event records; optionally streams them to a JSONL file.
+    """Collects span/event records; optionally writes them to a JSONL file
+    in batches (module docstring).
 
-    Thread-safe: the host-memory sampler emits from its own thread, so
-    every append happens under one lock and span begin/end pairing is
-    keyed by thread id.
+    Thread-safe: the host-memory sampler emits from its own thread; one
+    append to the record list is atomic, the file's writes and the
+    exports' copies happen under one lock (a flush writes the records
+    counted when it took the lock; later ones wait for the next), and
+    span begin/end pairing is keyed by thread id.
     """
 
     def __init__(self, out_dir: str | None = None, *,
@@ -62,6 +140,7 @@ class Tracer:
         self._t0 = time.perf_counter()
         self._pid = os.getpid()
         self._file: IO[str] | None = None
+        self._written = 0            # records already in the file
         if out_dir is not None:
             os.makedirs(out_dir, exist_ok=True)
             self._file = open(os.path.join(out_dir, "trace.jsonl"), "w")
@@ -69,6 +148,7 @@ class Tracer:
         self._emit({"ph": "M", "name": "trace_start", "ts": 0.0,
                     "pid": self._pid, "tid": threading.get_ident(),
                     "args": {"unix_time": time.time(), **(meta or {})}})
+        self.flush()
 
     # -- low-level ----------------------------------------------------------
 
@@ -76,33 +156,31 @@ class Tracer:
         return (time.perf_counter() - self._t0) * _US
 
     def _emit(self, rec: dict[str, Any]) -> None:
+        # one append is atomic: the lock guards the writes and the copies
+        self.events.append(rec)
+        if self._file is not None and \
+                len(self.events) - self._written >= FLUSH_EVERY:
+            self.flush()
+
+    def flush(self) -> None:
+        """Write the records not yet in the file, and flush it."""
         with self._lock:
-            self.events.append(rec)
-            if self._file is not None:
+            if self._file is None:
+                return
+            n = len(self.events)
+            for rec in self.events[self._written:n]:
                 self._file.write(json.dumps(rec) + "\n")
-                self._file.flush()
+            self._written = n
+            self._file.flush()
 
     # -- public API ---------------------------------------------------------
 
-    @contextlib.contextmanager
-    def span(self, name: str, **attrs: Any) -> Iterator[None]:
-        """Nested timed region.  Emits a B record on entry and an E record
-        (with duration and ok/error outcome) on exit, exception-safe."""
-        tid = threading.get_ident()
-        t0 = self._now_us()
-        self._emit({"ph": "B", "name": name, "ts": t0, "pid": self._pid,
-                    "tid": tid, "args": dict(attrs)})
-        outcome = "ok"
-        try:
-            yield
-        except BaseException:
-            outcome = "error"
-            raise
-        finally:
-            t1 = self._now_us()
-            self._emit({"ph": "E", "name": name, "ts": t1, "pid": self._pid,
-                        "tid": tid, "dur": t1 - t0,
-                        "args": {**attrs, "outcome": outcome}})
+    def span(self, name: str, **attrs: Any) -> _Span:
+        """Nested timed region, with a profiler range of the same name
+        while a profiler records.  Emits a B record on entry and an E
+        record (with duration, ok/error outcome and the items put in the
+        dict that entering yields) on exit, exception-safe."""
+        return _Span(self, name, attrs)
 
     def event(self, name: str, **attrs: Any) -> None:
         """Instant (zero-duration) event."""
@@ -156,6 +234,7 @@ class Tracer:
         return "\n".join(lines)
 
     def close(self) -> None:
+        self.flush()
         with self._lock:
             if self._file is not None:
                 self._file.close()
@@ -209,11 +288,13 @@ def tracing(out_dir: str | None = None, *,
 
 
 def span(name: str, **attrs: Any):
-    """`with span("sched/execute", uid=...):` — no-op when untraced."""
+    """`with span("sched/execute", uid=...):` — no-op when untraced.
+    ``with span("mu/iter") as closing:`` gives the closing record's extra
+    args dict when traced, None when not."""
     tracer = _TRACER
     if tracer is None:
         return _NULL
-    return tracer.span(name, **attrs)
+    return _Span(tracer, name, attrs)
 
 
 def event(name: str, **attrs: Any) -> None:

@@ -19,6 +19,11 @@ Every member's noise and initial factors come from a draw source
 (``draws.py``); the perturbed copy is the noise, drawn into its slot of
 the member buffer and multiplied by X there, so no separate noise tensor
 exists.
+
+Traced (``obs.trace``), the grid's member pipeline is four spans:
+``ens/perturb`` (draws, the multiply by X, padding, row blocks),
+``ens/mu`` (the MU loop with its masks), ``ens/normalize`` and
+``ens/errors``.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.dist.engine import (DistRescalConfig, get_mu_iter,
                                      operand_kind)
 from repro_torch.dist.sharding import Grid
 from repro_torch.io.partition import CellShard, ShardedBCSR
+from repro_torch.obs import trace as obs
 
 from .draws import DrawSource, perturbed_values
 
@@ -301,30 +307,35 @@ def _grid_members(grid: Grid, Xl, cells, cfg, draws: DrawSource, *,
                             sanitize=cfg.sanitize,
                             trace_metrics=cfg.trace_metrics)
     it = get_mu_iter(operand_kind(local), cfg.schedule)
-    vals = perturbed_values(local)
-    buf = torch.empty((len(cells),) + tuple(vals.shape), dtype=vals.dtype,
-                      device=vals.device)
-    A0, R0 = [], []
-    for slot, (k, q) in enumerate(cells):
-        A_q, R_q = draws.grid_member(k, q, grid, buf[slot],
-                                     cfg.perturbation_delta, n=n)
-        buf[slot].mul_(vals)
-        if k_max is not None:
-            st = pad_state(RescalState(A=A_q, R=R_q, step=0), k_max)
-            A_q, R_q = st.A, st.R
-        A0.append(grid.row_block(A_q))
-        R0.append(R_q)
-    X_q = local.with_data(buf) if isinstance(local, BCSR) else buf
-    st = RescalState(A=torch.stack(A0), R=torch.stack(R0), step=0)
-    mask = None if k_max is None else column_mask(
-        [k for k, _ in cells], k_max, dtype=vals.dtype, device=vals.device)
-    for _ in range(cfg.rescal_iters):
-        st = RescalState(*it(grid, X_q, st.A, st.R, dcfg), step=0)
+    with obs.span("ens/perturb"):
+        vals = perturbed_values(local)
+        buf = torch.empty((len(cells),) + tuple(vals.shape),
+                          dtype=vals.dtype, device=vals.device)
+        A0, R0 = [], []
+        for slot, (k, q) in enumerate(cells):
+            A_q, R_q = draws.grid_member(k, q, grid, buf[slot],
+                                         cfg.perturbation_delta, n=n)
+            buf[slot].mul_(vals)
+            if k_max is not None:
+                st = pad_state(RescalState(A=A_q, R=R_q, step=0), k_max)
+                A_q, R_q = st.A, st.R
+            A0.append(grid.row_block(A_q))
+            R0.append(R_q)
+        X_q = local.with_data(buf) if isinstance(local, BCSR) else buf
+        st = RescalState(A=torch.stack(A0), R=torch.stack(R0), step=0)
+    with obs.span("ens/mu"):
+        mask = None if k_max is None else column_mask(
+            [k for k, _ in cells], k_max, dtype=vals.dtype,
+            device=vals.device)
+        for _ in range(cfg.rescal_iters):
+            st = RescalState(*it(grid, X_q, st.A, st.R, dcfg), step=0)
+            if mask is not None:
+                st = mask_state(st, mask)
+    del X_q, buf
+    with obs.span("ens/normalize"):
+        st = RescalState(*local_normalize(grid, st.A, st.R), step=0)
         if mask is not None:
             st = mask_state(st, mask)
-    del X_q, buf
-    st = RescalState(*local_normalize(grid, st.A, st.R), step=0)
-    if mask is not None:
-        st = mask_state(st, mask)
-    return EnsembleResult(A=st.A, R=st.R, errors=local_rel_error(
-        grid, local, st.A, st.R, policy=cfg.kernel))
+    with obs.span("ens/errors"):
+        errors = local_rel_error(grid, local, st.A, st.R, policy=cfg.kernel)
+    return EnsembleResult(A=st.A, R=st.R, errors=errors)

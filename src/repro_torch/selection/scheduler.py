@@ -101,9 +101,12 @@ the grid; the report's ``n_retries``, ``n_stragglers`` and
 Traced (``obs.trace``): ``sched/plan`` around the plan, one
 ``sched/execute`` span per unit attempt (closed after the unit's device
 synchronisation, so it times the device work), ``sched/restore`` and
-``sched/checkpoint`` spans, and one ``sched/reduce`` span per rank.  Each
+``sched/checkpoint`` spans, and one ``sched/reduce`` span per rank; on
+the grid the reduction splits into ``reduce/cluster``,
+``reduce/silhouettes``, ``reduce/regress`` and ``reduce/error``.  Each
 unit's record carries the host high-water mark and the CUDA allocator's
-peak read at its end.
+peak read at its end, and the trace file is written at the end of each
+unit.
 """
 from __future__ import annotations
 
@@ -260,12 +263,17 @@ def reduce_k_grid(grid: Grid, Xl, cfg: RescalkConfig, k: int,
     n_pad rows)."""
     local, _ = _grid_operand(grid, Xl)
     m = local.m if isinstance(local, BCSR) else local.shape[-3]
-    clus = custom_cluster(A_ens, R_ens)
-    sil = silhouettes(clus.A_aligned)
-    Ai = grid.row_block(clus.A_median)
-    R_reg = local_regress_R(grid, local, Ai, draws.regress_R0(k, m),
-                            iters=cfg.regress_iters, policy=cfg.kernel)
-    err = float(local_rel_error(grid, local, Ai, R_reg, policy=cfg.kernel))
+    with obs.span("reduce/cluster"):
+        clus = custom_cluster(A_ens, R_ens)
+    with obs.span("reduce/silhouettes"):
+        sil = silhouettes(clus.A_aligned)
+    with obs.span("reduce/regress"):
+        Ai = grid.row_block(clus.A_median)
+        R_reg = local_regress_R(grid, local, Ai, draws.regress_R0(k, m),
+                                iters=cfg.regress_iters, policy=cfg.kernel)
+    with obs.span("reduce/error"):
+        err = float(local_rel_error(grid, local, Ai, R_reg,
+                                    policy=cfg.kernel))
     return _k_result(k, clus, sil, R_reg, err, member_errors)
 
 
@@ -782,6 +790,9 @@ class SweepScheduler:
                         print(f"[sweep] k={k:3d} s_min={r.s_min:6.3f} "
                               f"s_mean={r.s_mean:6.3f} "
                               f"err={r.rel_err:7.4f}")
+            tracer = obs.current()
+            if tracer is not None:
+                tracer.flush()      # a killed sweep keeps its trace to here
         self._surface_pending_save()
 
         ks = cfg.ks

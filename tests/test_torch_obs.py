@@ -520,3 +520,240 @@ def test_reload_hashes_again_only_when_traced(tmp_path, monkeypatch, traced):
         assert [e["ph"] for e in events] == ["B", "i", "E"]
         assert events[1]["args"]["digest"] == real_digest(
             FactorBundle.load(str(tmp_path / "new")))
+
+
+# ---------------------------------------------------------------------------
+# Spans inside the MU engine, its collectives and the ensemble
+# ---------------------------------------------------------------------------
+
+def span_tree(events):
+    """The closed spans as nested (name, args, children) in record order;
+    args are the closing record's."""
+    root, stack = [], []
+    for e in events:
+        if e["ph"] == "B":
+            node = [e["name"], None, []]
+            (stack[-1][2] if stack else root).append(node)
+            stack.append(node)
+        elif e["ph"] == "E":
+            node = stack.pop()
+            assert node[0] == e["name"]
+            node[1] = e["args"]
+    assert not stack
+    return root
+
+
+def shape_of(node):
+    """(name, children's shapes), collectives as "grid"."""
+    name, _, kids = node
+    return (name, tuple(shape_of(k) for k in kids))
+
+
+GRID2 = (("grid/all-reduce", ()),) * 2
+
+
+def expected_iter(schedule: str, m: int):
+    if schedule == "batched":
+        kids = (("mu/gram", GRID2), ("mu/products", ()),
+                ("mu/r_update", GRID2), ("mu/a_update", GRID2))
+    else:
+        one = ("mu/slice", (("mu/products", ()), ("mu/r_update", GRID2),
+                            ("mu/a_update", GRID2)))
+        kids = (("mu/gram", GRID2),) + (one,) * m + (("mu/a_update", ()),)
+    return ("mu/iter", kids)
+
+
+def record_grid():
+    from repro_torch.dist.sharding import Grid
+    return Grid.at_rank(0, 1, 1, 1, "cpu", record=True)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("schedule", ["batched", "sliced"])
+@pytest.mark.parametrize("kind", ["dense", "bcsr"])
+def test_mu_iteration_span_tree(kind, schedule, fused):
+    """One iteration of each engine body: mu/iter over the four phases
+    (per slice in the sliced bodies), every collective a grid/* span
+    inside a phase, and the closing record's collective count 6 (batched)
+    or 2 + 4m (sliced)."""
+    from repro_torch.dist.engine import DistRescalConfig, get_mu_iter
+    from repro_torch.kernels.policy import KernelPolicy
+    X = flag_operand(kind)
+    m = X.m if kind == "bcsr" else X.shape[-3]
+    n = X.n if kind == "bcsr" else X.shape[-1]
+    g = torch.Generator().manual_seed(0)
+    A = torch.rand(n, 3, generator=g)
+    R = torch.rand(m, 3, 3, generator=g)
+    cfg = DistRescalConfig(schedule=schedule,
+                           kernel=KernelPolicy(use_fused=fused))
+    grid = record_grid()
+    with obs.tracing() as tr:
+        A1, R1 = get_mu_iter(kind, schedule)(grid, X, A, R, cfg)
+    tree = span_tree(tr.events)
+    assert [shape_of(node) for node in tree] == [expected_iter(schedule, m)]
+    args = tree[0][1]
+    assert args["collectives"] == (6 if schedule == "batched" else 2 + 4 * m)
+    assert args["collectives"] == grid.collectives
+    if schedule == "sliced":
+        slices = [k for k in tree[0][2] if k[0] == "mu/slice"]
+        assert [s[1]["t"] for s in slices] == list(range(m))
+    # tracing changes no number
+    A0, R0 = get_mu_iter(kind, schedule)(record_grid(), X, A, R, cfg)
+    torch.testing.assert_close(A1, A0, rtol=0, atol=0)
+    torch.testing.assert_close(R1, R0, rtol=0, atol=0)
+
+
+def test_untraced_spans_open_no_profiler_range(monkeypatch):
+    """No tracer: every span is the shared null context and the profiler
+    range is never entered; with one, each span enters it once."""
+    from repro_torch.dist.engine import DistRescalConfig, get_mu_iter
+    calls = []
+    real = obs._open_range
+    monkeypatch.setattr(obs, "_open_range",
+                        lambda name: calls.append(name) or real(name))
+    X = flag_operand("dense")
+    A, R = torch.rand(X.shape[-1], 3), torch.rand(X.shape[-3], 3, 3)
+    step = get_mu_iter("dense", "sliced")
+    assert obs.current() is None
+    assert obs.span("mu/iter") is obs._NULL
+    with obs.span("mu/iter") as closing:
+        assert closing is None
+    step(record_grid(), X, A, R, DistRescalConfig(schedule="sliced"))
+    assert calls == []
+    with obs.tracing() as tr:
+        step(record_grid(), X, A, R, DistRescalConfig(schedule="sliced"))
+    assert calls == [e["name"] for e in tr.events if e["ph"] == "B"]
+
+
+def test_spans_are_profiler_user_annotations():
+    """Under torch.profiler on the CPU the program's spans are user
+    annotations of the same names; with no profiler recording, a traced
+    span opens no range."""
+    from repro_torch.dist.engine import DistRescalConfig, get_mu_iter
+    X = flag_operand("bcsr")
+    A, R = torch.rand(X.n, 3), torch.rand(X.m, 3, 3)
+    step = get_mu_iter("bcsr", "batched")
+    with obs.tracing() as tr:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            step(record_grid(), X, A, R, DistRescalConfig())
+    names = [e["name"] for e in tr.events if e["ph"] == "B"]
+    annotated = [ev.name() for ev in prof.profiler.kineto_results.events()
+                 if ev.is_user_annotation()]
+    assert sorted(annotated) == sorted(names)
+    assert {"mu/iter", "mu/gram", "mu/products", "mu/r_update",
+            "mu/a_update", "grid/all-reduce"} <= set(annotated)
+    assert obs._open_range("mu/iter") is None
+
+
+def test_select_path_spans(tmp_path, monkeypatch):
+    """A sweep on the (recording) 1 x 1 grid: each unit's member pipeline
+    is ens/perturb, ens/mu (holding the MU iterations), ens/normalize and
+    ens/errors; each rank's reduction is reduce/cluster,
+    reduce/silhouettes, reduce/regress and reduce/error.  The trace file
+    is written at the end of each unit (after its reduction)."""
+    X = flag_operand("dense")
+    cfg = RescalkConfig(k_min=2, k_max=3, n_perturbations=2, rescal_iters=2,
+                        regress_iters=2)
+    flushed = []
+    real_flush = obs.Tracer.flush
+
+    def flush(tracer):
+        flushed.append(tracer.events[-1])
+        real_flush(tracer)
+
+    with obs.tracing(str(tmp_path)) as tr:
+        monkeypatch.setattr(obs.Tracer, "flush", flush)
+        SweepScheduler(cfg, mode="batched", grid=record_grid()).run(X)
+        monkeypatch.setattr(obs.Tracer, "flush", real_flush)
+    assert [(e["ph"], e["name"]) for e in flushed] == \
+        [("E", "sched/reduce")] * 2
+    tree = span_tree(tr.events)
+    execs = [n for n in tree if n[0] == "sched/execute"]
+    reduces = [n for n in tree if n[0] == "sched/reduce"]
+    assert len(execs) == len(reduces) == 2
+    for node in execs:
+        kids = node[2]
+        assert [k[0] for k in kids] == ["ens/perturb", "ens/mu",
+                                        "ens/normalize", "ens/errors"]
+        assert [k[0] for k in kids[1][2]] == ["mu/iter"] * 2
+    for node in reduces:
+        assert [k[0] for k in node[2]] == [
+            "reduce/cluster", "reduce/silhouettes", "reduce/regress",
+            "reduce/error"]
+
+
+def test_tracer_writes_in_batches(tmp_path, monkeypatch):
+    """The file holds the records up to the last flush (and every
+    FLUSH_EVERY records); close writes the rest, equal to the records in
+    memory."""
+    monkeypatch.setattr(obs, "FLUSH_EVERY", 8)
+    path = tmp_path / "trace.jsonl"
+
+    def on_disk():
+        return [json.loads(line) for line in path.read_text().splitlines()]
+
+    tr = obs.Tracer(str(tmp_path))
+    assert len(on_disk()) == 1            # the anchor record
+    with tr.span("mu/iter"):
+        tr.event("kernel/fallback")
+    assert len(on_disk()) == 1
+    with tr.span("sched/execute", uid="u"):
+        with tr.span("mu/iter"):
+            pass
+    assert len(on_disk()) == 1            # a span's close writes nothing
+    tr.flush()
+    assert on_disk() == tr.events
+    n = len(tr.events)
+    for _ in range(3):
+        with tr.span("grid/all-reduce"):
+            pass
+    assert len(on_disk()) == n            # 6 records pending, under 8
+    with tr.span("grid/all-reduce"):
+        pass
+    assert len(on_disk()) == n + 8        # the 8th record wrote them all
+    tr.event("serve/cache")
+    tr.close()
+    assert on_disk() == tr.events
+
+
+def test_tracer_flush_keeps_records_appended_during_it(tmp_path):
+    """A record that another thread (the host-memory sampler) appends
+    while a flush writes is not counted as written: the next flush or
+    close writes it, and the file equals the records in memory."""
+    import threading
+    tr = obs.Tracer(str(tmp_path))
+    with tr.span("sched/execute", uid="u"):
+        pass
+    real = tr._file
+
+    class Racing:
+        """The file, with one record appended from a second thread
+        during the first write."""
+        fired = False
+
+        def write(self, text):
+            if not self.fired:
+                self.fired = True
+                t = threading.Thread(target=tr.event,
+                                     args=("mem/sample",),
+                                     kwargs={"rss_bytes": 1})
+                t.start()
+                t.join()
+            return real.write(text)
+
+        def flush(self):
+            real.flush()
+
+        def close(self):
+            real.close()
+
+    tr._file = Racing()
+    n = len(tr.events)
+    tr.flush()
+    assert len(tr.events) == n + 1 and tr._written == n
+    tr.close()
+    on_disk = [json.loads(line) for line in
+               (tmp_path / "trace.jsonl").read_text().splitlines()]
+    assert on_disk == tr.events
+    assert on_disk[-1]["name"] == "mem/sample"
