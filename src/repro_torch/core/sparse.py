@@ -323,15 +323,30 @@ def sqnorm(sp: BCSR) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def sparse_products(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor, *,
-                    policy=None):
+                    policy=None, operands=None):
     """Both X-sided products (X @ B1, X^T @ B2) — the hot pair of every
     sparse MU iteration.  A fused ``policy`` (kernels.KernelPolicy) routes
     them through ``kernels.ops.bcsr_xa_xta`` (one pass over the stored
-    blocks); otherwise the two plain segment sums run."""
+    blocks), which lays B1 and B2 out for the kernel unless handed
+    ``operands`` that ``prepare_products`` laid out once for several
+    calls; otherwise the two plain segment sums run."""
     if is_fused(policy):
         from repro_torch.kernels import ops
-        return ops.bcsr_xa_xta(sp, B1, B2, impl=policy.impl)
+        return ops.bcsr_xa_xta(sp, B1, B2, impl=policy.impl,
+                               operands=operands)
     return spmm(sp, B1), spmm_t(sp, B2)
+
+
+def prepare_products(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor, *,
+                     policy=None):
+    """B1 and B2 in the fused kernel's layout (``kernels.bcsr_fused.
+    prepare``), once for the ``sparse_products`` calls that share them
+    on ``sp``'s blocking (the sliced MU body's slices); None where no
+    kernel reads them: a plain ``policy``, or its "ref" impl."""
+    if not is_fused(policy) or policy.impl == "ref":
+        return None
+    from repro_torch.kernels import bcsr_fused
+    return bcsr_fused.prepare(sp, B1, B2)
 
 
 def single_product(sp: BCSR, B: torch.Tensor, *, policy=None):

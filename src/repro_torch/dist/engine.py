@@ -34,12 +34,15 @@ fused     — ``cfg.kernel.use_fused`` routes the two X-sided products of
             ``core.sparse.sparse_mu_step`` does on one device.
 
 Traced (``obs.trace``): each iteration is a ``mu/iter`` span whose
-closing record counts the grid's ``collectives`` made inside it (counted
+closing record counts the grid's ``collectives`` and the BCSR kernel's
+operand ``tilings`` (``bcsr_fused.tiling_count``) made inside it (counted
 only while tracing).  Its children
 split it so that every launch falls under exactly one: ``mu/gram`` (A^(j),
 G and its psum; in the sliced bodies also the transpose, the copy of R
-and the zero accumulators), ``mu/products`` (the X-sided products,
-the BCSR wrapper's operand tilings included), ``mu/r_update`` (paper
+and the zero accumulators), ``mu/products`` (the X-sided products, with
+the BCSR wrapper's operand tilings: in the batched body inside its one
+call, in the sliced BCSR body one ``mu/products`` before the slices that
+tiles A^(j) and A^(i) once for all of them), ``mu/r_update`` (paper
 lines 5-9: the XA psum, A^T XA and its psum, the R update) and
 ``mu/a_update`` (lines 10-21).  In the sliced bodies each slice is a
 ``mu/slice`` span (arg ``t``) around its own products, R update and A
@@ -65,8 +68,9 @@ from repro_torch.core.rescal import (EPS_DEFAULT, RescalState, a_denominator,
                                      dense_products, fit_error, gram,
                                      init_factors, r_update, x_times, xart,
                                      xt_times)
-from repro_torch.core.sparse import (BCSR, single_product, sparse_products,
-                                     sqnorm)
+from repro_torch.core.sparse import (BCSR, prepare_products, single_product,
+                                     sparse_products, sqnorm)
+from repro_torch.kernels import bcsr_fused
 from repro_torch.kernels.policy import KernelPolicy
 from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import record_metrics, update_ratio
@@ -89,16 +93,18 @@ class DistRescalConfig:
 
 def _iteration(body: Callable) -> Callable:
     """``body`` inside a ``mu/iter`` span whose closing record carries the
-    ``collectives`` made inside it; untraced, the body alone."""
+    ``collectives`` and operand ``tilings`` made inside it; untraced, the
+    body alone."""
 
     @functools.wraps(body)
     def it(grid: Grid, Xl, Ai, R, cfg: DistRescalConfig):
         if obs.current() is None:
             return body(grid, Xl, Ai, R, cfg)
-        c0 = grid.collectives
+        c0, t0 = grid.collectives, bcsr_fused.tiling_count()
         with obs.span("mu/iter") as closing:
             out = body(grid, Xl, Ai, R, cfg)
             closing["collectives"] = grid.collectives - c0
+            closing["tilings"] = bcsr_fused.tiling_count() - t0
         return out
 
     return it
@@ -261,7 +267,10 @@ def _mu_iter_sliced_sparse(grid: Grid, spl: BCSR, Ai, R,
     schedule (O(m) collectives): at exabyte-tier n the batched schedule's
     (m, n/g, k) intermediates are m times one A shard; slicing bounds
     them to one slice.  Under the fused policy each slice is one
-    ``bcsr_xa_xta`` launch (m = 1, a view of the slice)."""
+    ``bcsr_xa_xta`` launch (m = 1, a view of the slice), all of them on
+    A^(j) and A^(i) tiled once before the slices (``prepare_products``):
+    neither changes inside the loop, and the tiles die with the
+    iteration."""
     cd = cfg.comm_dtype
     eps = cfg.eps
     with obs.span("mu/gram"):
@@ -271,12 +280,15 @@ def _mu_iter_sliced_sparse(grid: Grid, spl: BCSR, Ai, R,
         R = R.clone()
         num = torch.zeros_like(Ai)
         S = torch.zeros_like(G)
+    with obs.span("mu/products"):
+        tiled = prepare_products(spl, Aj, Ai, policy=cfg.kernel)
     for t in range(spl.m):
         with obs.span("mu/slice", t=t):
             with obs.span("mu/products"):
                 sp_t = spl.with_data(spl.data[..., t:t + 1, :, :, :])
                 XA_loc, XTA_loc = sparse_products(sp_t, Aj, Ai,
-                                                  policy=cfg.kernel)
+                                                  policy=cfg.kernel,
+                                                  operands=tiled)
             with obs.span("mu/r_update"):
                 XA = grid.psum_cast(XA_loc[..., 0, :, :], COL_AXIS,
                                     cd)                          # line 5

@@ -22,9 +22,13 @@ block.  Both outputs are bit-identical from call to call.  XTB's rows are
 padded to a multiple of 4 columns (the vector stores) and cropped to k.
 
 The copies land B in shared memory as it lies in device memory, so the
-wrapper hands the kernel B in its layout (``operand_tiles``): slices of
-``kc`` columns (4 for k <= 4, else 8; k > 8 runs one pass per slice),
+kernel takes B in its layout (``operand_tiles``): slices of ``kc``
+columns (4 for k <= 4, else 8; k > 8 runs one pass per slice),
 zero-padded, with the 16-byte slots of each (bs, kc) row tile swizzled.
+A call tiles B1 and B2 itself, unless it is handed ``Operands`` that
+``prepare`` built once for several calls on the same B: the sliced MU
+body's m calls of an iteration, whose A^(j) and A^(i) do not change
+between slices.  ``tiling_count`` counts the tilings made.
 
 On a CPU tensor the wrapper runs the plain version
 (``kernels/ref.py:ref_bcsr_xa_xta``); on a CUDA tensor it launches the
@@ -34,6 +38,7 @@ counts the launch's ``cost`` and the wrapper's own aten work).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -46,6 +51,7 @@ from ._launch import Launch, members
 from .ref import ref_bcsr_xa_xta
 
 _launches = 0
+_tilings = 0
 
 
 def launch_count() -> int:
@@ -56,6 +62,19 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def tiling_count() -> int:
+    """Operand tilings made in this process: one per distinct B that a
+    call without ``Operands``, or a ``prepare``, lays out.  On a CPU
+    operand, where the plain version stands in and tiles nothing, the
+    tilings the card would make; none on meta tensors."""
+    return _tilings
+
+
+def _count_tilings(B1: torch.Tensor, B2: torch.Tensor) -> None:
+    global _tilings
+    _tilings += 1 if B2 is B1 else 2
 
 
 def slice_width(k: int) -> int:
@@ -91,6 +110,68 @@ def operand_tiles(B: torch.Tensor, bs: int, n_pad: int,
     return tiles.reshape(slices, members, n_pad, kc)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Operands:
+    """B1 and B2 in the kernel's layout, with the tensors and the blocking
+    they were made from: ``prepare``'s result, for the ``bcsr_xa_xta``
+    calls that share them.  On a CPU operand the plain version reads B as
+    it is, and the tiles are None."""
+    B1: torch.Tensor
+    B2: torch.Tensor
+    bs: int
+    n_pad: int
+    kc: int
+    B1t: torch.Tensor | None
+    B2t: torch.Tensor | None     # B1t itself when B2 is B1
+
+    @property
+    def b_member_stride(self) -> int:
+        """Floats between the members of a tile slice, 0 without a member
+        axis."""
+        return self.B1t.stride(1) if self.B1.dim() == 3 else 0
+
+    def check(self, sp: BCSR, B1: torch.Tensor, B2: torch.Tensor) -> None:
+        """Raises ``ValueError`` unless these were made from B1 and B2
+        themselves (identity, not values) for ``sp``'s blocking."""
+        if self.B1 is not B1 or self.B2 is not B2:
+            raise ValueError("bcsr_xa_xta: the operands were prepared from "
+                             "other B tensors")
+        if (self.bs, self.n_pad) != (sp.bs, sp.n_pad):
+            raise ValueError(f"bcsr_xa_xta: the operands were prepared for "
+                             f"bs={self.bs}, n_pad={self.n_pad}, not "
+                             f"bs={sp.bs}, n_pad={sp.n_pad}")
+
+
+def _tile(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor) -> Operands:
+    """The card's tiling of B1 and of B2 (B1's tiles when B2 is B1)."""
+    kc = slice_width(B1.shape[-1])
+    B1t = operand_tiles(B1, sp.bs, sp.n_pad, kc)
+    B2t = B1t if B2 is B1 else operand_tiles(B2, sp.bs, sp.n_pad, kc)
+    if not B1.is_meta:
+        _count_tilings(B1, B2)
+    return Operands(B1, B2, sp.bs, sp.n_pad, kc, B1t, B2t)
+
+
+def plain_operands(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor
+                   ) -> Operands:
+    """``prepare`` on a CPU operand: no tiles, since the plain version
+    reads B as it is; counted as the card's tilings."""
+    _count_tilings(B1, B2)
+    return Operands(B1, B2, sp.bs, sp.n_pad, slice_width(B1.shape[-1]),
+                    None, None)
+
+
+def prepare(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor) -> Operands:
+    """B1 and B2 ([r,] n, k) tiled once for every ``bcsr_xa_xta`` call
+    on ``sp``'s blocking (any of its relation slices) that takes these
+    same two tensors.  Checked as a call is; on a CPU operand the plain
+    ``plain_operands`` stands in (``step_costs.as_card``)."""
+    if all(x.device.type == "cpu" for x in (sp.data, B1, B2)):
+        return step_costs.as_card(prepare, plain_operands, sp, B1, B2)
+    Launch("bcsr_xa_xta", sp, B1, B2)
+    return _tile(sp, B1, B2)
+
+
 def cost(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor) -> tuple[int, int]:
     """(flops, bytes) of one call's own work: every stored value read once
     for both products, 4k flop per value and slice of each member; B1 and
@@ -103,23 +184,29 @@ def cost(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor) -> tuple[int, int]:
     return flops, nbytes
 
 
-def bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor):
+def bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor, *,
+                operands: Operands | None = None):
     """sp: BCSR ([r,] m, nnzb, bs, bs) with row-major blocks; B1, B2
     ([r,] n, k) -> (X @ B1, X^T @ B2), each ([r,] m, n, k), in one pass
-    over the stored blocks.  nnzb == 0 returns zeros without a launch;
-    bs not dividing n pads the operands and crops the outputs."""
+    over the stored blocks.  ``operands``: B1 and B2 already tiled
+    (``prepare``), else the call tiles them.  nnzb == 0 returns zeros
+    without a launch; bs not dividing n pads the operands and crops the
+    outputs."""
     global _launches
+    if operands is not None:
+        operands.check(sp, B1, B2)
     if all(x.device.type == "cpu" for x in (sp.data, B1, B2)):
-        return step_costs.as_card(bcsr_xa_xta, ref_bcsr_xa_xta, sp, B1, B2)
+        if operands is None and sp.nnzb:
+            _count_tilings(B1, B2)
+        return step_costs.as_card(bcsr_xa_xta, ref_bcsr_xa_xta, sp, B1, B2,
+                                  operands=operands)
     call = Launch("bcsr_xa_xta", sp, B1, B2)
     if sp.nnzb == 0:
         shape = product_shape(sp, B1)
         return (torch.zeros(shape, dtype=B1.dtype, device=B1.device),
                 torch.zeros(shape, dtype=B1.dtype, device=B1.device))
-    kc = slice_width(call.k)
-    B1t = operand_tiles(B1, sp.bs, sp.n_pad, kc)
-    B2t = B1t if B2 is B1 else operand_tiles(B2, sp.bs, sp.n_pad, kc)
-    b_member_stride = B1t.stride(1) if B1.dim() == 3 else 0
+    tiled = _tile(sp, B1, B2) if operands is None else operands
+    kc = tiled.kc
     kt = -(-call.k // 4) * 4       # XTB's rows padded for vector stores
     xa = call.empty()
     xtb = call.empty(cols=kt)
@@ -134,10 +221,10 @@ def bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor):
         rc = _build.library().repro_bcsr_xa_xta(
             sp.data.data_ptr(), sp.row_ptr.data_ptr(),
             sp.block_cols.data_ptr(), col_ptr.data_ptr(), col_z.data_ptr(),
-            B1t.data_ptr(), B2t.data_ptr(), xa.data_ptr(), xtb.data_ptr(),
-            part.data_ptr(), call.T, sp.m, sp.nblocks, sp.nnzb, sp.bs,
-            call.k, kt, kc, call.data_member_stride, b_member_stride,
-            B1t.stride(0), call.stream())
+            tiled.B1t.data_ptr(), tiled.B2t.data_ptr(), xa.data_ptr(),
+            xtb.data_ptr(), part.data_ptr(), call.T, sp.m, sp.nblocks,
+            sp.nnzb, sp.bs, call.k, kt, kc, call.data_member_stride,
+            tiled.b_member_stride, tiled.B1t.stride(0), call.stream())
     _build.check(rc, "bcsr_xa_xta")
     _launches += 1
     step_costs.launched("bcsr_xa_xta", cost, sp, B1, B2)

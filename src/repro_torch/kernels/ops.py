@@ -101,12 +101,13 @@ def bcsr_spmm(sp: BCSR, B, *, impl: str = "auto"):
     return _spmm_mod.bcsr_spmm(sp, B)
 
 
-def bcsr_xa_xta(sp: BCSR, B1, B2, *, impl: str = "auto"):
+def bcsr_xa_xta(sp: BCSR, B1, B2, *, impl: str = "auto", operands=None):
     """One-pass (X @ B1, X^T @ B2) on a BCSR tensor
-    (kernels/bcsr_fused.py)."""
+    (kernels/bcsr_fused.py); ``operands``, B1 and B2 already tiled
+    (``bcsr_fused.prepare``), go to the kernel's wrapper."""
     if _dispatch(impl, "bcsr_xa_xta", sp.data, B1, B2) == "ref":
         return _ref.ref_bcsr_xa_xta(sp, B1, B2)
-    return bcsr_fused.bcsr_xa_xta(sp, B1, B2)
+    return bcsr_fused.bcsr_xa_xta(sp, B1, B2, operands=operands)
 
 
 def fused_xa_xtb(X, B1, B2, *, impl: str = "auto"):

@@ -30,11 +30,13 @@ def ref_mu_update_a(A: torch.Tensor, Num: torch.Tensor, S: torch.Tensor,
     return A * Num / (A @ S + eps)
 
 
-def ref_bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor):
+def ref_bcsr_xa_xta(sp: BCSR, B1: torch.Tensor, B2: torch.Tensor,
+                    operands=None):
     """(X @ B1, X^T @ B2) for shared ([r,] n, k) operands: both tile
     products from one read of the stored blocks, reduced by ONE combined
     segment sum (XA segments = block_rows, XTB segments = block_cols
-    offset by nb)."""
+    offset by nb).  ``operands``, the kernel's tiled B
+    (``bcsr_fused.Operands``), is not read: B is read as it is."""
     if sp.nnzb == 0:
         z = zeros_product(sp, B1)
         return z, z.clone()

@@ -27,8 +27,10 @@ under the fused kernel policy, ``--rescal-schedule`` and
              with the kernels' own scratch: ``fused_xa_xtb``'s workspace
              (``fused_bilinear.workspace_floats``: the split factor
              fragments and the fixed-order partials) fp32 and
-             ``bcsr_xa_xta``'s (T, nnzb, bs, kc) partials and its B
-             operand tiles, T = members x slices in the launch
+             ``bcsr_xa_xta``'s (T, nnzb, bs, kc) partials, T =
+             members x slices in the launch, and B's operand tiles:
+             the batched call's own, or the sliced body's, tiled once
+             before the slices and held through them
   collectives the count and payload bytes per MU iteration that the body
              issues through ``Grid`` (6 batched, 2 + 4m sliced): the
              counted step's must be the same
@@ -337,24 +339,33 @@ def _tiles(sh: RescalShare, kc: int) -> int:
     return _cdiv(sh.k, kc) * sh.r * sh.n_pad * kc * F32
 
 
-def _bcsr_call(L: Ledger, sh: RescalShare, m: int, xa: str, xtb: str,
-               shared_b: bool) -> None:
-    """``bcsr_xa_xta`` on ``m`` slices (kernels/bcsr_fused.py): B1's and
-    B2's operand tiles (each gathered by the swizzle from a zero-padded
-    copy, through a permuted copy of it when k takes more than one
-    column slice, all alive at the gather), then XA (T, n_pad, k), XTB
-    (T, n_pad, kt) and the (T, nnzb, bs, kc) partials, T = r m; the
-    tiles and partials die with the call."""
+def _operand_tiles(L: Ledger, sh: RescalShare, bind: bool) -> None:
+    """B1's and B2's operand tiles (``bcsr_fused.operand_tiles``), each
+    gathered by the swizzle from a zero-padded copy, through a permuted
+    copy of it when k takes more than one column slice, all alive at the
+    gather: temporaries of a call, or with ``bind`` the results of the
+    sliced body's ``prepare_products``."""
     kc = 4 if sh.k <= 4 else 8
     tiles = _tiles(sh, kc)
-    T = sh.r * m
-    kt = _cdiv(sh.k, 4) * 4
     n_copies = 2 if _cdiv(sh.k, kc) > 1 else 1
-    for name in (("B1 tiles",) if shared_b else ("B1 tiles", "B2 tiles")):
+    for name in ("B1 tiles", "B2 tiles"):
         copies = f"{name}' padded and permuted copies"
         L.tmp(copies, n_copies * tiles)
-        L.tmp(name, tiles)
+        (L.new if bind else L.tmp)(name, tiles)
         L.release(copies)
+
+
+def _bcsr_call(L: Ledger, sh: RescalShare, m: int, xa: str, xtb: str,
+               tiled: bool) -> None:
+    """``bcsr_xa_xta`` on ``m`` slices (kernels/bcsr_fused.py): B's
+    operand tiles unless the call was handed them (``tiled``), then XA
+    (T, n_pad, k), XTB (T, n_pad, kt) and the (T, nnzb, bs, kc) partials,
+    T = r m; the call's tiles and partials die with it."""
+    kc = 4 if sh.k <= 4 else 8
+    T = sh.r * m
+    kt = _cdiv(sh.k, 4) * 4
+    if not tiled:
+        _operand_tiles(L, sh, bind=False)
     L.new(xa, T * sh.n_pad * sh.k * F32)
     L.new(xtb, T * sh.n_pad * kt * F32)
     L.tmp("XTB partials", T * sh.nnzb * sh.bs * kc * F32)
@@ -396,7 +407,7 @@ def rescal_ledger(sh: RescalShare, *, diagonal: bool,
     L.end()
     if sh.schedule == "batched":
         if sparse:
-            _bcsr_call(L, sh, sh.m, "XA_loc", "XTA_loc", shared_b=False)
+            _bcsr_call(L, sh, sh.m, "XA_loc", "XTA_loc", tiled=False)
         else:
             _fused_call(L, sh, sh.m, "XA_loc", "XTA_loc")
         L.psum("XA", M, COL_AXIS, cb)
@@ -427,9 +438,12 @@ def rescal_ledger(sh: RescalShare, *, diagonal: bool,
         L.end(S=KK)
     else:
         L.end(R=MKK, num=A, S=KK)                       # clone, zeros
+        if sparse:                  # held through the slices
+            _operand_tiles(L, sh, bind=True)
+            L.end()
         for _ in range(sh.m):
             if sparse:
-                _bcsr_call(L, sh, 1, "XA_loc", "XTA_loc", shared_b=False)
+                _bcsr_call(L, sh, 1, "XA_loc", "XTA_loc", tiled=True)
             else:
                 _fused_call(L, sh, 1, "XA_loc", "XTA_loc")
             L.psum("XA", A, COL_AXIS, cb)

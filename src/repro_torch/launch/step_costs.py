@@ -51,6 +51,7 @@ Usage::
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
 from collections import Counter
@@ -275,9 +276,10 @@ def collective(kind: str, axis: str, result_bytes: int, g: int) -> None:
 
 
 def meta_like(x: Any, _memo: dict | None = None) -> Any:
-    """``x`` with every tensor (a BCSR's too) replaced by an empty meta
-    tensor of its shape, strides and dtype; one object given twice gives
-    one stand-in (a wrapper that tests ``B2 is B1`` sees it)."""
+    """``x`` with every tensor (a BCSR's too, and a dataclass record's)
+    replaced by an empty meta tensor of its shape, strides and dtype; one
+    object given twice gives one stand-in (a wrapper that tests ``B2 is
+    B1``, or a record's tensors against the call's, sees it)."""
     from repro_torch.core.sparse import BCSR
     memo = {} if _memo is None else _memo
     if isinstance(x, (torch.Tensor, BCSR)):
@@ -286,6 +288,11 @@ def meta_like(x: Any, _memo: dict | None = None) -> Any:
                            torch.empty_strided(x.shape, x.stride(),
                                                dtype=x.dtype, device="meta"))
         return memo[id(x)]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        # a record of tensors (a kernel's prepared operands)
+        return dataclasses.replace(x, **{
+            f.name: meta_like(getattr(x, f.name), memo)
+            for f in dataclasses.fields(x) if f.init})
     if isinstance(x, dict):
         return {k: meta_like(v, memo) for k, v in x.items()}
     if isinstance(x, (list, tuple)):

@@ -247,10 +247,11 @@ def card_allocations(live: LiveBytes):
     """The three RESCAL kernels' CPU paths replaced by what their CUDA
     wrappers allocate, in their order (the values from the plain versions,
     uncounted): ``fused_xa_xtb`` XA, XTB and its fixed-order workspace;
-    ``bcsr_xa_xta`` B's operand tiles, XA, XTB of kt columns and the
-    partials; ``mu_update_a`` its output."""
+    ``bcsr_xa_xta`` B's operand tiles (unless the call is handed them),
+    XA, XTB of kt columns and the partials; ``bcsr_fused.prepare`` the
+    tiles it hands on; ``mu_update_a`` its output."""
     plain = (fused_bilinear.ref_fused_xa_xtb, bcsr_fused.ref_bcsr_xa_xta,
-             mu_mod.ref_mu_update_a)
+             mu_mod.ref_mu_update_a, bcsr_fused.plain_operands)
 
     def fused(X, B1, B2):
         with live.paused():
@@ -266,14 +267,13 @@ def card_allocations(live: LiveBytes):
         xtb.copy_(xtb_v)
         return xa, xtb
 
-    def bcsr(sp, B1, B2):
+    def bcsr(sp, B1, B2, operands=None):
         with live.paused():
             xa_v, xtb_v = plain[1](sp, B1, B2)
         k = B1.shape[-1]
         kc = bcsr_fused.slice_width(k)
-        B1t = bcsr_fused.operand_tiles(B1, sp.bs, sp.n_pad, kc)
-        B2t = B1t if B2 is B1 else bcsr_fused.operand_tiles(
-            B2, sp.bs, sp.n_pad, kc)
+        tiled = bcsr_fused._tile(sp, B1, B2) if operands is None \
+            else operands
         kt = -(-k // 4) * 4
         members = (sp.batch_shape[0] if sp.batch_shape else
                    B1.shape[0] if B1.dim() == 3 else None)
@@ -282,7 +282,7 @@ def card_allocations(live: LiveBytes):
         xtb = torch.empty((T, sp.n_pad, kt))
         part = torch.empty(T * sp.nnzb * sp.bs * kc)
         sp.col_index()
-        del part, B1t, B2t
+        del part, tiled
         lead = (members,) if members is not None else ()
 
         def out(x):
@@ -304,11 +304,12 @@ def card_allocations(live: LiveBytes):
     fused_bilinear.ref_fused_xa_xtb = fused
     bcsr_fused.ref_bcsr_xa_xta = bcsr
     mu_mod.ref_mu_update_a = mu
+    bcsr_fused.plain_operands = bcsr_fused._tile
     try:
         yield
     finally:
         (fused_bilinear.ref_fused_xa_xtb, bcsr_fused.ref_bcsr_xa_xta,
-         mu_mod.ref_mu_update_a) = plain
+         mu_mod.ref_mu_update_a, bcsr_fused.plain_operands) = plain
 
 
 def _local_bcsr(sh, m: int, seed: int) -> BCSR:

@@ -922,6 +922,62 @@ def test_bcsr_kernels_take_one_slice_of_a_member_stack_on_card(cuda):
     assert rel_err(bcsr_spmm.bcsr_spmm(sl, B), ra) <= 1e-5
 
 
+@pytest.mark.parametrize("n,k,members", [(512, 5, None), (600, 10, None),
+                                         (600, 5, 2), (512, 10, 2)])
+def test_bcsr_xa_xta_prepared_operands_are_bit_identical_on_card(
+        cuda, n, k, members):
+    """``prepare``'s tiles handed to bcsr_xa_xta on each relation slice
+    (the sliced MU body's calls) give the bits of the call that tiles its
+    own B: one and two column slices, with and without a member axis, bs
+    dividing n and not; each distinct B is tiled once."""
+    rng = np.random.default_rng(n + k)
+    sp = tsp.random_bcsr(rng, m=3, n=n, bs=128, block_density=0.3,
+                         device=cuda)
+    shape = (n, k)
+    if members is not None:
+        sp = sp.with_data(torch.stack([sp.data * (1 + q)
+                                       for q in range(members)]))
+        shape = (members, n, k)
+    B1, B2 = (torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)
+              for _ in range(2))
+    for b2, tilings in ((B2, 2), (B1, 1)):
+        t0 = bcsr_fused.tiling_count()
+        tiled = bcsr_fused.prepare(sp, B1, b2)
+        assert bcsr_fused.tiling_count() - t0 == tilings
+        for t in range(sp.m):
+            sl = sp.with_data(sp.data[..., t:t + 1, :, :, :])
+            xa, xt = bcsr_fused.bcsr_xa_xta(sl, B1, b2, operands=tiled)
+            ra, rt = bcsr_fused.bcsr_xa_xta(sl, B1, b2)
+            assert torch.equal(xa, ra) and torch.equal(xt, rt)
+        assert bcsr_fused.tiling_count() - t0 == tilings * (1 + sp.m)
+
+
+def test_sliced_bcsr_iteration_tiles_once_bit_identically_on_card(
+        cuda, monkeypatch):
+    """One sliced MU iteration of the BCSR engine body, fused, on a small
+    shard: A^(j) and A^(i) tiled once for the m calls, and (A, R) the
+    bits of the same body whose calls each tile their own B."""
+    from repro_torch.dist import engine
+    from repro_torch.dist.sharding import Grid
+    rng = np.random.default_rng(5)
+    sp = tsp.random_bcsr(rng, m=4, n=600, bs=128, block_density=0.3,
+                         device=cuda)
+    A = torch.from_numpy(rng.random((600, 10), dtype=np.float32)).to(cuda)
+    R = torch.from_numpy(rng.random((4, 10, 10), dtype=np.float32)).to(cuda)
+    cfg = engine.DistRescalConfig(schedule="sliced",
+                                  kernel=KernelPolicy(use_fused=True))
+    body = engine.get_mu_iter("bcsr", "sliced")
+    grid = Grid.at_rank(0, 1, 1, 1, cuda, record=True)
+    t0 = bcsr_fused.tiling_count()
+    A1, R1 = body(grid, sp, A, R, cfg)
+    assert bcsr_fused.tiling_count() - t0 == 2
+    monkeypatch.setattr(engine, "prepare_products", lambda *a, **kw: None)
+    A0, R0 = body(grid, sp, A, R, cfg)
+    assert bcsr_fused.tiling_count() - t0 == 2 + 2 * sp.m
+    torch.cuda.synchronize()
+    assert torch.equal(A1, A0) and torch.equal(R1, R0)
+
+
 @pytest.mark.parametrize("schedule", ["batched", "sliced"])
 def test_bcsr_grid_sweep_1x1_nccl_matches_single_device(cuda, schedule):
     """The BCSR grid sweep on a one-rank NCCL grid against the

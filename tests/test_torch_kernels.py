@@ -246,6 +246,26 @@ def test_operand_tiles_are_the_kernels_layout(k, members, bs, n):
             assert len(set(chunk_reads)) == len(chunk_reads)
 
 
+def test_prepared_operands_must_be_the_calls_own():
+    """bcsr_xa_xta takes ``prepare``'s tiles on any relation slice of the
+    BCSR they were made for, and refuses them for other B tensors of the
+    same values, or for another n_pad (meta tensors: the card's path up
+    to the launch)."""
+    sp = tsp.BCSR.meta(m=3, nnzb=4, bs=32, n=100)
+    B1, B2 = torch.rand(100, 5).to("meta"), torch.rand(100, 5).to("meta")
+    tiled = bcsr_fused.prepare(sp, B1, B2)
+    assert tiled.B1t.shape == (1, 1, 128, 8)
+    xa, xt = bcsr_fused.bcsr_xa_xta(sp.with_data(sp.data[1:2]), B1, B2,
+                                    operands=tiled)
+    assert xa.shape == xt.shape == (1, 100, 5)
+    for b1, b2 in ((B2, B1), (B1.clone(), B2), (B1, B1)):
+        with pytest.raises(ValueError, match="other B tensors"):
+            bcsr_fused.bcsr_xa_xta(sp, b1, b2, operands=tiled)
+    with pytest.raises(ValueError, match="n_pad=128, not bs=32, n_pad=160"):
+        bcsr_fused.bcsr_xa_xta(tsp.BCSR.meta(m=3, nnzb=4, bs=32, n=130),
+                               B1, B2, operands=tiled)
+
+
 def test_wrapper_rejects_mismatched_member_counts():
     from repro_torch.kernels._launch import Launch
     t, B = _launch_args(operand_members=3)

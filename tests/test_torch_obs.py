@@ -552,14 +552,17 @@ def shape_of(node):
 GRID2 = (("grid/all-reduce", ()),) * 2
 
 
-def expected_iter(schedule: str, m: int):
+def expected_iter(kind: str, schedule: str, m: int):
     if schedule == "batched":
         kids = (("mu/gram", GRID2), ("mu/products", ()),
                 ("mu/r_update", GRID2), ("mu/a_update", GRID2))
     else:
         one = ("mu/slice", (("mu/products", ()), ("mu/r_update", GRID2),
                             ("mu/a_update", GRID2)))
-        kids = (("mu/gram", GRID2),) + (one,) * m + (("mu/a_update", ()),)
+        # the sliced BCSR body tiles its operands once, before the slices
+        tiles = (("mu/products", ()),) if kind == "bcsr" else ()
+        kids = ((("mu/gram", GRID2),) + tiles + (one,) * m
+                + (("mu/a_update", ()),))
     return ("mu/iter", kids)
 
 
@@ -590,7 +593,8 @@ def test_mu_iteration_span_tree(kind, schedule, fused):
     with obs.tracing() as tr:
         A1, R1 = get_mu_iter(kind, schedule)(grid, X, A, R, cfg)
     tree = span_tree(tr.events)
-    assert [shape_of(node) for node in tree] == [expected_iter(schedule, m)]
+    assert [shape_of(node) for node in tree] == [
+        expected_iter(kind, schedule, m)]
     args = tree[0][1]
     assert args["collectives"] == (6 if schedule == "batched" else 2 + 4 * m)
     assert args["collectives"] == grid.collectives
@@ -601,6 +605,38 @@ def test_mu_iteration_span_tree(kind, schedule, fused):
     A0, R0 = get_mu_iter(kind, schedule)(record_grid(), X, A, R, cfg)
     torch.testing.assert_close(A1, A0, rtol=0, atol=0)
     torch.testing.assert_close(R1, R0, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("schedule,m", [("sliced", 3), ("sliced", 5),
+                                        ("batched", 3)])
+def test_bcsr_iteration_tiles_its_operands_twice(monkeypatch, schedule, m):
+    """A fused BCSR iteration lays A^(j) and A^(i) out for bcsr_xa_xta
+    twice, whatever m: the batched body in its one call, the sliced body
+    once before its m calls (2m when each call tiles its own).  The
+    closing mu/iter record's ``tilings`` says so; a plain policy tiles
+    nothing."""
+    from repro_torch.dist import engine
+    from repro_torch.kernels.policy import KernelPolicy
+    X = tsparse.random_bcsr(np.random.default_rng(m), m=m, n=48, bs=16,
+                            block_density=0.3, device="cpu")
+    g = torch.Generator().manual_seed(m)
+    A, R = torch.rand(48, 3, generator=g), torch.rand(m, 3, 3, generator=g)
+    body = engine.get_mu_iter("bcsr", schedule)
+
+    def tilings(fused: bool):
+        cfg = engine.DistRescalConfig(schedule=schedule,
+                                      kernel=KernelPolicy(use_fused=fused))
+        with obs.tracing() as tr:
+            out = body(record_grid(), X, A, R, cfg)
+        return span_tree(tr.events)[0][1]["tilings"], out
+
+    got, (A1, R1) = tilings(True)
+    assert got == 2
+    assert tilings(False)[0] == 0
+    monkeypatch.setattr(engine, "prepare_products", lambda *a, **k: None)
+    got, (A0, R0) = tilings(True)
+    assert got == (2 * m if schedule == "sliced" else 2)
+    assert torch.equal(A1, A0) and torch.equal(R1, R0)
 
 
 def test_untraced_spans_open_no_profiler_range(monkeypatch):
